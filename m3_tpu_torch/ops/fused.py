@@ -1,0 +1,386 @@
+"""Fused chunked decode + aggregation: the CUDA lane-aggregate kernel.
+
+Port of ``m3_tpu/ops/fused.py`` (``pack_lane_inputs`` and the Pallas kernel
+``lane_aggregates_packed``). Each chunk-lane decodes its k M3TSZ records
+from its side-table state and folds every value into f32
+sum/count/min/max/last plus an err flag; only those six per-lane values
+leave the kernel.
+
+- ``pack_lanes`` lays the lanes out for the GPU: word-major windows
+  ``[CW, Npad]`` and state planes ``[17, Npad]``, so neighbouring threads
+  read neighbouring addresses. Lane order, tile size (rows × 128 lanes),
+  ``tile_flags`` and ``inv`` are exactly ``pack_lane_inputs``'s.
+- ``lane_aggregates`` launches the kernel (``csrc/lane_aggregates.cu``)
+  for CUDA tensors and runs ``lane_aggregates_reference`` for CPU tensors.
+- ``lane_aggregates_reference`` is the plain PyTorch twin of the three
+  kernel bodies, chosen per tile by ``tile_flags`` as the reference does:
+  0 general, 1 every lane int-fast, 2 every lane float-fast.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import decode as D
+
+# rows per tile: a tile is rows x 128 lanes and shares one body
+ROWS_DEFAULT = 32
+
+# Order of the state planes in the packed lane array (fused.py
+# PACKED_LANE_PLANES).
+PACKED_LANE_PLANES = (
+    "rel_pos", "num_bits", "first",
+    "prev_time_hi", "prev_time_lo", "prev_delta_hi", "prev_delta_lo",
+    "prev_float_bits_hi", "prev_float_bits_lo", "prev_xor_hi", "prev_xor_lo",
+    "int_val_hi", "int_val_lo",
+    "time_unit", "sig", "mult", "is_float",
+)
+NLANE = len(PACKED_LANE_PLANES)
+
+# Launches of the CUDA kernel, counted by lane_aggregates where it launches.
+LAUNCHES = 0
+
+
+class LaneAggregates(NamedTuple):
+    """Per-lane (= per chunk) reductions."""
+
+    sum: torch.Tensor  # f32[N]
+    count: torch.Tensor  # i32[N]
+    min: torch.Tensor  # f32[N] (+inf where empty)
+    max: torch.Tensor  # f32[N] (-inf where empty)
+    last: torch.Tensor  # f32[N] (NaN where empty)
+    err: torch.Tensor  # bool[N]
+
+
+class PackedLanes(NamedTuple):
+    """Kernel inputs on one device (see pack_lanes)."""
+
+    windows: torch.Tensor  # int32[CW, Npad]: u32 words, word-major
+    lanes: torch.Tensor  # int32[NLANE, Npad]: u32 state planes
+    tile_flags: torch.Tensor  # int32[tiles]: 0 general, 1 int-fast, 2 float-fast
+    n: int  # true lane count (before tile padding)
+    order: str  # "c" (chunk-major), "s" (series-major), "sorted"
+    inv: np.ndarray | None = None  # "sorted": int32[S]; series i sits at row inv[i]
+
+
+def _as_i32(x) -> np.ndarray:
+    x = np.asarray(x)
+    if x.dtype == np.bool_:
+        return x.astype(np.int32)
+    return x.astype(np.uint32 if x.dtype == np.uint32 else np.int32, copy=False).view(np.int32)
+
+
+def _plane(batch, name):
+    if name.endswith("_hi") or name.endswith("_lo"):
+        pair = getattr(batch, name[:-3])
+        return pair[0] if name.endswith("_hi") else pair[1]
+    return getattr(batch, name)
+
+
+def pack_lanes(batch, order: str = "c", rows: int = ROWS_DEFAULT,
+               device="cuda", n_series: int | None = None) -> PackedLanes:
+    """Lay a ChunkedBatch's lanes out for the kernel on ``device``.
+
+    ``order``: "c" chunk-major (lane j = chunk * S + series), so fast chunks
+    of one chunk position share tiles; "s" series-major; "sorted"
+    chunk-major with series grouped by their dominant fast class
+    (int-fast, float-fast, slow), so mixed workloads still fill homogeneous
+    tiles. ``n_series`` tiles the batch's series up to that count on the
+    device (series i repeats series i % S, as ``chunked.tile_chunked``),
+    so the host never holds the full-size lane arrays."""
+    dev = resolve_device(device)
+    if order not in ("c", "s", "sorted"):
+        raise ValueError(f"order must be 'c', 's' or 'sorted', got {order!r}")
+    if rows <= 0 or rows % 8:
+        raise ValueError(f"rows must be a positive multiple of 8, got {rows}")
+    s_u, c = batch.num_series, batch.num_chunks
+    s = s_u if n_series is None else int(n_series)
+    windows = np.asarray(batch.windows, np.uint32)
+    n_u, cw = windows.shape
+    n = s * c
+    tile_lanes = rows * 128
+    tiles = -(-n // tile_lanes)
+    npad = tiles * tile_lanes
+
+    inv = None
+    perm = None
+    if order == "sorted":
+        def per_series(flags):
+            if flags is None:
+                return np.zeros(s, np.int64)
+            cnt = np.asarray(flags, bool).reshape(s_u, c).sum(axis=1)
+            return cnt[np.arange(s) % s_u]
+
+        int_cnt = per_series(getattr(batch, "fast", None))
+        flt_cnt = per_series(getattr(batch, "fast_float", None))
+        group = np.where(
+            (int_cnt > 0) & (int_cnt >= flt_cnt), 0, np.where(flt_cnt > 0, 1, 2)
+        )
+        perm = np.argsort(group, kind="stable")
+        inv = np.argsort(perm).astype(np.int32)
+
+    # packed lane j -> source lane of the unique batch (n_u = zero lane)
+    j = torch.arange(npad, device=dev)
+    if order == "s":
+        si, ci = j // c, j % c
+    else:
+        si, ci = j % s, j // s
+        if perm is not None:
+            si = torch.from_numpy(perm).to(dev)[si]
+    src = torch.where(j < n, (si % s_u) * c + ci, n_u)
+    del j, si, ci
+
+    def gather(host_rows: np.ndarray) -> torch.Tensor:
+        """[R, n_u] host int32 -> [R, npad] on dev, zero on padding lanes."""
+        ext = np.zeros((host_rows.shape[0], n_u + 1), np.int32)
+        ext[:, :n_u] = host_rows
+        return torch.from_numpy(ext).to(dev)[:, src].contiguous()
+
+    win = gather(np.ascontiguousarray(windows.T).view(np.int32))
+    lanes = gather(np.stack([_as_i32(_plane(batch, p)) for p in PACKED_LANE_PLANES]))
+
+    def tile_all(flags) -> torch.Tensor:
+        if flags is None:
+            return torch.zeros(tiles, dtype=torch.bool, device=dev)
+        ext = np.ones(n_u + 1, bool)  # padding lanes never force a tile slow
+        ext[:n_u] = np.asarray(flags, bool)
+        lane_flags = torch.from_numpy(ext).to(dev)[src]
+        return lane_flags.reshape(tiles, tile_lanes).all(dim=1)
+
+    int_tiles = tile_all(getattr(batch, "fast", None))
+    flt_tiles = tile_all(getattr(batch, "fast_float", None))
+    tile_flags = torch.where(
+        int_tiles, 1, torch.where(flt_tiles, 2, 0)
+    ).to(torch.int32)
+    return PackedLanes(
+        windows=win, lanes=lanes, tile_flags=tile_flags, n=n, order=order, inv=inv,
+    )
+
+
+def _check_inputs(windows, lanes, tile_flags, n, k):
+    if windows.dtype != torch.int32 or lanes.dtype != torch.int32:
+        raise TypeError("windows and lanes must be int32 tensors of u32 bit patterns")
+    if windows.dim() != 2 or lanes.dim() != 2 or lanes.shape[0] != NLANE:
+        raise ValueError(f"want windows [CW, Npad] and lanes [{NLANE}, Npad]")
+    npad = windows.shape[1]
+    if lanes.shape[1] != npad or not 0 <= n <= npad:
+        raise ValueError("lane counts disagree")
+    if tile_flags.dtype != torch.int32 or tile_flags.dim() != 1:
+        raise TypeError("tile_flags must be int32[tiles]")
+    tiles = tile_flags.shape[0]
+    if tiles == 0 or npad % tiles:
+        raise ValueError("Npad must be a multiple of the tile count")
+    if tile_flags.device != windows.device:
+        raise ValueError("tile_flags and windows lie on different devices")
+    if lanes.device != windows.device:
+        raise ValueError("windows and lanes lie on different devices")
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+
+
+def lane_aggregates(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
+    """Decode k records per lane and fold them into per-lane aggregates.
+
+    For CUDA tensors this launches the kernel (and raises if the build or
+    the launch fails); for CPU tensors it runs the plain twin."""
+    _check_inputs(windows, lanes, tile_flags, n, k)
+    if windows.device.type == "cpu":
+        return lane_aggregates_reference(windows, lanes, tile_flags, n, k)
+    if windows.device.type != "cuda":
+        raise ValueError(f"unsupported device {windows.device}")
+    return _launch(windows, lanes, tile_flags, n, k)
+
+
+def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
+    global LAUNCHES
+    from ._build import load_library
+
+    lib = load_library()
+    windows = windows.contiguous()
+    lanes = lanes.contiguous()
+    cw, npad = windows.shape
+    dev = windows.device
+    tile_flags = tile_flags.contiguous()
+    tile_lanes = npad // tile_flags.shape[0]
+    out_f = torch.empty((4, npad), dtype=torch.float32, device=dev)
+    out_cnt = torch.empty(npad, dtype=torch.int32, device=dev)
+    out_err = torch.empty(npad, dtype=torch.uint8, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_lane_aggregates(
+            ptr(windows), ptr(lanes), ptr(tile_flags),
+            ctypes.c_int64(npad), ctypes.c_int(cw), ctypes.c_int(D.barrel_mask(cw)),
+            ctypes.c_int(k), ctypes.c_int64(tile_lanes),
+            ptr(out_f), ptr(out_cnt), ptr(out_err), ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"lane_aggregates kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return LaneAggregates(
+        sum=out_f[0, :n], count=out_cnt[:n], min=out_f[1, :n], max=out_f[2, :n],
+        last=out_f[3, :n], err=out_err[:n].view(torch.bool),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twin (CPU tests; compared with the kernel on the card)
+# ---------------------------------------------------------------------------
+
+# lanes per block of the twin: bounds its temporaries at full size
+_TWIN_BLOCK_LANES = 1 << 20
+
+
+def _min_nan(a, b):
+    """jnp.minimum: NaN if either is NaN; of equal values the one with the
+    sign bit (min(+0, -0) = -0 in either order)."""
+    tie = (a.view(torch.int32) | b.view(torch.int32)).view(torch.float32)
+    m = torch.where(a < b, a, torch.where(b < a, b, tie))
+    return torch.where(torch.isnan(a) | torch.isnan(b), torch.nan, m)
+
+
+def _max_nan(a, b):
+    tie = (a.view(torch.int32) & b.view(torch.int32)).view(torch.float32)
+    m = torch.where(a > b, a, torch.where(b > a, b, tie))
+    return torch.where(torch.isnan(a) | torch.isnan(b), torch.nan, m)
+
+
+class _Acc:
+    """The five running aggregates of a set of lanes."""
+
+    def __init__(self, like):
+        f = torch.float32
+        self.sum = torch.zeros(like.shape, dtype=f, device=like.device)
+        self.count = torch.zeros(like.shape, dtype=torch.int32, device=like.device)
+        self.min = torch.full(like.shape, torch.inf, dtype=f, device=like.device)
+        self.max = torch.full(like.shape, -torch.inf, dtype=f, device=like.device)
+        self.last = torch.full(like.shape, torch.nan, dtype=f, device=like.device)
+
+    def fold(self, valid, v):
+        self.sum = D._ftz(self.sum + torch.where(valid, v, 0.0))
+        self.count = self.count + valid.to(torch.int32)
+        self.min = _min_nan(self.min, torch.where(valid, v, torch.inf))
+        self.max = _max_nan(self.max, torch.where(valid, v, -torch.inf))
+        self.last = torch.where(valid, v, self.last)
+
+
+def _run_general(fetch, ln, k, acc):
+    """General body (fused.py _run_lane_tile, int_optimized)."""
+    rel = D.as_i32(ln["rel_pos"])
+    num_bits = D.as_i32(ln["num_bits"])
+    zero = torch.zeros_like(rel)
+    state = D.DecodeState(
+        pos=zero,
+        done=num_bits <= rel,
+        err=torch.zeros_like(rel, dtype=torch.bool),
+        prev_time=(ln["prev_time_hi"], ln["prev_time_lo"]),
+        prev_delta=(ln["prev_delta_hi"], ln["prev_delta_lo"]),
+        time_unit=D.as_i32(ln["time_unit"]),
+        prev_float_bits=(ln["prev_float_bits_hi"], ln["prev_float_bits_lo"]),
+        prev_xor=(ln["prev_xor_hi"], ln["prev_xor_lo"]),
+        int_val=(ln["int_val_hi"], ln["int_val_lo"]),
+        mult=D.as_i32(ln["mult"]),
+        sig=D.as_i32(ln["sig"]),
+        is_float=ln["is_float"] != 0,
+    )
+    first_chunk = ln["first"] != 0
+    never = torch.zeros_like(first_chunk)
+    nb = num_bits - rel
+    nt = D._extract(fetch(zero), 0, 64)
+    for idx in range(k):
+        first = first_chunk if idx == 0 else never
+        was_active = ~state.done & ~state.err
+        state = D._decode_timestamp(fetch, nb, state, first, nt)
+        ts_active = ~state.done & ~state.err
+        state = D._decode_value(fetch, state, first)
+        valid = was_active & ts_active & ~state.done & ~state.err
+        v = torch.where(
+            state.is_float,
+            D.f64_bits_to_f32(state.prev_float_bits),
+            D._int_val_to_f32(state.int_val, state.mult),
+        )
+        acc.fold(valid, v)
+    return state.err
+
+
+def _run_fast_int(fetch, ln, k, acc):
+    """Int-fast body (fused.py _run_lane_tile_fast)."""
+    rel = D.as_i32(ln["rel_pos"])
+    active = D.as_i32(ln["num_bits"]) > rel
+    pos = torch.zeros_like(rel)
+    iv = D.as_i32(ln["int_val_lo"])
+    sig, mult = D.as_i32(ln["sig"]), D.as_i32(ln["mult"])
+    for _ in range(k):
+        pos = pos + D._ts_consumed_fast(fetch(pos))
+        pos, iv, sig, mult = D._decode_value_fast(fetch, pos, iv, sig, mult)
+        acc.fold(active, D._int32_val_to_f32(iv, mult))
+    return torch.zeros_like(active)
+
+
+def _run_fast_float(fetch, ln, k, acc):
+    """Float-fast body (fused.py _run_lane_tile_fast_float)."""
+    rel = D.as_i32(ln["rel_pos"])
+    active = D.as_i32(ln["num_bits"]) > rel
+    pos = torch.zeros_like(rel)
+    pfb = (ln["prev_float_bits_hi"], ln["prev_float_bits_lo"])
+    pxr = (ln["prev_xor_hi"], ln["prev_xor_lo"])
+    for _ in range(k):
+        pos = pos + D._ts_consumed_fast(fetch(pos))
+        ws = fetch(pos)
+        repeat = D._extract32(ws, 0, 1) == 0
+        nb, nx, consumed = D._read_xor(ws, 1, pfb, pxr)
+        pfb = D.pair_select(repeat, pfb, nb)
+        pxr = D.pair_select(repeat, pxr, nx)
+        pos = pos + torch.where(repeat, 2, 1 + consumed)
+        acc.fold(active, D.f64_bits_to_f32(pfb))
+    return torch.zeros_like(active)
+
+
+_BODIES = {0: _run_general, 1: _run_fast_int, 2: _run_fast_float}
+
+
+def lane_aggregates_reference(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
+    """Plain PyTorch version of the kernel, on any device. Lanes are decoded
+    in blocks of whole tiles; within a block each body runs on the lanes of
+    the tiles whose flag selects it."""
+    _check_inputs(windows, lanes, tile_flags, n, k)
+    cw, npad = windows.shape
+    dev = windows.device
+    mask = D.barrel_mask(cw)
+    tile_lanes = npad // tile_flags.shape[0]
+    block = max(tile_lanes, _TWIN_BLOCK_LANES // tile_lanes * tile_lanes)
+
+    out = _Acc(torch.empty(npad, device=dev))
+    out_err = torch.zeros(npad, dtype=torch.bool, device=dev)
+    for start in range(0, npad, block):
+        stop = min(start + block, npad)
+        lane = torch.arange(start, stop, device=dev)
+        lane_flag = tile_flags[lane // tile_lanes]
+        for cls, body in _BODIES.items():
+            idx = lane[lane_flag == cls]
+            if idx.numel() == 0:
+                continue
+            words = windows[:, idx].T.to(torch.int64) & D.M32
+            win_ext = torch.zeros((idx.numel(), mask + 4), dtype=torch.int64, device=dev)
+            win_ext[:, :cw] = words
+            planes = lanes[:, idx].to(torch.int64) & D.M32
+            ln = {name: planes[i] for i, name in enumerate(PACKED_LANE_PLANES)}
+            rel = D.as_i32(ln["rel_pos"])
+
+            def fetch(pos, win_ext=win_ext, rel=rel):
+                return D.fetch4(win_ext, mask, rel, pos)
+
+            acc = _Acc(rel)
+            err = body(fetch, ln, k, acc)
+            for name in ("sum", "count", "min", "max", "last"):
+                getattr(out, name)[idx] = getattr(acc, name)
+            out_err[idx] = err
+    return LaneAggregates(
+        sum=out.sum[:n], count=out.count[:n], min=out.min[:n], max=out.max[:n],
+        last=out.last[:n], err=out_err[:n],
+    )

@@ -9,3 +9,9 @@ m3_tpu.testing.cpu_mesh (shared with __graft_entry__.dryrun_multichip).
 from m3_tpu.testing.cpu_mesh import force_cpu_mesh
 
 force_cpu_mesh(8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (a CUDA kernel has no CPU mode); skips without one"
+    )
