@@ -1,4 +1,5 @@
-"""m3_tpu_torch — the PyTorch/CUDA port of m3_tpu's scan-and-aggregate path.
+"""m3_tpu_torch — the PyTorch/CUDA port of m3_tpu: the scan-and-aggregate
+path and PromQL range queries over M3TSZ blocks.
 
 The package mirrors ``m3_tpu``'s module names so each counterpart is easy to
 find (``ops/fused.py`` here is the port of ``m3_tpu/ops/fused.py``). It

@@ -1,9 +1,11 @@
-"""Build and load the port's CUDA kernels (nvcc into a shared library with a
-plain C interface, loaded with ctypes).
+"""Build and load the port's CUDA kernels (nvcc into shared libraries with
+a plain C interface, loaded with ctypes).
 
-The library is compiled at first use into ``build/kernels/`` at the root
-of the checkout (listed in .gitignore), named by a hash of the source and
-flags so an edited source is rebuilt. A failed build raises.
+Each source in ``SOURCES`` becomes its own library, compiled at first use
+into ``build/kernels/`` at the root of the checkout (listed in .gitignore)
+and named by a hash of the source and its flags, so an edited source is
+rebuilt. ``build_all`` starts one nvcc per source at once and waits for
+all of them. A failed build raises.
 """
 
 from __future__ import annotations
@@ -16,20 +18,46 @@ import subprocess
 import threading
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCE = CSRC / "lane_aggregates.cu"
+PKG = Path(__file__).resolve().parents[1]
+BUILD_DIR = PKG.parent / "build" / "kernels"
 
-# -fmad=false and -ftz=true are part of the kernel's contract with the
-# reference's f32 arithmetic (see the note at the top of the source)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-ftz=true", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+_COMMON = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+# library -> (source, nvcc flags, {entry: argtypes}). The flags are part of
+# each kernel's contract with the reference's f32 arithmetic (see the note at
+# the top of each source): -fmad=false everywhere; -ftz=true only for the
+# lane decode, whose reference flushes f32 subnormals as XLA does.
+SOURCES = {
+    "lane_aggregates": (
+        PKG / "ops" / "csrc" / "lane_aggregates.cu",
+        _COMMON + ("-ftz=true",),
+        {
+            # windows, lanes, flags, npad, cw, mask, k, tile_lanes,
+            # out_f, out_cnt, out_err, stream
+            "m3_lane_aggregates": [_P, _P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P],
+            # windows, lanes, npad, n, cw, mask, k,
+            # out_ts, out_bits, out_pif, out_mult, out_valid, out_err, stream
+            "m3_decode_records": [_P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        },
+    ),
+    "temporal_fused": (
+        PKG / "query" / "functions" / "csrc" / "temporal_fused.cu",
+        _COMMON,
+        {
+            # x, rows, cols, window, step_seconds, outs, fns, nfn, stream
+            "m3_temporal_fused": [_P, _I64, _I, _I, ctypes.c_double, _P, _P, _I, _P],
+        },
+    ),
+}
+
 _lock = threading.Lock()
-_lib = None
-BUILD_LOG = ""  # nvcc's output (ptxas register/spill report) of the last build
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # nvcc's output (ptxas register/spill report) per library
 
 
 def nvcc_path() -> str:
@@ -42,42 +70,51 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lane_aggregates_{digest[:16]}.so"
+def library_path(name: str) -> Path:
+    source, flags, _ = SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path."""
-    global BUILD_LOG
-    out = library_path()
-    if out.exists():
-        return out
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every library in ``names`` (default: all) that is not built
+    yet, one nvcc process per source, all started together. Returns the
+    library paths; raises if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    return out
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        source, flags, _ = SOURCES[name]
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
+        running[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on first call), with the ctypes
+    signatures of its entries set."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.m3_lane_aggregates
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # windows, lanes, flags
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # npad, cw, mask, k
-                ctypes.c_int64,  # tile_lanes
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_f, out_cnt, out_err
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            for entry, argtypes in SOURCES[name][2].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib

@@ -1,10 +1,13 @@
-"""Chunked M3TSZ lanes: host prescan and side tables (host half).
+"""Chunked M3TSZ lanes: host prescan, side tables and the records decode.
 
-Port of the host half of ``m3_tpu/ops/chunked.py``. Streams are split into
-chunks of k records; each chunk carries a snapshot of the decoder state at
-its start, so the device decodes S×C independent chunk-lanes of at most k
-records each. Everything here is numpy on the host; the device half (the
-lane decode + fold) is ``ops/fused.py``.
+Port of ``m3_tpu/ops/chunked.py``. Streams are split into chunks of k
+records; each chunk carries a snapshot of the decoder state at its start,
+so the device decodes S×C independent chunk-lanes of at most k records
+each. The host half (prescan, side tables) is numpy. The device half
+decodes packed lanes (``ops/fused.pack_lanes``) to per-record timestamps
+and value bits: ``decode_chunked_lanes`` launches kernel R for CUDA tensors
+and runs its twin for CPU tensors. The lane decode + fold is
+``ops/fused.py``.
 """
 
 from __future__ import annotations
@@ -12,9 +15,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..codec.m3tsz import DEFAULT_INT_OPTIMIZATION, ReaderIterator
 from ..utils.xtime import Unit, initial_time_unit
+from . import decode as D
+from . import fused
 
 # Decoder-state fields stored as (hi, lo) uint32 pairs.
 STATE_PAIR_FIELDS = ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val")
@@ -351,3 +357,102 @@ def select_series(batch: ChunkedBatch, series_idx) -> ChunkedBatch:
     c = batch.num_chunks
     lanes = (sel[:, None] * c + np.arange(c)[None, :]).ravel()
     return _rebatch(batch, lambda x: np.take(np.asarray(x), lanes, axis=0), int(sel.size))
+
+
+# ---------------------------------------------------------------------------
+# Device half: chunk-lanes decoded to records (kernel R and its twin)
+# ---------------------------------------------------------------------------
+
+# Launches of kernel R, counted by decode_chunked_lanes where it launches.
+LAUNCHES = 0
+
+# lanes per block of the twin: bounds its temporaries at full size
+_TWIN_BLOCK_LANES = 1 << 20
+
+
+def decode_chunked_lanes(windows, lanes, n: int, k: int) -> D.DecodeResult:
+    """Decode k records of each of the first ``n`` lanes with the general
+    body (m3_tpu/ops/chunked.py:460 decode_chunked_lanes, int_optimized).
+    Records come out lane-major, [n, k]; ``err`` is per lane.
+
+    For CUDA tensors this launches kernel R (``csrc/lane_aggregates.cu``
+    m3_decode_records) and raises if the build or the launch fails; for CPU
+    tensors it runs the plain twin."""
+    fused.check_lanes(windows, lanes, n, k)
+    if windows.device.type == "cpu":
+        return decode_chunked_lanes_reference(windows, lanes, n, k)
+    if windows.device.type != "cuda":
+        raise ValueError(f"unsupported device {windows.device}")
+    if n == 0:  # nothing to launch: empty records
+        return decode_chunked_lanes_reference(windows, lanes, n, k)
+    return _launch_records(windows, lanes, n, k)
+
+
+def _launch_records(windows, lanes, n, k) -> D.DecodeResult:
+    global LAUNCHES
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library("lane_aggregates")
+    windows = windows.contiguous()
+    lanes = lanes.contiguous()
+    cw, npad = windows.shape
+    dev = windows.device
+    ts = torch.empty((n, k), dtype=torch.int64, device=dev)
+    bits = torch.empty((n, k), dtype=torch.int64, device=dev)
+    small = torch.empty((3, n, k), dtype=torch.uint8, device=dev)  # pif, mult, valid
+    err = torch.empty(n, dtype=torch.uint8, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_decode_records(
+            ptr(windows), ptr(lanes), ctypes.c_int64(npad), ctypes.c_int64(n),
+            ctypes.c_int(cw), ctypes.c_int(D.barrel_mask(cw)), ctypes.c_int(k),
+            ptr(ts), ptr(bits), ptr(small[0]), ptr(small[1]), ptr(small[2]), ptr(err),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"decode_records kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return D.DecodeResult(
+        ts=ts, bits=bits, point_is_float=small[0].view(torch.bool), mult=small[1],
+        valid=small[2].view(torch.bool), err=err.view(torch.bool),
+    )
+
+
+def decode_chunked_lanes_reference(windows, lanes, n: int, k: int) -> D.DecodeResult:
+    """Plain PyTorch version of kernel R, on any device: the record step of
+    ops/decode.py run with the general body on every lane, in blocks."""
+    fused.check_lanes(windows, lanes, n, k)
+    dev = windows.device
+    ts = torch.empty((n, k), dtype=torch.int64, device=dev)
+    bits = torch.empty((n, k), dtype=torch.int64, device=dev)
+    pif = torch.empty((n, k), dtype=torch.bool, device=dev)
+    mult = torch.empty((n, k), dtype=torch.uint8, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    err = torch.zeros(n, dtype=torch.bool, device=dev)
+    for start in range(0, n, _TWIN_BLOCK_LANES):
+        rows = slice(start, min(start + _TWIN_BLOCK_LANES, n))
+        fetch, ln = fused.lane_inputs(windows, lanes, rows)
+        for idx, (ok, st) in enumerate(fused.walk_general(fetch, ln, k)):
+            ts[rows, idx] = D.pair_to_i64(st.prev_time)
+            bits[rows, idx] = D.pair_to_i64(D.pair_select(st.is_float, st.prev_float_bits, st.int_val))
+            pif[rows, idx] = st.is_float
+            mult[rows, idx] = st.mult.to(torch.uint8)
+            valid[rows, idx] = ok
+        err[rows] = st.err
+    return D.DecodeResult(ts=ts, bits=bits, point_is_float=pif, mult=mult, valid=valid, err=err)
+
+
+def decode_chunked(windows, lanes, s: int, c: int, k: int) -> D.DecodeResult:
+    """Decode the lanes of ``s`` series, ``c`` chunk-lanes each, laid out
+    series-major (lane = series * c + chunk, as ``fused.pack_lanes(order="s")``
+    packs them), to per-series rows [S, C*K] (chunked.py:550
+    decode_chunked); ``err`` is per series."""
+    res = decode_chunked_lanes(windows, lanes, n=s * c, k=k)
+    rs = lambda x: x.reshape(s, c * k)
+    return D.DecodeResult(
+        ts=rs(res.ts), bits=rs(res.bits), point_is_float=rs(res.point_is_float),
+        mult=rs(res.mult), valid=rs(res.valid), err=res.err.reshape(s, c).any(dim=1),
+    )

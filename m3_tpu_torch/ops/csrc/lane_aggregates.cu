@@ -43,6 +43,14 @@
 // - Markers: EOS ends a lane; annotations and unsupported time units set
 //   err; a time-unit marker switches the unit and reads a 64-bit dod.
 //
+// Kernel R, the second entry (m3_decode_records), writes records instead of
+// folding them: the general body's per-record timestamp, raw value bits,
+// point_is_float, mult and valid, plus err per lane. It replaces XLA code,
+// not a Pallas kernel: m3_tpu/ops/chunked.py:460 decode_chunked_lanes. Bound:
+// memory, as B1's: the lanes' window words and 17 planes read, 19 bytes per
+// record and 1 per lane written. Its records leave through shared memory so
+// that the stores to device memory are coalesced (see decode_records_kernel).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // -ftz=true -shared (ops/_build.py). Without __CUDACC__ the same per-lane
 // code compiles as host C++ (with FTZ/DAZ set), which the CPU tests use to
@@ -419,8 +427,11 @@ M3_HD int ts_consumed_fast(const Window& ws) {
 // The three bodies
 // ---------------------------------------------------------------------------
 
-// _run_lane_tile (int_optimized)
-M3_HD bool run_general(const LaneRef& L, int k, Acc& acc) {
+// The general body's record walk (_run_lane_tile with int_optimized, and
+// chunked.py decode_chunked_lanes' step): emit(idx, valid, state) after each
+// record. Returns the lane's err flag.
+template <class Emit>
+M3_HD bool walk_general(const LaneRef& L, int k, Emit&& emit) {
   const int num_bits = (int32_t)L.plane(NBITS);
   State st;
   st.pos = 0;
@@ -444,12 +455,18 @@ M3_HD bool run_general(const LaneRef& L, int k, Acc& acc) {
     decode_timestamp(L, nb, st, first, nt);
     const bool ts_active = !st.done && !st.err;
     decode_value(L, st, first);
-    const bool valid = was_active && ts_active && !st.done && !st.err;
+    emit(idx, was_active && ts_active && !st.done && !st.err, st);
+  }
+  return st.err;
+}
+
+// _run_lane_tile (int_optimized)
+M3_HD bool run_general(const LaneRef& L, int k, Acc& acc) {
+  return walk_general(L, k, [&](int, bool valid, const State& st) {
     const float v = st.is_float ? f64_bits_to_f32(st.prev_float_bits)
                                 : to_f32(st.int_val) * mult_rcp(st.mult);
     acc.fold(valid, v);
-  }
-  return st.err;
+  });
 }
 
 // _run_lane_tile_fast: int-mode, marker-free, int32-safe chunks
@@ -507,9 +524,8 @@ M3_HD void run_fast_float(const LaneRef& L, int k, Acc& acc) {
   }
 }
 
-M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int32_t* tile_flags,
-                       int64_t npad, int cw, int mask, int k, int64_t tile_lanes, int64_t lane,
-                       float* out_f, int32_t* out_cnt, uint8_t* out_err) {
+M3_HD LaneRef lane_ref(const uint32_t* windows, const uint32_t* lanes, int64_t npad, int cw,
+                       int mask, int64_t lane) {
   LaneRef L;
   L.win = windows + lane;
   L.planes = lanes + lane;
@@ -517,6 +533,13 @@ M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int
   L.cw = cw;
   L.mask = mask;
   L.rel = (int32_t)L.plane(REL);
+  return L;
+}
+
+M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int32_t* tile_flags,
+                       int64_t npad, int cw, int mask, int k, int64_t tile_lanes, int64_t lane,
+                       float* out_f, int32_t* out_cnt, uint8_t* out_err) {
+  const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, lane);
   const int flag = M3_LOAD(tile_flags + lane / tile_lanes);
   Acc acc;
   acc.init();
@@ -549,6 +572,72 @@ lane_aggregates_kernel(const uint32_t* __restrict__ windows, const uint32_t* __r
   decode_lane(windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, lane, out_f, out_cnt,
               out_err);
 }
+
+// Kernel R: the general body's records, one thread per lane. Each thread
+// stages its k records in shared memory (row stride k|1, odd, so 64-bit
+// stores and loads are free of bank conflicts); then the block writes its
+// lanes' records out as one contiguous range of the lane-major [n, k]
+// arrays, so the stores to device memory are coalesced.
+constexpr int kRecThreads = 64;
+constexpr int kRecBytes = 8 + 8 + 1 + 1 + 1;  // ts, bits, pif, mult, valid
+
+__global__ void __launch_bounds__(kRecThreads)
+decode_records_kernel(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ lanes,
+                      int64_t npad, int64_t n, int cw, int mask, int k,
+                      int64_t* __restrict__ out_ts, int64_t* __restrict__ out_bits,
+                      uint8_t* __restrict__ out_pif, uint8_t* __restrict__ out_mult,
+                      uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_err) {
+  extern __shared__ int64_t smem[];
+  const int ks = k | 1;
+  int64_t* s_ts = smem;
+  int64_t* s_bits = s_ts + kRecThreads * ks;
+  uint8_t* s_pif = reinterpret_cast<uint8_t*>(s_bits + kRecThreads * ks);
+  uint8_t* s_mult = s_pif + kRecThreads * ks;
+  uint8_t* s_valid = s_mult + kRecThreads * ks;
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x * kRecThreads;
+  if (base + t < n) {
+    const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, base + t);
+    const bool err = walk_general(L, k, [&](int idx, bool valid, const State& st) {
+      const int i = t * ks + idx;
+      s_ts[i] = (int64_t)st.prev_time;
+      s_bits[i] = (int64_t)(st.is_float ? st.prev_float_bits : st.int_val);
+      s_pif[i] = st.is_float ? 1 : 0;
+      s_mult[i] = (uint8_t)st.mult;
+      s_valid[i] = valid ? 1 : 0;
+    });
+    out_err[base + t] = err ? 1 : 0;
+  }
+  __syncthreads();
+  const int64_t here = n - base < kRecThreads ? n - base : kRecThreads;
+  const int total = (int)here * k;
+  const int64_t o = base * k;
+  for (int i = t; i < total; i += kRecThreads) {
+    const int j = (i / k) * ks + i % k;
+    out_ts[o + i] = s_ts[j];
+    out_bits[o + i] = s_bits[j];
+    out_pif[o + i] = s_pif[j];
+    out_mult[o + i] = s_mult[j];
+    out_valid[o + i] = s_valid[j];
+  }
+}
+#else
+// One lane's records straight into the lane-major [n, k] outputs.
+void decode_lane_records(const uint32_t* windows, const uint32_t* lanes, int64_t npad, int cw,
+                         int mask, int k, int64_t lane, int64_t* out_ts, int64_t* out_bits,
+                         uint8_t* out_pif, uint8_t* out_mult, uint8_t* out_valid,
+                         uint8_t* out_err) {
+  const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, lane);
+  const bool err = walk_general(L, k, [&](int idx, bool valid, const State& st) {
+    const int64_t i = lane * k + idx;
+    out_ts[i] = (int64_t)st.prev_time;
+    out_bits[i] = (int64_t)(st.is_float ? st.prev_float_bits : st.int_val);
+    out_pif[i] = st.is_float ? 1 : 0;
+    out_mult[i] = (uint8_t)st.mult;
+    out_valid[i] = valid ? 1 : 0;
+  });
+  out_err[lane] = err ? 1 : 0;
+}
 #endif
 
 }  // namespace
@@ -568,6 +657,33 @@ extern "C" int m3_lane_aggregates(const uint32_t* windows, const uint32_t* lanes
   }
   return (int)cudaGetLastError();
 }
+
+// Kernel R. windows u32[cw, npad], lanes u32[17, npad] as for
+// m3_lane_aggregates; the first n lanes are decoded with the general body.
+// Outputs, lane-major [n, k]: out_ts i64 (prev_time after each record),
+// out_bits i64 (f64 bits if the point is float, else the int value),
+// out_pif / out_mult / out_valid u8; out_err u8[n]. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue if k needs
+// more shared memory than a block has).
+extern "C" int m3_decode_records(const uint32_t* windows, const uint32_t* lanes, int64_t npad,
+                                 int64_t n, int cw, int mask, int k, int64_t* out_ts,
+                                 int64_t* out_bits, uint8_t* out_pif, uint8_t* out_mult,
+                                 uint8_t* out_valid, uint8_t* out_err, void* stream) {
+  const size_t smem = (size_t)kRecThreads * (size_t)(k | 1) * kRecBytes;
+  if (k <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 49152) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_records_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n > 0) {
+    const int64_t blocks = (n + kRecThreads - 1) / kRecThreads;
+    decode_records_kernel<<<(unsigned)blocks, kRecThreads, smem, (cudaStream_t)stream>>>(
+        windows, lanes, npad, n, cw, mask, k, out_ts, out_bits, out_pif, out_mult, out_valid,
+        out_err);
+  }
+  return (int)cudaGetLastError();
+}
 #else
 // Host build of the same per-lane code, with subnormals flushed as -ftz=true
 // flushes them on the card.
@@ -582,6 +698,18 @@ extern "C" int m3_lane_aggregates_host(const uint32_t* windows, const uint32_t* 
                 out_err);
   }
   _mm_setcsr(csr);
+  return 0;
+}
+
+// Host build of kernel R (no f32 arithmetic, so no FTZ setting needed).
+extern "C" int m3_decode_records_host(const uint32_t* windows, const uint32_t* lanes, int64_t npad,
+                                      int64_t n, int cw, int mask, int k, int64_t* out_ts,
+                                      int64_t* out_bits, uint8_t* out_pif, uint8_t* out_mult,
+                                      uint8_t* out_valid, uint8_t* out_err) {
+  for (int64_t lane = 0; lane < n; ++lane) {
+    decode_lane_records(windows, lanes, npad, cw, mask, k, lane, out_ts, out_bits, out_pif,
+                        out_mult, out_valid, out_err);
+  }
   return 0;
 }
 #endif

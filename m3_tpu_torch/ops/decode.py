@@ -592,3 +592,48 @@ def _int32_val_to_f32(iv, mult):
 def _int_val_to_f32(pair, mult):
     v = to_f32(pair)
     return v * _mult_reciprocal(mult, v)
+
+
+# ---------------------------------------------------------------------------
+# Decoded records and their exact f64 values
+# ---------------------------------------------------------------------------
+
+
+class DecodeResult(NamedTuple):
+    """Per-record outputs of the chunked decode, [S, T] (or [N, K] per
+    lane): ``m3_tpu/ops/decode.py`` DecodeResult with native 64-bit fields in
+    place of its (hi, lo) pairs. ``values_f32`` is not carried: no caller on
+    the port's query path reads it (finalize_decode gives exact values)."""
+
+    ts: torch.Tensor  # int64: prev_time after each record (nanos)
+    bits: torch.Tensor  # int64: float64 bits if point_is_float, else the int value
+    point_is_float: torch.Tensor  # bool
+    mult: torch.Tensor  # uint8: decimal exponent of an int point (0..6)
+    valid: torch.Tensor  # bool
+    err: torch.Tensor  # bool[S] (or [N]): decode hit an unsupported feature
+
+
+def pair_to_i64(a):
+    """A (hi, lo) pair of u32 words → the int64 with those 64 bits."""
+    return as_i32(a[0]) * 2**32 + a[1]
+
+
+# 10**m for m in 0..6 as exact float64 constants: np.power(10.0, m) is exact
+# there, a device pow is not guaranteed to be
+_POW10 = (1.0, 10.0, 100.0, 1e3, 1e4, 1e5, 1e6)
+
+
+def finalize_values(bits, point_is_float, mult):
+    """Exact f64 values (decode.py finalize_decode): float points are their
+    bits viewed as f64, int points int64 → f64 divided by 10**mult, the CPU
+    iterator's convertFromIntFloat arithmetic, so values equal numpy's bit
+    for bit."""
+    table = torch.tensor(_POW10, dtype=torch.float64, device=bits.device)
+    scale = table[mult.to(torch.int64).clamp(0, len(_POW10) - 1)]
+    return torch.where(point_is_float, bits.view(torch.float64), bits.to(torch.float64) / scale)
+
+
+def finalize_decode(res: DecodeResult):
+    """(timestamps int64, values float64, valid bool) on the records'
+    device (m3_tpu/ops/decode.py:656 finalize_decode)."""
+    return res.ts, finalize_values(res.bits, res.point_is_float, res.mult), res.valid

@@ -162,25 +162,29 @@ def pack_lanes(batch, order: str = "c", rows: int = ROWS_DEFAULT,
     )
 
 
-def _check_inputs(windows, lanes, tile_flags, n, k):
+def check_lanes(windows, lanes, n, k):
+    """Raise on packed lanes a kernel does not take."""
     if windows.dtype != torch.int32 or lanes.dtype != torch.int32:
         raise TypeError("windows and lanes must be int32 tensors of u32 bit patterns")
     if windows.dim() != 2 or lanes.dim() != 2 or lanes.shape[0] != NLANE:
         raise ValueError(f"want windows [CW, Npad] and lanes [{NLANE}, Npad]")
-    npad = windows.shape[1]
-    if lanes.shape[1] != npad or not 0 <= n <= npad:
+    if lanes.shape[1] != windows.shape[1] or not 0 <= n <= windows.shape[1]:
         raise ValueError("lane counts disagree")
-    if tile_flags.dtype != torch.int32 or tile_flags.dim() != 1:
-        raise TypeError("tile_flags must be int32[tiles]")
-    tiles = tile_flags.shape[0]
-    if tiles == 0 or npad % tiles:
-        raise ValueError("Npad must be a multiple of the tile count")
-    if tile_flags.device != windows.device:
-        raise ValueError("tile_flags and windows lie on different devices")
     if lanes.device != windows.device:
         raise ValueError("windows and lanes lie on different devices")
     if k <= 0:
         raise ValueError(f"k must be positive, got {k}")
+
+
+def _check_inputs(windows, lanes, tile_flags, n, k):
+    check_lanes(windows, lanes, n, k)
+    if tile_flags.dtype != torch.int32 or tile_flags.dim() != 1:
+        raise TypeError("tile_flags must be int32[tiles]")
+    tiles = tile_flags.shape[0]
+    if tiles == 0 or windows.shape[1] % tiles:
+        raise ValueError("Npad must be a multiple of the tile count")
+    if tile_flags.device != windows.device:
+        raise ValueError("tile_flags and windows lie on different devices")
 
 
 def lane_aggregates(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
@@ -200,7 +204,7 @@ def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
     global LAUNCHES
     from ._build import load_library
 
-    lib = load_library()
+    lib = load_library("lane_aggregates")
     windows = windows.contiguous()
     lanes = lanes.contiguous()
     cw, npad = windows.shape
@@ -269,8 +273,11 @@ class _Acc:
         self.last = torch.where(valid, v, self.last)
 
 
-def _run_general(fetch, ln, k, acc):
-    """General body (fused.py _run_lane_tile, int_optimized)."""
+def walk_general(fetch, ln, k):
+    """The general body's record walk (fused.py _run_lane_tile with
+    int_optimized, chunked.py decode_chunked_lanes' step): yields
+    (valid, state) after each of the k records; the last state's err is the
+    lanes' err flag."""
     rel = D.as_i32(ln["rel_pos"])
     num_bits = D.as_i32(ln["num_bits"])
     zero = torch.zeros_like(rel)
@@ -298,7 +305,13 @@ def _run_general(fetch, ln, k, acc):
         state = D._decode_timestamp(fetch, nb, state, first, nt)
         ts_active = ~state.done & ~state.err
         state = D._decode_value(fetch, state, first)
-        valid = was_active & ts_active & ~state.done & ~state.err
+        yield was_active & ts_active & ~state.done & ~state.err, state
+
+
+def _run_general(fetch, ln, k, acc):
+    """General body (fused.py _run_lane_tile, int_optimized)."""
+    state = None
+    for valid, state in walk_general(fetch, ln, k):
         v = torch.where(
             state.is_float,
             D.f64_bits_to_f32(state.prev_float_bits),
@@ -344,14 +357,31 @@ def _run_fast_float(fetch, ln, k, acc):
 _BODIES = {0: _run_general, 1: _run_fast_int, 2: _run_fast_float}
 
 
+def lane_inputs(windows, lanes, idx):
+    """(fetch, planes by name) of the lanes ``idx`` (an index tensor or a
+    slice) in the twin's word convention."""
+    cw = windows.shape[0]
+    mask = D.barrel_mask(cw)
+    words = windows[:, idx].T.to(torch.int64) & D.M32
+    win_ext = torch.zeros((words.shape[0], mask + 4), dtype=torch.int64, device=windows.device)
+    win_ext[:, :cw] = words
+    planes = lanes[:, idx].to(torch.int64) & D.M32
+    ln = {name: planes[i] for i, name in enumerate(PACKED_LANE_PLANES)}
+    rel = D.as_i32(ln["rel_pos"])
+
+    def fetch(pos):
+        return D.fetch4(win_ext, mask, rel, pos)
+
+    return fetch, ln
+
+
 def lane_aggregates_reference(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
     """Plain PyTorch version of the kernel, on any device. Lanes are decoded
     in blocks of whole tiles; within a block each body runs on the lanes of
     the tiles whose flag selects it."""
     _check_inputs(windows, lanes, tile_flags, n, k)
-    cw, npad = windows.shape
+    npad = windows.shape[1]
     dev = windows.device
-    mask = D.barrel_mask(cw)
     tile_lanes = npad // tile_flags.shape[0]
     block = max(tile_lanes, _TWIN_BLOCK_LANES // tile_lanes * tile_lanes)
 
@@ -365,17 +395,8 @@ def lane_aggregates_reference(windows, lanes, tile_flags, n: int, k: int) -> Lan
             idx = lane[lane_flag == cls]
             if idx.numel() == 0:
                 continue
-            words = windows[:, idx].T.to(torch.int64) & D.M32
-            win_ext = torch.zeros((idx.numel(), mask + 4), dtype=torch.int64, device=dev)
-            win_ext[:, :cw] = words
-            planes = lanes[:, idx].to(torch.int64) & D.M32
-            ln = {name: planes[i] for i, name in enumerate(PACKED_LANE_PLANES)}
-            rel = D.as_i32(ln["rel_pos"])
-
-            def fetch(pos, win_ext=win_ext, rel=rel):
-                return D.fetch4(win_ext, mask, rel, pos)
-
-            acc = _Acc(rel)
+            fetch, ln = lane_inputs(windows, lanes, idx)
+            acc = _Acc(ln["rel_pos"])
             err = body(fetch, ln, k, acc)
             for name in ("sum", "count", "min", "max", "last"):
                 getattr(out, name)[idx] = getattr(acc, name)

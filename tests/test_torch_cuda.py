@@ -1,4 +1,6 @@
-"""The CUDA lane-aggregate kernel against its plain PyTorch twin, on a card.
+"""The port's CUDA kernels against their plain PyTorch twins, on a card:
+the lane-aggregate kernel (B1), the records decode (kernel R) and the fused
+temporal kernel (B2).
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -62,3 +64,47 @@ def test_cuda_kernel_rejects_bad_inputs():
     flags = torch.zeros(1, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
         fused.lane_aggregates(win, lanes, flags, n=1024, k=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gauge", "mixed", "specials"])
+def test_cuda_records_kernel_matches_twin(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    batch = chunked.build_chunked(_streams(name), k=16)
+    p = fused.pack_lanes(batch, order="s", rows=8, device="cuda", n_series=4096)
+    c = batch.num_chunks
+    before = chunked.LAUNCHES
+    got = chunked.decode_chunked(p.windows, p.lanes, 4096, c, 16)
+    assert chunked.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want = chunked.decode_chunked_lanes_reference(p.windows, p.lanes, n=p.n, k=16)
+    for f in ("ts", "bits", "point_is_float", "mult", "valid"):
+        assert torch.equal(getattr(got, f).reshape(p.n, 16), getattr(want, f)), f
+    assert torch.equal(got.err, want.err.reshape(4096, c).any(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 7, 61, 1000])
+def test_cuda_temporal_kernel_matches_twin(window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+
+    rng = np.random.default_rng(3)
+    v = rng.normal(100, 10, (512, 720)).astype(np.float32)
+    v[rng.random(v.shape) < 0.02] = np.nan
+    v[9] = np.nan
+    x = torch.from_numpy(v).cuda()
+    before = TF.LAUNCHES
+    got = TF.fused_temporal(x, window, 10.0, tuple(TF.FUSABLE))
+    assert TF.LAUNCHES == before + 1
+    want = TF.fused_temporal(x.cpu(), window, 10.0, tuple(TF.FUSABLE))
+    for name, g, w in zip(TF.FUSABLE, got, want):
+        g = g.cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+        ok = ~torch.isnan(w)
+        atol = 5e-3 if name.startswith("std") else 1e-4
+        assert bool(((g[ok] - w[ok]).abs() <= atol + 1e-4 * w[ok].abs()).all()), name

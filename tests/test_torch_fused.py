@@ -226,7 +226,7 @@ def host_kernel(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernel") / "lane_aggregates_host.so"
     subprocess.run(
         [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-         "-o", str(out), str(_build.SOURCE)],
+         "-o", str(out), str(_build.SOURCES["lane_aggregates"][0])],
         check=True, capture_output=True, text=True,
     )
     fn = ctypes.CDLL(str(out)).m3_lane_aggregates_host
