@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
              nvcc, one process per source, all started together.
-  parity   — lane-aggregate kernel (B1) vs its plain PyTorch twin, per lane,
+  parity   — lane-aggregate kernels B1 (packed layout) and B3 (per-field
+             layout, series-major) vs their plain PyTorch twins, per lane,
              on gauge, counter, float, mixed and special-value batches
              (4,096 series x 720 points, k=24): count and err exact,
              sum/min/max/last bit-identical with NaN in the same places.
@@ -23,6 +24,23 @@ Phases (any failure exits non-zero):
              launch, on f32 [4096, 720] with 2% NaN and one all-NaN row,
              seed 3, windows 1, 7, 61 and 1000: NaN pattern identical,
              values within 1e-4 abs + 1e-4 rel (5e-3 abs for stddev/stdvar).
+  resident — decode from device residency at BASELINE config 2 scale
+             (RESIDENT_SERIES = 1,048,576 series x 720 points, k=24, the 64
+             unique gauge streams of seed 3): 16 admit_block calls of 65,536
+             series (one volume each, side snapshots computed once per
+             unique stream) into a ResidentPool of 3 GiB pages + 2 GiB side
+             planes on the card. Checks: (1) assemble_resident_packed ==
+             pack_lanes of the same streams on windows, lanes and
+             tile_flags exactly; (2) resident_scan_totals (B1) bit-identical
+             to chunked_scan_aggregate_packed on those lanes; (3) warm
+             scans move zero upload bytes; (4) B3
+             (chunked_scan_aggregate_fused over assemble_resident_lanes) ==
+             its twin per lane, total_count equal to (2)'s; (5)
+             resident_fetch_arrays (R) on the first 100,000 keys equals the
+             host decode bit for bit. Then the admission's host seconds,
+             upload bytes and occupancy, the assembly time, B3's time,
+             launches and bound, its twin's time, the warm resident scan
+             end to end beside [main]'s, and the peak device memory.
   query    — the range-query path at BASELINE config 3: a block of 100,000
              series x 720 points at 10 s (64 unique gauge streams, seed 3,
              tiled on the card), tags __name__=m3_scan, job=job-{i % 10},
@@ -55,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PARITY_SERIES, MAIN_SERIES, N_POINTS, K, N_UNIQUE = 4096, 1 << 20, 720, 24, 64
 QUERY_SERIES, QUERY_JOBS, STEP = 100_000, 10, 10 * 10**9
+RESIDENT_SERIES, RESIDENT_CALLS, FETCH_KEYS = 1 << 20, 16, 100_000
 T0 = 1_600_000_000 * 10**9
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
          ("specials", "c", 32)]
@@ -187,7 +206,30 @@ def phase_parity(dev) -> float:
     return worst
 
 
-def phase_main(dev, worst: float) -> dict:
+def phase_parity_fields(dev) -> float:
+    """B3 vs its twin per lane on the five batch kinds, series-major
+    per-field lanes of the 4,096-series batches."""
+    import torch
+
+    from m3_tpu_torch.ops import fused
+    from m3_tpu_torch.ops.chunked import build_chunked, tile_chunked
+    from m3_tpu_torch.parallel.scan import chunked_device_args
+
+    worst = 0.0
+    for kind, _, _ in KINDS:
+        batch = tile_chunked(build_chunked(phase_streams(kind), k=K), PARITY_SERIES)
+        args = chunked_device_args(batch, device=dev)
+        got = fused.lane_aggregates_fields(**args, k=K)
+        torch.cuda.synchronize()
+        want = fused.lane_aggregates_fields_reference(**args, k=K)
+        err = compare_lanes(got, want)
+        worst = max(worst, err)
+        log(f"[parity] B3 {kind:8s} lanes={batch.windows.shape[0]} cw={batch.windows.shape[1]} "
+            f"err_lanes={int(want.err.sum())} max_abs_err={err!r}")
+    return worst
+
+
+def phase_main(dev, worst: float):
     import torch
 
     from m3_tpu_torch.codec.m3tsz import decode
@@ -281,7 +323,7 @@ def phase_main(dev, worst: float) -> dict:
         f"{total_count / e2e_med:.4e} datapoints/s; max_abs_err {worst!r}")
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("[main] library_ms: no single PyTorch call computes an M3TSZ decode; null")
-    return {
+    return e2e_med, {
         "name": "lane_aggregates",
         "route": "cuda",
         "source": "m3_tpu_torch/ops/csrc/lane_aggregates.cu",
@@ -294,6 +336,193 @@ def phase_main(dev, worst: float) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+def compare_scans(got, want, what: str) -> None:
+    """Two ScanAggregates bit-identical, NaN in the same places."""
+    import torch
+
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if g is None and w is None:
+            continue
+        g, w = g.cpu(), w.cpu()
+        if g.is_floating_point():
+            if not torch.equal(g.isnan(), w.isnan()):
+                raise AssertionError(f"{what}: {f} NaN pattern differs")
+            g, w = (torch.where(x.isnan(), 0.0, x).view(torch.int32) for x in (g, w))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> None:
+    import torch
+
+    from m3_tpu_torch.cache.block_cache import BlockKey
+    from m3_tpu_torch.codec.m3tsz import decode
+    from m3_tpu_torch.ops import chunked, fused
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.resident import (ResidentOptions, ResidentPool, resident_fetch_arrays,
+                                       resident_scan_totals)
+    from m3_tpu_torch.resident.scan import _M_STREAMED_BYTES
+    from m3_tpu_torch.utils.synthetic import synthetic_streams
+
+    s = RESIDENT_SERIES
+    torch.cuda.reset_peak_memory_stats()
+    streams = synthetic_streams(N_UNIQUE, N_POINTS, seed=3)
+    t0 = time.perf_counter()
+    snaps = [chunked.snapshot_stream(x, K) for x in streams]
+    prescan_s = time.perf_counter() - t0
+
+    # admission: 16 filesets (volumes) of s/16 series, side snapshots passed
+    pool = ResidentPool(ResidentOptions(max_bytes=3 << 30, side_bytes=2 << 30), device=dev)
+    per_call = s // RESIDENT_CALLS
+    keys = []
+    t0 = time.perf_counter()
+    for v in range(RESIDENT_CALLS):
+        items = [(b"%08d" % i, streams[i % N_UNIQUE], N_POINTS, snaps[i % N_UNIQUE])
+                 for i in range(v * per_call, (v + 1) * per_call)]
+        res = pool.admit_block("m3", 0, T0, v, items, chunk_k=K)
+        if res.admitted != per_call or not res.complete:
+            raise AssertionError(f"admission {v}: {res}")
+        keys += [BlockKey("m3", 0, it[0], T0, v) for it in items]
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    st = pool.stats()
+    if st["side_pack_overflows"]:
+        raise AssertionError(f"{st['side_pack_overflows']} lanes admitted without side planes")
+    log(f"[resident] admitted {s} series x {N_POINTS} pts (k={K}) in {RESIDENT_CALLS} calls: "
+        f"host {admit_s:.2f} s (+ {prescan_s:.2f} s prescan of the {N_UNIQUE} unique streams); "
+        f"upload_bytes {st['upload_bytes']} ({st['bytes']} stream bytes resident); pages "
+        f"{st['pages_used']}/{st['pages_total']} (occupancy {st['occupancy']:.4f}), side pages "
+        f"{st['side_pages_used']}/{st['side_pages_total']}; device buffers "
+        f"{pool.device_bytes() / 1e9:.3f} GB")
+
+    # the path, counted: B1 scan, R fetch and B3 scan from residency, with
+    # the counts set to 0 just before and read just after
+    fused.LAUNCHES = chunked.LAUNCHES = fused.FIELDS_LAUNCHES = 0
+    out = resident_scan_totals(pool, keys, device_out=True)
+    fetched, fetch_err = resident_fetch_arrays(pool, keys[:FETCH_KEYS])
+    t0 = time.perf_counter()
+    with pool.read_lease():
+        plan = pool.plan_chunked(keys)
+    plan_s = time.perf_counter() - t0
+    lane_args, s_pad = scan.assemble_resident_lanes(plan, s)
+    c = plan.num_chunks
+    fused_out = scan.chunked_scan_aggregate_fused(lane_args, s_pad, c, K)
+    total_count = int(out.total_count)
+    torch.cuda.synchronize()
+    launches = {"lane_aggregates": fused.LAUNCHES, "decode_records": chunked.LAUNCHES,
+                "lane_aggregates_fields": fused.FIELDS_LAUNCHES}
+    log(f"[resident] launches on the resident path (scan, fetch, fused scan): {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the resident path did not launch {name}")
+
+    # check 1: the device assembly == the host packer on the same streams
+    batch = chunked.build_chunked(streams, k=K)
+    ref = fused.pack_lanes(batch, order="c", device=dev, n_series=s)
+    packed, _ = scan.assemble_resident_packed(plan, s)
+    for f in ("windows", "lanes", "tile_flags"):
+        if not torch.equal(getattr(packed, f), getattr(ref, f)):
+            raise AssertionError(f"assemble_resident_packed {f} differs from pack_lanes")
+    asm_ms = statistics.median(cuda_ms(lambda: scan.assemble_resident_packed(plan, s), 3))
+    lanes_ms = statistics.median(cuda_ms(lambda: scan.assemble_resident_lanes(plan, s), 3))
+    del packed
+    log(f"[resident] check 1: assemble_resident_packed == pack_lanes(order='c') on windows "
+        f"{tuple(ref.windows.shape)}, lanes and tile_flags "
+        f"{torch.bincount(ref.tile_flags, minlength=3).tolist()} exactly")
+
+    # check 2: the resident scan == [main]'s packed scan on the same lanes
+    main_out = scan.chunked_scan_aggregate_packed(ref, s=s, c=c, k=K)
+    compare_scans(out, main_out, "resident_scan_totals vs chunked_scan_aggregate_packed")
+    main_count = int(main_out.total_count)
+    del ref, main_out
+    log(f"[resident] check 2: resident_scan_totals == chunked_scan_aggregate_packed bit for bit "
+        f"(total_count {total_count}, total_sum {float(out.total_sum)!r})")
+
+    # check 3: warm scans move no upload bytes; end to end, to a host read
+    def e2e():
+        return int(resident_scan_totals(pool, keys, device_out=True).total_count)
+
+    before = (pool.upload_bytes, pool._m_upload.value, _M_STREAMED_BYTES.value)
+    e2e()
+    e2e_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        e2e()
+        e2e_s.append(time.perf_counter() - t0)
+    after = (pool.upload_bytes, pool._m_upload.value, _M_STREAMED_BYTES.value)
+    if after != before:
+        raise AssertionError(f"warm resident scans moved upload bytes: {before} -> {after}")
+    e2e_med = statistics.median(e2e_s)
+    log(f"[resident] check 3: 4 warm scans, upload_bytes / resident_upload_bytes_total / "
+        f"scan_streamed_bytes_total flat at {after}")
+
+    # check 4: B3 == twin per lane at full size; its count == [main]'s
+    got = fused.lane_aggregates_fields(**lane_args, k=K)
+    b3_ms = statistics.median(cuda_ms(lambda: fused.lane_aggregates_fields(**lane_args, k=K), 20))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fused.lane_aggregates_fields_reference(**lane_args, k=K)
+    torch.cuda.synchronize()
+    b3_plain_ms = (time.perf_counter() - t0) * 1e3
+    b3_worst = max(b3_worst, compare_lanes(got, want))
+    del got, want
+    if int(fused_out.total_count) != main_count:
+        raise AssertionError(f"B3 total_count {int(fused_out.total_count)} != [main] {main_count}")
+    log(f"[resident] check 4: B3 == twin per lane on {s * c} lanes (max_abs_err {b3_worst!r}); "
+        f"B3 scan total_count {int(fused_out.total_count)} == [main]'s")
+
+    # check 5: fetched datapoints == the host decode, bit for bit
+    host = [decode(x) for x in streams]
+    host_ts = [np.asarray([d.timestamp for d in h], np.int64) for h in host]
+    host_vs = [np.asarray([d.value for d in h], np.float64).view(np.int64) for h in host]
+    if fetch_err.any() or len(fetched) != min(FETCH_KEYS, s):
+        raise AssertionError("resident fetch flagged err lanes or lost keys")
+    for i, (ts, vs) in enumerate(fetched):
+        u = i % N_UNIQUE
+        if not (np.array_equal(ts, host_ts[u]) and np.array_equal(vs.view(np.int64), host_vs[u])):
+            raise AssertionError(f"resident fetch of key {i} differs from the host decode")
+    log(f"[resident] check 5: resident_fetch_arrays on {len(fetched)} keys == host decode "
+        f"(timestamps and f64 values bit for bit)")
+    del fetched
+
+    # B3's bound: per lane the window words its chunk occupies, 15 u32 + 2
+    # bool fields, 21 bytes out; f32 work as B1's
+    cw = lane_args["windows"].shape[1]
+    reps = np.bincount(np.arange(s) % N_UNIQUE, minlength=N_UNIQUE)
+    words = int((chunk_words(streams, cw, c, K).sum(axis=1) * reps).sum())
+    n = s * c
+    b3_bytes = words * 4 + n * (15 * 4 + 2) + n * 21
+    bytes_ms = b3_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = main_count * 11 / F32_FLOP_PER_S * 1e3
+    b3_bound = max(bytes_ms, ops_ms)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[resident] host plan_chunked over {s} keys {plan_s * 1e3:.1f} ms; device assembly "
+        f"(CUDA events, median of 3): packed 'c' {asm_ms:.3f} ms, per-field {lanes_ms:.3f} ms")
+    log(f"[resident] B3 (lane_aggregates_fields) [{n} lanes x {cw} words] warm median "
+        f"{b3_ms:.3f} ms (20 launches, CUDA events); bound {b3_bound:.3f} ms "
+        f"({b3_bytes / 1e9:.4f} GB at 3.35 TB/s = {b3_bound / b3_ms:.1%} of roofline; f32 ops "
+        f"{ops_ms:.4f} ms); twin {b3_plain_ms:.1f} ms")
+    log(f"[resident] warm resident scan end to end (plan + assembly + B1 + reductions, "
+        f"to a host read of total_count) {e2e_med * 1e3:.3f} ms, median of 3 = "
+        f"{total_count / e2e_med:.4e} datapoints/s; [main] streamed-packed {main_e2e_s * 1e3:.3f} ms")
+    log(f"[resident] peak device memory {peak / 1e9:.2f} GB")
+    log("[resident] library_ms for B3: no single PyTorch call computes an M3TSZ decode; null")
+    kernels.append({
+        "name": "lane_aggregates_fields",
+        "route": "cuda",
+        "source": "m3_tpu_torch/ops/csrc/lane_aggregates.cu",
+        "replaces": "m3_tpu/ops/fused.py:704",
+        "launches": launches["lane_aggregates_fields"],
+        "max_abs_err": b3_worst,
+        "ms": b3_ms,
+        "plain_ms": b3_plain_ms,
+        "bound_ms": b3_bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    })
 
 
 def compare_records(got, want, what: str) -> None:
@@ -609,7 +838,10 @@ def main() -> int:
         log(f"[build] {lib}:\n{text.strip()}")
 
     worst = phase_parity(dev)
-    kernels = [phase_main(dev, worst)]
+    b3_worst = phase_parity_fields(dev)
+    main_e2e_s, b1 = phase_main(dev, worst)
+    kernels = [b1]
+    phase_resident(dev, kernels, b3_worst, main_e2e_s)
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     phase_query(dev, kernels, temporal_err)

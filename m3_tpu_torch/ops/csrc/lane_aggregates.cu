@@ -51,6 +51,17 @@
 // record and 1 per lane written. Its records leave through shared memory so
 // that the stores to device memory are coalesced (see decode_records_kernel).
 //
+// B3, the third entry (m3_lane_aggregates_fields), is the port of the Pallas
+// kernel m3_tpu/ops/fused.py:lane_aggregates_pallas (_pallas_kernel): the
+// same decode and fold with the general body on every lane, over the
+// per-field layout (lane-major windows [n, CW], 17 separate field arrays),
+// which is what chunked_device_args and the resident lane assembly give.
+// Bound: memory, as B1's general tiles: per lane its chunk's window words,
+// 15 u32 fields + 2 bool fields, 21 output bytes. Its trouble is the load: a
+// thread per lane reading its own row strides CW*4 bytes across a warp, so
+// the block stages its rows, one contiguous range, through shared memory
+// with coalesced loads (see lane_aggregates_fields_kernel).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // -ftz=true -shared (ops/_build.py). Without __CUDACC__ the same per-lane
 // code compiles as host C++ (with FTZ/DAZ set), which the CPU tests use to
@@ -111,6 +122,25 @@ M3_HD int clz64(uint64_t x) { return x ? __clzll((long long)x) : 64; }
 M3_HD int ctz64(uint64_t x) { return x ? __ffsll((long long)x) - 1 : 64; }
 M3_HD int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
+// The four window words at bit rel + pos of a lane, aligned to that bit.
+// Word indices wrap with the reference's barrel mask; words past CW read as
+// zero (Lane::word).
+template <class Lane>
+M3_HD Window fetch_window(const Lane& L, int pos) {
+  const int p = L.rel + pos;
+  const int widx = (p >> 5) & L.mask;
+  const uint32_t w0 = L.word(widx), w1 = L.word(widx + 1);
+  const uint32_t w2 = L.word(widx + 2), w3 = L.word(widx + 3);
+  const unsigned r = (unsigned)p & 31u;
+  const uint32_t s0 = __funnelshift_l(w1, w0, r);
+  const uint32_t s1 = __funnelshift_l(w2, w1, r);
+  const uint32_t s2 = __funnelshift_l(w3, w2, r);
+  const uint32_t s3 = w3 << r;
+  return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
+}
+
+// A lane of the packed layout (B1, R): word-major windows [CW, Npad] and
+// state planes [17, Npad].
 struct LaneRef {
   const uint32_t* win;  // this lane's word 0 in the [CW, Npad] window array
   const uint32_t* planes;  // this lane's plane 0 in the [17, Npad] array
@@ -123,19 +153,48 @@ struct LaneRef {
     return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
   }
 
-  M3_HD Window fetch(int pos) const {
-    const int p = rel + pos;
-    const int widx = (p >> 5) & mask;
-    const uint32_t w0 = word(widx), w1 = word(widx + 1);
-    const uint32_t w2 = word(widx + 2), w3 = word(widx + 3);
-    const unsigned r = (unsigned)p & 31u;
-    const uint32_t s0 = __funnelshift_l(w1, w0, r);
-    const uint32_t s1 = __funnelshift_l(w2, w1, r);
-    const uint32_t s2 = __funnelshift_l(w3, w2, r);
-    const uint32_t s3 = w3 << r;
-    return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
-  }
+  M3_HD Window fetch(int pos) const { return fetch_window(*this, pos); }
 };
+
+// The 17 state fields of the per-field layout (B3), one array each, indexed
+// by the Plane enum; FIRST and ISF are bool (u8) arrays, the rest u32.
+struct FieldPlanes {
+  const uint32_t* p[17];
+  const uint8_t* first;
+  const uint8_t* isf;
+};
+
+// A lane of the per-field layout (B3): its CW window words in one row (a
+// row of shared memory on the card) and its fields at index `lane`.
+struct FieldLane {
+  const uint32_t* row;
+  FieldPlanes f;  // by value: p is a constant at every inlined call, so
+                  // only the pointers the walk reads stay in registers
+  int64_t lane;
+  int cw, mask, rel;
+
+  M3_HD uint32_t plane(int p) const {
+    if (p == FIRST) return M3_LOAD(f.first + lane);
+    if (p == ISF) return M3_LOAD(f.isf + lane);
+    return M3_LOAD(f.p[p] + lane);
+  }
+  M3_HD uint32_t word(int i) const { return i < cw ? row[i] : 0u; }
+  M3_HD uint64_t pair(int p_hi) const {
+    return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
+  }
+
+  M3_HD Window fetch(int pos) const { return fetch_window(*this, pos); }
+};
+
+// The host's array of the 17 field pointers, in Plane order, as a struct
+// passed to the kernel by value.
+inline FieldPlanes make_field_planes(const void* const* fields) {
+  FieldPlanes f;
+  for (int i = 0; i < 17; ++i) f.p[i] = static_cast<const uint32_t*>(fields[i]);
+  f.first = static_cast<const uint8_t*>(fields[FIRST]);
+  f.isf = static_cast<const uint8_t*>(fields[ISF]);
+  return f;
+}
 
 // ---------------------------------------------------------------------------
 // f32 conversions: the reference's formulas (m3_tpu/ops/u64.py, decode.py)
@@ -238,7 +297,8 @@ M3_HD uint64_t unit_nanos(int tu) {
 }
 
 // _decode_timestamp
-M3_HD void decode_timestamp(const LaneRef& L, int nb, State& st, bool first, uint64_t nt) {
+template <class Lane>
+M3_HD void decode_timestamp(const Lane& L, int nb, State& st, bool first, uint64_t nt) {
   const int pos = first ? st.pos + 64 : st.pos;
   const uint64_t prev_time0 = first ? nt : st.prev_time;
   const Window ws = L.fetch(pos);
@@ -347,7 +407,8 @@ M3_HD void read_xor(const Window& ws, int off, uint64_t prev_bits, uint64_t prev
 }
 
 // _decode_value with int_optimized: one value record
-M3_HD void decode_value(const LaneRef& L, State& st, bool first) {
+template <class Lane>
+M3_HD void decode_value(const Lane& L, State& st, bool first) {
   const int pos = st.pos;
   const Window ws = L.fetch(pos);
   const uint32_t head3 = (uint32_t)bits(ws, 0, 3);
@@ -430,8 +491,8 @@ M3_HD int ts_consumed_fast(const Window& ws) {
 // The general body's record walk (_run_lane_tile with int_optimized, and
 // chunked.py decode_chunked_lanes' step): emit(idx, valid, state) after each
 // record. Returns the lane's err flag.
-template <class Emit>
-M3_HD bool walk_general(const LaneRef& L, int k, Emit&& emit) {
+template <class Lane, class Emit>
+M3_HD bool walk_general(const Lane& L, int k, Emit&& emit) {
   const int num_bits = (int32_t)L.plane(NBITS);
   State st;
   st.pos = 0;
@@ -461,7 +522,8 @@ M3_HD bool walk_general(const LaneRef& L, int k, Emit&& emit) {
 }
 
 // _run_lane_tile (int_optimized)
-M3_HD bool run_general(const LaneRef& L, int k, Acc& acc) {
+template <class Lane>
+M3_HD bool run_general(const Lane& L, int k, Acc& acc) {
   return walk_general(L, k, [&](int, bool valid, const State& st) {
     const float v = st.is_float ? f64_bits_to_f32(st.prev_float_bits)
                                 : to_f32(st.int_val) * mult_rcp(st.mult);
@@ -536,6 +598,35 @@ M3_HD LaneRef lane_ref(const uint32_t* windows, const uint32_t* lanes, int64_t n
   return L;
 }
 
+// out_f [4, n] (sum, min, max, last), out_cnt [n], out_err [n]
+M3_HD void store_lane(const Acc& acc, bool err, int64_t lane, int64_t n, float* out_f,
+                      int32_t* out_cnt, uint8_t* out_err) {
+  out_f[lane] = acc.sum;
+  out_f[n + lane] = acc.mn;
+  out_f[2 * n + lane] = acc.mx;
+  out_f[3 * n + lane] = acc.last;
+  out_cnt[lane] = acc.cnt;
+  out_err[lane] = err ? 1 : 0;
+}
+
+// B3: one lane of the per-field layout, general body only (_pallas_kernel
+// runs _run_lane_tile on every tile). `row` holds the lane's CW words.
+M3_HD void decode_field_lane(const uint32_t* row, const FieldPlanes& f, int64_t n, int cw,
+                             int mask, int k, int64_t lane, float* out_f, int32_t* out_cnt,
+                             uint8_t* out_err) {
+  FieldLane L;
+  L.row = row;
+  L.f = f;
+  L.lane = lane;
+  L.cw = cw;
+  L.mask = mask;
+  L.rel = (int32_t)L.plane(REL);
+  Acc acc;
+  acc.init();
+  const bool err = run_general(L, k, acc);
+  store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
+}
+
 M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int32_t* tile_flags,
                        int64_t npad, int cw, int mask, int k, int64_t tile_lanes, int64_t lane,
                        float* out_f, int32_t* out_cnt, uint8_t* out_err) {
@@ -551,12 +642,7 @@ M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int
   } else {
     err = run_general(L, k, acc);
   }
-  out_f[lane] = acc.sum;
-  out_f[npad + lane] = acc.mn;
-  out_f[2 * npad + lane] = acc.mx;
-  out_f[3 * npad + lane] = acc.last;
-  out_cnt[lane] = acc.cnt;
-  out_err[lane] = err ? 1 : 0;
+  store_lane(acc, err, lane, npad, out_f, out_cnt, out_err);
 }
 
 #ifdef __CUDACC__
@@ -619,6 +705,34 @@ decode_records_kernel(const uint32_t* __restrict__ windows, const uint32_t* __re
     out_pif[o + i] = s_pif[j];
     out_mult[o + i] = s_mult[j];
     out_valid[o + i] = s_valid[j];
+  }
+}
+
+// B3: the per-field layout, one thread per lane. A block's lanes are
+// consecutive rows of the lane-major [n, CW] windows, so its windows are
+// one contiguous range: the block loads it with coalesced loads into
+// shared memory, one row per lane at an odd stride (cw|1), so the fetches
+// of a warp, at row t plus one word index, fall in distinct banks. The 17
+// state fields are per-lane arrays, read coalesced once per lane.
+constexpr int kFieldThreads = 128;
+
+__global__ void __launch_bounds__(kFieldThreads)
+lane_aggregates_fields_kernel(const uint32_t* __restrict__ windows, const FieldPlanes f,
+                              int64_t n, int cw, int mask, int k, float* __restrict__ out_f,
+                              int32_t* __restrict__ out_cnt, uint8_t* __restrict__ out_err) {
+  extern __shared__ uint32_t s_rows[];
+  const int stride = cw | 1;
+  const int64_t base = (int64_t)blockIdx.x * kFieldThreads;
+  const int here = n - base < kFieldThreads ? (int)(n - base) : kFieldThreads;
+  const uint32_t* src = windows + base * cw;
+  const int total = here * cw;
+  for (int i = threadIdx.x; i < total; i += kFieldThreads) {
+    s_rows[(i / cw) * stride + i % cw] = __ldg(src + i);
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < here) {
+    decode_field_lane(s_rows + threadIdx.x * stride, f, n, cw, mask, k, base + threadIdx.x,
+                      out_f, out_cnt, out_err);
   }
 }
 #else
@@ -684,6 +798,30 @@ extern "C" int m3_decode_records(const uint32_t* windows, const uint32_t* lanes,
   }
   return (int)cudaGetLastError();
 }
+
+// B3. windows u32[n, cw] lane-major; fields: a host array of 17 device
+// pointers in Plane order (rel_pos ... is_float), each an [n] array, u32
+// but for first and is_float (bool as u8). Outputs as m3_lane_aggregates',
+// over n lanes. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue if a block's window rows exceed shared memory).
+extern "C" int m3_lane_aggregates_fields(const uint32_t* windows, const void* const* fields,
+                                         int64_t n, int cw, int mask, int k, float* out_f,
+                                         int32_t* out_cnt, uint8_t* out_err, void* stream) {
+  const size_t smem = (size_t)kFieldThreads * (size_t)(cw | 1) * 4;
+  if (cw <= 0 || k <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 49152) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lane_aggregates_fields_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n > 0) {
+    const int64_t blocks = (n + kFieldThreads - 1) / kFieldThreads;
+    lane_aggregates_fields_kernel<<<(unsigned)blocks, kFieldThreads, smem,
+                                    (cudaStream_t)stream>>>(
+        windows, make_field_planes(fields), n, cw, mask, k, out_f, out_cnt, out_err);
+  }
+  return (int)cudaGetLastError();
+}
 #else
 // Host build of the same per-lane code, with subnormals flushed as -ftz=true
 // flushes them on the card.
@@ -710,6 +848,20 @@ extern "C" int m3_decode_records_host(const uint32_t* windows, const uint32_t* l
     decode_lane_records(windows, lanes, npad, cw, mask, k, lane, out_ts, out_bits, out_pif,
                         out_mult, out_valid, out_err);
   }
+  return 0;
+}
+
+// Host build of B3, each lane's window row read in place.
+extern "C" int m3_lane_aggregates_fields_host(const uint32_t* windows, const void* const* fields,
+                                              int64_t n, int cw, int mask, int k, float* out_f,
+                                              int32_t* out_cnt, uint8_t* out_err) {
+  const FieldPlanes f = make_field_planes(fields);
+  const unsigned csr = _mm_getcsr();
+  _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
+  for (int64_t lane = 0; lane < n; ++lane) {
+    decode_field_lane(windows + lane * cw, f, n, cw, mask, k, lane, out_f, out_cnt, out_err);
+  }
+  _mm_setcsr(csr);
   return 0;
 }
 #endif

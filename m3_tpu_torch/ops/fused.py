@@ -15,6 +15,10 @@ leave the kernel.
 - ``lane_aggregates_reference`` is the plain PyTorch twin of the three
   kernel bodies, chosen per tile by ``tile_flags`` as the reference does:
   0 general, 1 every lane int-fast, 2 every lane float-fast.
+- ``lane_aggregates_fields`` is B3, the port of ``lane_aggregates_pallas``:
+  the general body on every lane of the per-field layout (lane-major
+  windows [N, CW] and one array per field); ``lane_aggregates_fields_
+  reference`` is its twin.
 """
 
 from __future__ import annotations
@@ -357,22 +361,22 @@ def _run_fast_float(fetch, ln, k, acc):
 _BODIES = {0: _run_general, 1: _run_fast_int, 2: _run_fast_float}
 
 
+def _row_fetch(rows, rel):
+    """fetch(pos) over lane-major window rows int32 [n, CW]."""
+    cw = rows.shape[1]
+    mask = D.barrel_mask(cw)
+    win_ext = torch.zeros((rows.shape[0], mask + 4), dtype=torch.int64, device=rows.device)
+    win_ext[:, :cw] = rows.to(torch.int64) & D.M32
+    rel = D.as_i32(rel)
+    return lambda pos: D.fetch4(win_ext, mask, rel, pos)
+
+
 def lane_inputs(windows, lanes, idx):
     """(fetch, planes by name) of the lanes ``idx`` (an index tensor or a
     slice) in the twin's word convention."""
-    cw = windows.shape[0]
-    mask = D.barrel_mask(cw)
-    words = windows[:, idx].T.to(torch.int64) & D.M32
-    win_ext = torch.zeros((words.shape[0], mask + 4), dtype=torch.int64, device=windows.device)
-    win_ext[:, :cw] = words
     planes = lanes[:, idx].to(torch.int64) & D.M32
     ln = {name: planes[i] for i, name in enumerate(PACKED_LANE_PLANES)}
-    rel = D.as_i32(ln["rel_pos"])
-
-    def fetch(pos):
-        return D.fetch4(win_ext, mask, rel, pos)
-
-    return fetch, ln
+    return _row_fetch(windows[:, idx].T, ln["rel_pos"]), ln
 
 
 def lane_aggregates_reference(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
@@ -405,3 +409,118 @@ def lane_aggregates_reference(windows, lanes, tile_flags, n: int, k: int) -> Lan
         sum=out.sum[:n], count=out.count[:n], min=out.min[:n], max=out.max[:n],
         last=out.last[:n], err=out_err[:n],
     )
+
+
+# ---------------------------------------------------------------------------
+# B3: the per-field layout (m3_tpu/ops/fused.py:704 lane_aggregates_pallas)
+# ---------------------------------------------------------------------------
+
+# Launches of B3, counted by lane_aggregates_fields where it launches.
+FIELDS_LAUNCHES = 0
+
+_PAIR_FIELDS = ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val")
+_BOOL_FIELDS = ("first", "is_float")
+
+
+def _field_planes(windows, fields: dict, k: int) -> list:
+    """Check B3's inputs; returns the 17 field arrays in
+    PACKED_LANE_PLANES order (pairs split into their hi and lo words)."""
+    if not isinstance(windows, torch.Tensor) or windows.dtype != torch.int32 or windows.dim() != 2:
+        raise TypeError("windows must be an int32 [N, CW] tensor of u32 bit patterns")
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+    n = windows.shape[0]
+    planes = []
+    for name in PACKED_LANE_PLANES:
+        base = name[:-3] if name.endswith(("_hi", "_lo")) else name
+        x = fields[base]
+        if base in _PAIR_FIELDS:
+            x = x[0] if name.endswith("_hi") else x[1]
+        want = torch.bool if base in _BOOL_FIELDS else torch.int32
+        if not isinstance(x, torch.Tensor) or x.dtype != want or tuple(x.shape) != (n,):
+            raise TypeError(f"{name} must be a {want} tensor of shape [{n}]")
+        if x.device != windows.device:
+            raise ValueError(f"{name} and windows lie on different devices")
+        planes.append(x)
+    return planes
+
+
+def lane_aggregates_fields(windows, rel_pos, num_bits, first, prev_time, prev_delta,
+                           prev_float_bits, prev_xor, int_val, time_unit, sig, mult, is_float,
+                           k: int) -> LaneAggregates:
+    """B3: decode k records per lane with the general body and fold them
+    into per-lane aggregates, over the per-field layout
+    (``ops/chunked.lane_kwargs`` names): windows int32 [N, CW] lane-major,
+    int32 fields of u32 bit patterns, (hi, lo) pairs for the 64-bit
+    carries, bool ``first``/``is_float``.
+
+    For CUDA tensors this launches the kernel (``csrc/lane_aggregates.cu``
+    m3_lane_aggregates_fields) and raises if the build or the launch
+    fails; for CPU tensors it runs the plain twin."""
+    planes = _field_planes(windows, dict(
+        rel_pos=rel_pos, num_bits=num_bits, first=first, prev_time=prev_time,
+        prev_delta=prev_delta, prev_float_bits=prev_float_bits, prev_xor=prev_xor,
+        int_val=int_val, time_unit=time_unit, sig=sig, mult=mult, is_float=is_float), k)
+    if windows.device.type == "cpu":
+        return _fields_reference(windows, planes, k)
+    if windows.device.type != "cuda":
+        raise ValueError(f"unsupported device {windows.device}")
+    return _launch_fields(windows, planes, k)
+
+
+def _launch_fields(windows, planes, k) -> LaneAggregates:
+    global FIELDS_LAUNCHES
+    from ._build import load_library
+
+    lib = load_library("lane_aggregates")
+    windows = windows.contiguous()
+    planes = [p.contiguous() for p in planes]
+    n, cw = windows.shape
+    dev = windows.device
+    out_f = torch.empty((4, n), dtype=torch.float32, device=dev)
+    out_cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    out_err = torch.empty(n, dtype=torch.uint8, device=dev)
+    fields = (ctypes.c_void_p * NLANE)(*[p.data_ptr() for p in planes])
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_lane_aggregates_fields(
+            ptr(windows), fields, ctypes.c_int64(n), ctypes.c_int(cw),
+            ctypes.c_int(D.barrel_mask(cw)), ctypes.c_int(k),
+            ptr(out_f), ptr(out_cnt), ptr(out_err), ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"lane_aggregates_fields kernel launch failed: CUDA error {rc}")
+    FIELDS_LAUNCHES += 1
+    return LaneAggregates(
+        sum=out_f[0], count=out_cnt, min=out_f[1], max=out_f[2], last=out_f[3],
+        err=out_err.view(torch.bool),
+    )
+
+
+def lane_aggregates_fields_reference(windows, rel_pos, num_bits, first, prev_time, prev_delta,
+                                     prev_float_bits, prev_xor, int_val, time_unit, sig, mult,
+                                     is_float, k: int) -> LaneAggregates:
+    """Plain PyTorch version of B3, on any device: the general body
+    (``_run_general``) on every lane, in blocks of lanes."""
+    planes = _field_planes(windows, dict(
+        rel_pos=rel_pos, num_bits=num_bits, first=first, prev_time=prev_time,
+        prev_delta=prev_delta, prev_float_bits=prev_float_bits, prev_xor=prev_xor,
+        int_val=int_val, time_unit=time_unit, sig=sig, mult=mult, is_float=is_float), k)
+    return _fields_reference(windows, planes, k)
+
+
+def _fields_reference(windows, planes, k) -> LaneAggregates:
+    n = windows.shape[0]
+    dev = windows.device
+    out = _Acc(torch.empty(n, device=dev))
+    out_err = torch.zeros(n, dtype=torch.bool, device=dev)
+    for start in range(0, n, _TWIN_BLOCK_LANES):
+        rows = slice(start, min(start + _TWIN_BLOCK_LANES, n))
+        ln = {name: p[rows].to(torch.int64) & D.M32 for name, p in zip(PACKED_LANE_PLANES, planes)}
+        acc = _Acc(ln["rel_pos"])
+        out_err[rows] = _run_general(_row_fetch(windows[rows], ln["rel_pos"]), ln, k, acc)
+        for name in ("sum", "count", "min", "max", "last"):
+            getattr(out, name)[rows] = getattr(acc, name)
+    return LaneAggregates(sum=out.sum, count=out.count, min=out.min, max=out.max,
+                          last=out.last, err=out_err)

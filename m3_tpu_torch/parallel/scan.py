@@ -1,10 +1,17 @@
-"""Scan-and-aggregate over packed chunk-lanes: the port's main path.
+"""Scan-and-aggregate over chunk-lanes: the port's main path.
 
-Port of the packed path of ``m3_tpu/parallel/scan.py``: the lane kernel
-(``ops/fused.lane_aggregates``) folds each chunk-lane into six aggregates,
-then plain torch reduces them per series (over its chunks) and across
-series, as the JAX package leaves those reductions to XLA. One device, no
-collectives.
+Port of ``m3_tpu/parallel/scan.py``'s chunked paths, on one device (the
+sharded variants wait for ROADMAP §A.4):
+
+- ``chunked_scan_aggregate_packed``: kernel B1 (``ops/fused.lane_aggregates``)
+  folds each packed chunk-lane into six aggregates; plain torch reduces
+  them per series and across series, as the JAX package leaves those
+  reductions to XLA.
+- ``chunked_scan_aggregate_fused``: the same over the per-field layout
+  with kernel B3 (``ops/fused.lane_aggregates_fields``).
+- the resident lane assembly: device gathers over the resident pool's
+  pages and side planes build either layout (``assemble_resident_packed``,
+  ``assemble_resident_lanes``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import decode as D
 from ..ops import fused
 from ..ops import precise as pr
 
@@ -159,3 +167,240 @@ def stitch_host_errors(aggs: ScanAggregates, stream_for) -> ScanAggregates:
         total_max=np.float32(np.max(s_max[has])) if has.any() else np.float32(np.nan),
         series_err=np.zeros_like(err),
     )
+
+
+def chunked_scan_aggregate_fused(lane_args: dict, s: int, c: int, k: int) -> ScanAggregates:
+    """Scan-and-aggregate over the per-field layout (series-major lanes,
+    ``ops/chunked.lane_kwargs`` names): kernel B3
+    (``fused.lane_aggregates_fields``) folds each lane, then the per-series
+    and cross-series reductions. The device is the tensors' own (the JAX
+    ``backend=`` switch has no counterpart)."""
+    lane_agg = fused.lane_aggregates_fields(**lane_args, k=k)
+    return _aggregates_from_lanes(lane_agg, s, c, lane_order="s")
+
+
+def chunked_device_args(batch, device="cuda") -> dict:
+    """ChunkedBatch -> B3's per-field inputs on ``device``: int32 tensors of
+    u32 bit patterns, (hi, lo) pairs of them, bool ``first``/``is_float``."""
+    from .. import resolve_device
+    from ..ops.chunked import lane_kwargs
+
+    dev = resolve_device(device)
+
+    def put(x):
+        x = np.asarray(x)
+        if x.dtype != np.bool_:
+            x = x.astype(np.uint32 if x.dtype == np.uint32 else np.int32, copy=False).view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return lane_kwargs(batch, transform=put)
+
+
+# ---------------------------------------------------------------------------
+# Decode from residency: lane assembly by device gathers over the resident
+# pool's page buffer and side planes (m3_tpu_torch/resident/pool.py)
+# ---------------------------------------------------------------------------
+#
+# A scan's plan hands over O(series) host int vectors; the lanes' windows,
+# rel_pos/num_bits, decoder-state carries and fast-chunk flags are gathered
+# on the device from the pool, with no host rebuild of chunk tables and no
+# upload of stream bytes. Every array equals what the host packers give for
+# the same streams (ops/chunked.assemble_chunked, fused.pack_lanes), so the
+# kernels' results are bit-identical to the streamed path's. Lanes are
+# assembled in blocks, so the [N, CW] index temporaries stay bounded (at 31.5M
+# lanes x 24 words one int64 temporary would be 6 GB).
+
+# lanes per block of the assembly (a multiple of every tile size)
+_GATHER_BLOCK_LANES = 1 << 21
+
+
+def pad_chunked_plan(plan, s_pad: int):
+    """Zero-pad a ResidentChunkedPlan's host vectors to ``s_pad`` series:
+    (page_rows, side_rows, n_chunks, total_bits, block_hi, block_lo). Padding
+    series point at the zero pages and have no chunks."""
+    s = plan.page_rows.shape[0]
+    if s_pad == s:
+        return (plan.page_rows, plan.side_rows, plan.n_chunks, plan.total_bits,
+                plan.block_hi, plan.block_lo)
+
+    def pad(x):
+        out = np.zeros((s_pad,) + x.shape[1:], x.dtype)
+        out[:s] = x
+        return out
+
+    return tuple(pad(x) for x in (plan.page_rows, plan.side_rows, plan.n_chunks,
+                                  plan.total_bits, plan.block_hi, plan.block_lo))
+
+
+class _PlanOnDevice:
+    """A padded plan's vectors on the pool's device, and the flat views of
+    the two buffers the gathers index."""
+
+    def __init__(self, plan, s_pad: int):
+        dev = plan.words.device
+        pr, sr, nc, tb, bh, bl = pad_chunked_plan(plan, s_pad)
+        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        self.s = s_pad
+        self.lp, self.sl = pr.shape[1], sr.shape[1]
+        self.page_rows = put(pr.reshape(-1))
+        self.side_rows = put(sr.reshape(-1))
+        self.n_chunks = put(nc)
+        self.total_bits = put(tb.astype(np.int64))
+        self.block = (put(bh.astype(np.int64)), put(bl.astype(np.int64)))
+        self.words = plan.words.reshape(-1)
+        self.side = plan.side.reshape(-1, plan.side.shape[-1])
+        # flat word index page * W + word: int32 while it fits
+        self.idx_dtype = torch.int32 if self.words.numel() < 2**31 else torch.int64
+        self.c, self.cw = plan.num_chunks, plan.window_words
+        self.w, self.spc = plan.page_words, plan.side_page_chunks
+
+
+def _resident_gather(pd: _PlanOnDevice, si, ci):
+    """(si, ci) int32 lane -> (series, chunk) coordinates -> (planes,
+    windows int32 [n, CW], rel, nbits, valid). ``planes`` are the decoder
+    state unpacked from the packed side rows (ops/sideplane.py, prev_time
+    re-based on the series' block_start) as u32 words held in int64. A lane
+    whose chunk the series does not have is invalid: zero windows, zero
+    state, rel and nbits 0, as the host packer's padding lanes."""
+    from ..ops.sideplane import unpack_side_planes
+
+    valid = ci < pd.n_chunks[si]
+    ci_v = torch.where(valid, ci, 0)
+    # chunk ci sits at slot ci % spc of the series' side page ci // spc;
+    # invalid lanes read the reserved zero side page
+    sp = pd.side_rows[si * pd.sl + ci_v // pd.spc]
+    slot = torch.where(valid, sp * pd.spc + ci_v % pd.spc, 0)
+    block = (pd.block[0][si], pd.block[1][si])
+    planes = unpack_side_planes(pd.side[slot], block, valid)
+    off = planes["off"]
+    w0 = (off >> 5).to(torch.int32)
+    rel = (off & 31).to(torch.int32)
+    nbits = torch.where(valid, (pd.total_bits[si] - (off >> 5) * 32).clamp(0, pd.cw * 32), 0)
+    # windows: word position -> page (page_rows), then page * W + word into
+    # the flat pool; the plan's trailing zero-page columns keep w0 + cw - 1
+    # in range and read zeros
+    idt = pd.idx_dtype
+    wabs = w0[:, None] + torch.arange(pd.cw, dtype=torch.int32, device=w0.device)[None, :]
+    page = pd.page_rows[si[:, None] * pd.lp + wabs // pd.w].to(idt)
+    windows = pd.words[page * pd.w + (wabs % pd.w).to(idt)]
+    windows = torch.where(valid[:, None], windows, 0)
+    return planes, windows, rel, nbits.to(torch.int32), valid
+
+
+def _u32_plane(name: str, planes, rel, nbits, first):
+    """One of fused.PACKED_LANE_PLANES as int32 holding u32 bits."""
+    if name == "rel_pos":
+        return rel
+    if name == "num_bits":
+        return nbits
+    if name == "first":
+        return first.to(torch.int32)
+    if name.endswith("_hi"):
+        x = planes[name[:-3]][0]
+    elif name.endswith("_lo"):
+        x = planes[name[:-3]][1]
+    else:
+        x = planes[name]
+    return D.wrap_i32(x).to(torch.int32)
+
+
+def assemble_resident_lanes(plan, s_pad: int | None = None) -> tuple[dict, int]:
+    """A ResidentChunkedPlan -> (per-field lane inputs on the pool's device,
+    padded series count): series-major lanes (lane = series * C + chunk) in
+    ``ops/chunked.lane_kwargs``' names and the types ``chunked_device_args``
+    gives, B3's input. ``s_pad`` pads the series axis with empty series."""
+    s = plan.page_rows.shape[0]
+    s_pad = s if s_pad is None else max(s_pad, s)
+    pd = _PlanOnDevice(plan, s_pad)
+    dev = pd.words.device
+    n = s_pad * pd.c
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = dict(
+        windows=torch.empty((n, pd.cw), **i32),
+        rel_pos=torch.empty(n, **i32),
+        num_bits=torch.empty(n, **i32),
+        first=torch.empty(n, dtype=torch.bool, device=dev),
+        time_unit=torch.empty(n, **i32),
+        sig=torch.empty(n, **i32),
+        mult=torch.empty(n, **i32),
+        is_float=torch.empty(n, dtype=torch.bool, device=dev),
+    )
+    for f in ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val"):
+        out[f] = (torch.empty(n, **i32), torch.empty(n, **i32))
+    for start in range(0, n, _GATHER_BLOCK_LANES):
+        stop = min(start + _GATHER_BLOCK_LANES, n)
+        lane = torch.arange(start, stop, **i32)
+        si, ci = lane // pd.c, lane % pd.c
+        planes, windows, rel, nbits, valid = _resident_gather(pd, si, ci)
+        rows = slice(start, stop)
+        out["windows"][rows] = windows
+        out["rel_pos"][rows] = rel
+        out["num_bits"][rows] = nbits
+        out["first"][rows] = valid & (ci == 0)
+        out["is_float"][rows] = planes["is_float"] != 0
+        for f in ("time_unit", "sig", "mult"):
+            out[f][rows] = planes[f].to(torch.int32)
+        for f in ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val"):
+            out[f][0][rows] = D.wrap_i32(planes[f][0]).to(torch.int32)
+            out[f][1][rows] = D.wrap_i32(planes[f][1]).to(torch.int32)
+    return out, s_pad
+
+
+def assemble_resident_packed(plan, s_pad: int | None = None, order: str = "c",
+                             rows: int = fused.ROWS_DEFAULT) -> tuple[fused.PackedLanes, int]:
+    """A ResidentChunkedPlan -> (fused.PackedLanes on the pool's device,
+    padded series count): the word-major layout of ``fused.pack_lanes``, in
+    chunk-major ("c": B1's input) or series-major ("s": kernel R's) lane
+    order. Windows, state planes and tile flags are bit-identical to
+    ``fused.pack_lanes`` of the same streams: lane j of "c" is (series
+    j % S, chunk j // S), tile-padding lanes are zero and count as fast,
+    first chunks are never fast."""
+    if order not in ("c", "s"):
+        raise ValueError(f"order must be 'c' or 's', got {order!r}")
+    s = plan.page_rows.shape[0]
+    s_pad = s if s_pad is None else max(s_pad, s)
+    pd = _PlanOnDevice(plan, s_pad)
+    dev = pd.words.device
+    n = s_pad * pd.c
+    tile_lanes = rows * 128
+    tiles = -(-n // tile_lanes)
+    npad = tiles * tile_lanes
+    windows = torch.empty((pd.cw, npad), dtype=torch.int32, device=dev)
+    lanes = torch.empty((fused.NLANE, npad), dtype=torch.int32, device=dev)
+    int_tiles = torch.empty(tiles, dtype=torch.bool, device=dev)
+    flt_tiles = torch.empty(tiles, dtype=torch.bool, device=dev)
+    block = max(tile_lanes, _GATHER_BLOCK_LANES // tile_lanes * tile_lanes)
+    for start in range(0, npad, block):
+        stop = min(start + block, npad)
+        j = torch.arange(start, stop, dtype=torch.int32, device=dev)
+        inb = j < n
+        if order == "c":
+            si, ci = torch.where(inb, j % s_pad, 0), torch.where(inb, j // s_pad, pd.c)
+        else:
+            si, ci = torch.where(inb, j // pd.c, 0), torch.where(inb, j % pd.c, pd.c)
+        planes, win, rel, nbits, valid = _resident_gather(pd, si, ci)
+        windows[:, start:stop] = win.T
+        first = valid & (ci == 0)
+        for p, name in enumerate(fused.PACKED_LANE_PLANES):
+            lanes[p, start:stop] = _u32_plane(name, planes, rel, nbits, first)
+        # tile class from the fast-chunk flags (side word 8): padding and
+        # invalid lanes never force a tile slow, first chunks always do
+        flags = planes["flags"]
+        not_first = ci != 0
+        fast_i = torch.where(valid, ((flags & 1) != 0) & not_first, True)
+        fast_f = torch.where(valid, ((flags & 2) != 0) & not_first, True)
+        t = slice(start // tile_lanes, stop // tile_lanes)
+        int_tiles[t] = fast_i.reshape(-1, tile_lanes).all(dim=1)
+        flt_tiles[t] = fast_f.reshape(-1, tile_lanes).all(dim=1)
+    tile_flags = torch.where(int_tiles, 1, torch.where(flt_tiles, 2, 0)).to(torch.int32)
+    return fused.PackedLanes(windows=windows, lanes=lanes, tile_flags=tile_flags, n=n,
+                             order=order), s_pad
+
+
+def resident_chunked_scan(plan, s_pad: int) -> ScanAggregates:
+    """The assemble-from-residency + packed-decode body: device gathers over
+    the pool build the chunk-major PackedLanes, kernel B1 folds them, the
+    reductions follow (m3_tpu/parallel/scan.py resident_chunked_local_fn;
+    the sharded variant waits for ROADMAP §A.4)."""
+    packed, s_pad = assemble_resident_packed(plan, s_pad, order="c")
+    return chunked_scan_aggregate_packed(packed, s=s_pad, c=plan.num_chunks, k=plan.chunk_k)

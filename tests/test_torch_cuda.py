@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
-the lane-aggregate kernel (B1), the records decode (kernel R) and the fused
-temporal kernel (B2).
+the lane-aggregate kernel (B1), the records decode (kernel R), the fused
+temporal kernel (B2), the per-field lane-aggregate kernel (B3), and the
+resident scan that feeds B1, R and B3 from device residency.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -108,3 +109,57 @@ def test_cuda_temporal_kernel_matches_twin(window):
         ok = ~torch.isnan(w)
         atol = 5e-3 if name.startswith("std") else 1e-4
         assert bool(((g[ok] - w[ok]).abs() <= atol + 1e-4 * w[ok].abs()).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gauge", "mixed", "specials"])
+def test_cuda_fields_kernel_matches_twin(name):
+    """B3 over the per-field layout, with more lanes than one block and
+    windows wide enough to stage through shared memory in several rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel.scan import chunked_device_args
+
+    batch = chunked.tile_chunked(chunked.build_chunked(_streams(name), k=16), 1000)
+    args = chunked_device_args(batch, device="cuda")
+    before = fused.FIELDS_LAUNCHES
+    got = fused.lane_aggregates_fields(**args, k=16)
+    assert fused.FIELDS_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    _assert_identical(got, fused.lane_aggregates_fields_reference(**args, k=16))
+
+
+@pytest.mark.cuda
+def test_cuda_resident_scan_matches_streamed_and_fused():
+    """Decode from residency on the card: the resident scan (device
+    assembly + B1) equals the streamed scan bit for bit, the resident
+    per-field lanes equal chunked_device_args, and B3 over them counts the
+    same datapoints."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.cache.block_cache import BlockKey
+    from m3_tpu_torch.ops.chunked import build_chunked
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.resident import (ResidentOptions, ResidentPool, resident_fetch_arrays,
+                                       resident_scan_totals, streamed_scan_totals)
+
+    streams = _streams("mixed")
+    pool = ResidentPool(ResidentOptions(max_bytes=1 << 22), device="cuda")
+    pool.admit_block("ns", 0, T0, 0, [(b"%04d" % i, s, 97) for i, s in enumerate(streams)],
+                     chunk_k=16)
+    keys = [BlockKey("ns", 0, b"%04d" % i, T0, 0) for i in range(len(streams))]
+    got = resident_scan_totals(pool, keys)
+    want = streamed_scan_totals(streams, k=16, device="cuda")
+    for f in got._fields:
+        g, w = getattr(got, f).cpu(), getattr(want, f).cpu()
+        if g.is_floating_point():
+            assert torch.equal(g.isnan(), w.isnan()), f
+            g, w = (torch.where(x.isnan(), 0.0, x).view(torch.int32) for x in (g, w))
+        assert torch.equal(g, w), f
+    args, s_pad = scan.assemble_resident_lanes(pool.plan_chunked(keys), 64)
+    host = scan.chunked_device_args(build_chunked(streams + [b""] * (s_pad - 64), k=16), "cuda")
+    assert torch.equal(args["windows"], host["windows"])
+    fused_out = scan.chunked_scan_aggregate_fused(args, s_pad, pool.plan_chunked(keys).num_chunks, 16)
+    assert int(fused_out.total_count) == int(got.total_count)
+    arrays, err = resident_fetch_arrays(pool, keys)
+    assert len(arrays) == len(keys) and err.shape == (len(keys),)
