@@ -24,6 +24,11 @@ Phases (any failure exits non-zero):
              launch, on f32 [4096, 720] with 2% NaN and one all-NaN row,
              seed 3, windows 1, 7, 61 and 1000: NaN pattern identical,
              values within 1e-4 abs + 1e-4 rel (5e-3 abs for stddev/stdvar).
+             Then B2's one-function kernels on f32 [100000, 726] (2% NaN,
+             seed 4): each of the 15 alone at w=7, and avg_over_time and
+             rate at windows 1/7/61/1000, each held to the same bounds
+             against its twin and timed beside the bytes bound and
+             F.avg_pool1d at the same window.
   resident — decode from device residency at BASELINE config 2 scale
              (RESIDENT_SERIES = 1,048,576 series x 720 points, k=24, the 64
              unique gauge streams of seed 3): 16 admit_block calls of 65,536
@@ -282,6 +287,7 @@ def phase_main(dev, worst: float):
     run_kernel = lambda: fused.lane_aggregates(*args, n=packed.n, k=K)
     run_kernel()
     kernel_ms = statistics.median(cuda_ms(run_kernel, 20))
+    kernel_b2b = per_launch_ms(run_kernel)
 
     # end to end: kernel + per-series and cross-series reductions, to the host
     def e2e():
@@ -316,7 +322,8 @@ def phase_main(dev, worst: float):
     bound_ms = max(bytes_ms, ops_ms)
     log(f"[main] bytes needed: " + ", ".join(f"{k_} {v / 1e9:.4f} GB" for k_, v in need.items())
         + f" (padded inputs hold {(packed.windows.numel() + packed.lanes.numel()) * 4 / 1e9:.4f} GB)")
-    log(f"[main] kernel warm median {kernel_ms:.3f} ms (20 launches, CUDA events); "
+    log(f"[main] kernel warm median {kernel_ms:.3f} ms (20 launches, CUDA events; back-to-back "
+        f"{kernel_b2b:.3f} ms); "
         f"bound {bound_ms:.3f} ms ({bytes_moved / 1e9:.3f} GB at 3.35 TB/s = "
         f"{bound_ms / kernel_ms:.1%} of roofline; f32 ops "
         f"{ops_ms:.4f} ms); twin {plain_ms:.1f} ms; end to end {e2e_med * 1e3:.3f} ms = "
@@ -594,6 +601,83 @@ def phase_temporal(dev) -> float:
     return worst
 
 
+def per_launch_ms(fn, launches: int = 20) -> float:
+    """Device time per launch of a run of back-to-back launches, between two
+    CUDA events (the host enqueues ahead of the card)."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def phase_temporal_sizes(dev) -> float:
+    """B2's one-function kernels at the query's size, [100000, 726]: each of
+    the 15 functions alone at w=7, and avg_over_time and rate at windows
+    1/7/61/1000, each held against its twin on the same input and timed
+    beside the bytes bound and F.avg_pool1d at the same window. Returns the
+    largest abs difference from the twin."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+
+    rows, cols = QUERY_SERIES, N_POINTS + 6
+    rng = np.random.default_rng(4)
+    v = rng.normal(100, 10, (rows, cols)).astype(np.float32)
+    v[rng.random(v.shape) < 0.02] = np.nan
+    x = torch.from_numpy(v).to(dev)
+    del v
+    bound = 2 * rows * cols * 4 / HBM_BYTES_PER_S * 1e3
+    filled = x.nan_to_num(0.0)
+    worst = 0.0
+
+    def pool_ms(w):
+        padded = torch.nn.functional.pad(filled, (w - 1, 0))[:, None, :]
+        run = lambda: F.avg_pool1d(padded, w, stride=1)
+        return statistics.median(cuda_ms(run, 10)), per_launch_ms(run)
+
+    def one(name, w):
+        nonlocal worst
+        (got,) = TF.fused_temporal(x, w, 10.0, (name,))
+        err = compare_temporal(name, got, TF.FUSABLE[name](x, w, 10.0), f"[{rows}, {cols}] w={w}")
+        worst = max(worst, err)
+        del got
+        run = lambda: TF.fused_temporal(x, w, 10.0, (name,))
+        return statistics.median(cuda_ms(run, 20)), per_launch_ms(run), err
+
+    pool = {w: pool_ms(w) for w in (1, 7, 61, 1000)}
+    log(f"[temporal] one-function kernels on f32 [{rows}, {cols}] (2% NaN, seed 4); bound "
+        f"{bound:.3f} ms (one f32 [S, T] in and out at 3.35 TB/s); F.avg_pool1d yardstick "
+        + ", ".join(f"w={w} {ms:.3f} ms (back-to-back {b2b:.3f})" for w, (ms, b2b) in pool.items())
+        + "; ms = median of 20 single launches (CUDA events), back-to-back = 20 launches "
+        "between two events")
+    at7 = {}
+    for name in TF.FUSABLE:
+        ms, b2b, err = one(name, 7)
+        at7[name] = (ms, b2b)
+        log(f"[temporal] w=7 {name:17s} {ms:.3f} ms (back-to-back {b2b:.3f}); bound "
+            f"{bound:.3f} ms = {bound / ms:.1%} of roofline; avg_pool1d {pool[7][0]:.3f} ms; "
+            f"max_abs_err vs twin {err:.3g}")
+    for name in ("avg_over_time", "rate"):
+        (ms, b2b), (p_ms, p_b2b) = at7[name], pool[7]
+        log(f"[temporal] w=7 {name} vs F.avg_pool1d: {ms:.3f} vs {p_ms:.3f} ms single, "
+            f"{b2b:.3f} vs {p_b2b:.3f} ms back-to-back: "
+            + ("faster in both" if ms < p_ms and b2b < p_b2b else "NOT faster in both"))
+    for name in ("avg_over_time", "rate"):
+        for w in (1, 7, 61, 1000):
+            ms, b2b, err = one(name, w)
+            log(f"[temporal] sweep {name:13s} w={w:<4d} {ms:.3f} ms (back-to-back {b2b:.3f}); "
+                f"bound {bound:.3f} ms; avg_pool1d {pool[w][0]:.3f} ms; max_abs_err {err:.3g}")
+    return worst
+
+
 def phase_query(dev, kernels: list, temporal_err: float) -> None:
     import torch
 
@@ -694,6 +778,8 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     grid32 = values.to(torch.float32)
     b2 = {fn: statistics.median(cuda_ms(
         lambda fn=fn: TF.fused_temporal(grid32, window, STEP / 1e9, (fn,)), 20)) for fn in queries}
+    b2_b2b = {fn: per_launch_ms(lambda fn=fn: TF.fused_temporal(grid32, window, STEP / 1e9, (fn,)))
+              for fn in queries}
     out_avg = TF.fused_temporal(grid32, window, STEP / 1e9, ("avg_over_time",))[0]
     out_rate = TF.fused_temporal(grid32, window, STEP / 1e9, ("rate",))[0]
     t0 = time.perf_counter()
@@ -753,6 +839,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
 
     padded = torch.nn.functional.pad(grid32.nan_to_num(0.0), (window - 1, 0))[:, None, :]
     lib_ms = statistics.median(cuda_ms(lambda: F.avg_pool1d(padded, window, stride=1), 20))
+    lib_b2b = per_launch_ms(lambda: F.avg_pool1d(padded, window, stride=1))
     del padded
 
     # bounds: kernel R reads each lane's window words and 17 planes once and
@@ -774,11 +861,11 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     log(f"[query] consolidation (plain torch) [{s_q}, {c * K}] -> [{s_q}, {cols}] {cons_ms:.3f} ms")
     for fn in queries:
         log(f"[query] B2 (temporal_fused) {fn} [{rows}, {cols}] w={window}: {b2[fn]:.3f} ms (median "
-            f"of 20); bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.4f} GB at 3.35 TB/s = "
+            f"of 20; back-to-back {b2_b2b[fn]:.3f} ms); bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.4f} GB at 3.35 TB/s = "
             f"{b2_bound / b2[fn]:.1%} of roofline; f32 ops {b2_ops_ms:.4f} ms); twin "
             f"{b2_plain[fn]:.1f} ms")
     log(f"[query] B2 library yardstick: F.avg_pool1d over the zero-filled, left-padded matrix "
-        f"{lib_ms:.3f} ms; it computes only the NaN-free avg_over_time (no NaN gate, no "
+        f"{lib_ms:.3f} ms (back-to-back {lib_b2b:.3f} ms); it computes only the NaN-free avg_over_time (no NaN gate, no "
         f"valid count); none exists for rate (null)")
     log(f"[query] aggregation: group_by_tags (host) {group_s * 1e3:.1f} ms, grouped_sum "
         f"[{rows}, {cols - window + 1}] -> [{QUERY_JOBS}, ...] {agg_ms:.3f} ms")
@@ -844,6 +931,7 @@ def main() -> int:
     phase_resident(dev, kernels, b3_worst, main_e2e_s)
     phase_records(dev)
     temporal_err = phase_temporal(dev)
+    temporal_err = max(temporal_err, phase_temporal_sizes(dev))
     phase_query(dev, kernels, temporal_err)
 
     smi = subprocess.run(

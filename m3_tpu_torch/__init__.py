@@ -13,6 +13,8 @@ plain PyTorch version only for a tensor that lies on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -30,3 +32,11 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"m3_tpu_torch runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing when ``device`` is already
+    the current one: the guard costs host time on every kernel launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

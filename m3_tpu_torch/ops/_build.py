@@ -4,7 +4,8 @@ a plain C interface, loaded with ctypes).
 Each source in ``SOURCES`` becomes its own library, compiled at first use
 into ``build/kernels/`` at the root of the checkout (listed in .gitignore)
 and named by a hash of the source and its flags, so an edited source is
-rebuilt. ``build_all`` starts one nvcc per source at once and waits for
+rebuilt (the headers in ``HEADERS``, which the sources include, are part
+of every hash). ``build_all`` starts one nvcc per source at once and waits for
 all of them. A failed build raises.
 """
 
@@ -25,6 +26,9 @@ _COMMON = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# headers the sources include (by a path relative to each source)
+HEADERS = (PKG / "csrc" / "launch.cuh",)
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -52,8 +56,11 @@ SOURCES = {
         PKG / "query" / "functions" / "csrc" / "temporal_fused.cu",
         _COMMON,
         {
-            # x, rows, cols, window, step_seconds, outs, fns, nfn, stream
-            "m3_temporal_fused": [_P, _I64, _I, _I, ctypes.c_double, _P, _P, _I, _P],
+            # x, rows, cols, window, step_seconds, outs, fns, nfn,
+            # scratch, scratch_bytes, stream
+            "m3_temporal_fused": [_P, _I64, _I, _I, ctypes.c_double, _P, _P, _I, _P, _I64, _P],
+            # rows, cols, window, fns, nfn -> bytes of device scratch (int64)
+            "m3_temporal_fused_scratch_bytes": [_I64, _I, _I, _P, _I],
         },
     ),
 }
@@ -75,7 +82,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source, flags, _ = SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
@@ -118,6 +126,6 @@ def load_library(name: str) -> ctypes.CDLL:
             for entry, argtypes in SOURCES[name][2].items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _I64 if entry.endswith("_bytes") else ctypes.c_int
             _libs[name] = lib
         return lib

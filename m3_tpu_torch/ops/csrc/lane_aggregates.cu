@@ -19,14 +19,50 @@
 //
 // Design. One thread per lane, looping over the k records with the state
 // in registers as native 64-bit integers (the TPU's (hi, lo) u32 pairs
-// are gone). The 4-word fetch is four loads from the word-major window
-// [CW, Npad] (neighbouring lanes read neighbouring addresses) and a funnel
-// shift; it replaces the TPU's barrel select over window columns
-// (chunked.py _fetch4_select), which existed only because TPU gathers are
-// slow. Words past CW read as zero, and word indices wrap with the barrel's
-// mask exactly as the reference's do. The body is chosen per TILE (rows x 128
+// are gone). The 4-word fetch is four word loads and a funnel shift; it
+// replaces the TPU's barrel select over window columns (chunked.py
+// _fetch4_select), which existed only because TPU gathers are slow. Words
+// past CW read as zero, and word indices wrap with the barrel's mask
+// exactly as the reference's do. The body is chosen per TILE (rows x 128
 // lanes) by tile_flags, never per lane: the general and int-fast bodies
 // convert int values differently, so the choice shows in the output.
+//
+// Loads (lane_aggregates_slab_kernel). A thread that fetches every word
+// straight from device memory makes eight scattered 4-byte loads per record
+// (a fetch for the timestamp, another for the value), whose 32 lanes touch
+// up to 32 lines once their bit cursors drift apart, with nothing
+// overlapping them. Instead:
+// - A block walks 128-lane slabs. A slab's [CW, 128] window words are CW
+//   contiguous 512-byte runs of [CW, Npad]; cp.async copies them, 16 bytes
+//   a thread, into shared memory. A block loads its slab, then decodes it,
+//   and the other blocks on its SM overlap its loads. A ring of two or
+//   three stages that loads ahead ran slower on the H100: it fits fewer
+//   blocks on an SM.
+// - A lane reads word w at s[w * 128 + lane]: bank lane % 32 for every w,
+//   so no bank conflicts however far the cursors drift. The fetch clamps
+//   its first word index to CW and four zero rows follow the CW window
+//   rows, so "past CW reads 0" is a plain load and a stage holds CW + 4
+//   rows (28 at CW=24), not the barrel's mask + 4 (35).
+// - One fetch per fast record: the value's bits are the timestamp fetch
+//   shifted by the timestamp's width (follow, run_fast_int), unless the
+//   barrel would wrap between the two or too few bits remain, when a
+//   second fetch reads exactly what the reference reads.
+// - The int-fast body, 97% of the main path's tiles, parses a sig/mult
+//   header only on a to-int record, looks 10^-mult up only when mult
+//   changes, and folds with min/max that skip the NaN test (its values are
+//   never NaN; the bits are those of the NaN-aware fold). The timestamp
+//   width and the fold are selects, not branches: the lanes of a warp
+//   decode different records, so a branch on the data diverges.
+// - State planes are read once per lane straight from [17, Npad]
+//   (neighbouring lanes on neighbouring words): staging them bought
+//   nothing and cost shared memory, that is blocks per SM.
+// What it found (PERF.md): the number of stages, and so of blocks per SM,
+// changed the time little, so the decode is not waiting on loads; it is
+// bound by its own integer work (the int-fast record loop, some of it on
+// rare paths), far from the bytes bound.
+// The kernel takes Npad and the tile as multiples of 128 and windows and
+// planes aligned to 16 bytes, which is all that pack_lanes and the resident
+// assembly give; other shapes are refused (cudaErrorInvalidValue).
 //
 // Parity with the reference, bit for bit:
 // - f32 values come from the reference's formulas (f64_bits_to_f32, to_f32,
@@ -69,14 +105,19 @@
 
 #include <cstdint>
 
+#include "../../csrc/launch.cuh"
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define M3_HD __device__ __forceinline__
+#define M3_HDX __host__ __device__ inline
 #define M3_LOAD(p) __ldg(p)
 #else
 #include <cstring>
+#include <vector>
 #include <xmmintrin.h>
 #define M3_HD inline
+#define M3_HDX inline
 #define M3_LOAD(p) (*(p))
 static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
   s &= 31;
@@ -121,6 +162,12 @@ M3_HD uint64_t shl64(uint64_t x, int s) { return s >= 64 ? 0 : x << s; }
 M3_HD int clz64(uint64_t x) { return x ? __clzll((long long)x) : 64; }
 M3_HD int ctz64(uint64_t x) { return x ? __ffsll((long long)x) - 1 : 64; }
 M3_HD int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+M3_HD int min_i(int a, int b) { return a < b ? a : b; }
+#ifdef __CUDACC__
+M3_HD int clz32(uint32_t x) { return __clz((int)x); }
+#else
+inline int clz32(uint32_t x) { return x ? __builtin_clz(x) : 32; }
+#endif
 
 // The four window words at bit rel + pos of a lane, aligned to that bit.
 // Word indices wrap with the reference's barrel mask; words past CW read as
@@ -154,6 +201,42 @@ struct LaneRef {
   }
 
   M3_HD Window fetch(int pos) const { return fetch_window(*this, pos); }
+};
+
+// A lane of a B1 slab: the slab's CW window rows of 128 words staged in
+// shared memory (then up to four zero rows, stage_rows), this lane at
+// column `col`, and its state planes read in place from the [17, Npad]
+// array (once per lane, neighbouring lanes on neighbouring words). A warp
+// reads word w of its 32 lanes from one row, 32 consecutive words: one bank
+// each, however far the lanes' bit cursors have drifted apart.
+constexpr int kSlab = 128;
+
+struct SlabLane {
+  const uint32_t* win;     // this lane's word 0 in the slab's [CW, 128] rows
+  const uint32_t* planes;  // this lane's plane 0 in the [17, Npad] array
+  int64_t npad;
+  int cw, mask, rel;
+
+  M3_HD uint32_t plane(int p) const { return M3_LOAD(planes + (int64_t)p * npad); }
+  M3_HD uint64_t pair(int p_hi) const {
+    return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
+  }
+
+  // fetch_window with the first word index clamped to cw: a fetch from a
+  // word at or past CW reads four zero words either way, and the stage
+  // needs zero rows only up to cw + 3 (not the barrel's mask + 3)
+  M3_HD Window fetch(int pos) const {
+    const int p = rel + pos;
+    const int widx = min_i((p >> 5) & mask, cw);
+    const uint32_t* w = win + widx * kSlab;
+    const uint32_t w0 = w[0], w1 = w[kSlab], w2 = w[2 * kSlab], w3 = w[3 * kSlab];
+    const unsigned r = (unsigned)p & 31u;
+    const uint32_t s0 = __funnelshift_l(w1, w0, r);
+    const uint32_t s1 = __funnelshift_l(w2, w1, r);
+    const uint32_t s2 = __funnelshift_l(w3, w2, r);
+    const uint32_t s3 = w3 << r;
+    return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
+  }
 };
 
 // The 17 state fields of the per-field layout (B3), one array each, indexed
@@ -272,6 +355,23 @@ struct Acc {
     mn = min_nan(mn, valid ? v : __int_as_float(0x7F800000));
     mx = max_nan(mx, valid ? v : __int_as_float((int)0xFF800000));
     if (valid) last = v;
+  }
+  // fold() for values that are never NaN (the int-fast body's): min and
+  // max without the NaN test, the same bits otherwise (equal values merge
+  // their bits, so -0 is below +0), every operand computed first so that
+  // the compiler selects instead of branching
+  M3_HD void fold_num(bool valid, float v) {
+    sum = sum + (valid ? v : 0.0f);
+    cnt += valid ? 1 : 0;
+    const float lo = valid ? v : __int_as_float(0x7F800000);
+    const float hi = valid ? v : __int_as_float((int)0xFF800000);
+    const float mn_eq = __int_as_float(__float_as_int(mn) | __float_as_int(lo));
+    const float mx_eq = __int_as_float(__float_as_int(mx) & __float_as_int(hi));
+    const float mn_keep = mn < lo ? mn : mn_eq;
+    const float mx_keep = mx > hi ? mx : mx_eq;
+    mn = lo < mn ? lo : mn_keep;
+    mx = hi > mx ? hi : mx_keep;
+    last = valid ? v : last;
   }
 };
 
@@ -475,13 +575,14 @@ M3_HD void decode_value(const Lane& L, State& st, bool first) {
   }
 }
 
-// _ts_consumed_fast: width of a marker-free {s, ms} timestamp record
+// _ts_consumed_fast: width of a marker-free {s, ms} timestamp record. The
+// leading ones of its 4-bit head (0..4) pick 1, 9, 12, 16 or 36 bits, here
+// a byte of one constant: no branch, so lanes whose widths differ do not
+// diverge.
 M3_HD int ts_consumed_fast(const Window& ws) {
-  const uint32_t h = (uint32_t)bits(ws, 0, 4);
-  if (((h >> 3) & 1u) == 0) return 1;
-  if (((h >> 2) & 1u) == 0) return 9;
-  if (((h >> 1) & 1u) == 0) return 12;
-  return (h & 1u) == 0 ? 16 : 36;
+  const uint32_t h = (uint32_t)(ws.a >> 60);
+  const int ones = clz32(~(h << 28));  // the low 28 bits are set: at most 4
+  return (int)((0x24100C0901ull >> (8 * ones)) & 0xFFu);
 }
 
 // ---------------------------------------------------------------------------
@@ -531,24 +632,54 @@ M3_HD bool run_general(const Lane& L, int k, Acc& acc) {
   });
 }
 
-// _run_lane_tile_fast: int-mode, marker-free, int32-safe chunks
-M3_HD void run_fast_int(const LaneRef& L, int k, Acc& acc) {
+// The window at bit pos + c, given w = fetch(pos): w shifted left by c bits
+// when that holds the first `need` bits exactly as a fetch at pos + c would
+// (no barrel wrap, and need bits left of w's 128 - r valid ones), else a
+// second fetch. The fast bodies read a timestamp and then its value from
+// one fetch this way.
+template <class Lane>
+M3_HD Window follow(const Lane& L, const Window& w, int pos, int c, int need) {
+  const int p = L.rel + pos;
+  if (((p + c) >> 5) <= L.mask && 128 - (p & 31) - c >= need) return {get64(w, c), get64(w, c + 64)};
+  return L.fetch(pos + c);
+}
+
+// Bits of a fast value record's window that its decode reads: int-fast
+// reads a 12-bit header at 3 and 33 bits at r <= 15 (48 bits, always inside
+// the 128 - r - c >= 61 valid bits of w shifted by a timestamp of c <= 36);
+// float-fast reads an XOR record at 1 (at most 2 + 12 + 64 bits).
+constexpr int kFloatValueBits = 79;
+
+// _run_lane_tile_fast: int-mode, marker-free, int32-safe chunks. One fetch
+// per record: the value's first 64 bits are the timestamp's window shifted
+// by the timestamp's width (c in {1, 9, 12, 16, 36}), unless the barrel
+// wraps between the two; the sig/mult header is parsed only on a to-int
+// record, and 10^-mult is looked up only when mult changes.
+template <class Lane>
+M3_HD void run_fast_int(const Lane& L, int k, Acc& acc) {
   const bool active = (int32_t)L.plane(NBITS) > L.rel;
   int pos = 0;
   int32_t iv = (int32_t)L.plane(IV_LO);
   int sig = (int32_t)L.plane(SIG), mult = (int32_t)L.plane(MULT);
+  float rcp = mult_rcp(mult);
   for (int idx = 0; idx < k; ++idx) {
-    pos += ts_consumed_fast(L.fetch(pos));
-    const Window ws = L.fetch(pos);
-    const uint32_t head2 = (uint32_t)bits(ws, 0, 2);
+    const Window wt = L.fetch(pos);
+    const int ts = ts_consumed_fast(wt);
+    const uint64_t va = ((L.rel + pos + ts) >> 5) <= L.mask
+                            ? (wt.a << ts) | (wt.b >> (64 - ts))
+                            : L.fetch(pos + ts).a;
+    pos += ts;
+    const uint32_t head2 = (uint32_t)(va >> 62);
     const bool repeat = head2 == 1;  // update + repeat
     const bool to_int = head2 == 0;  // update, no repeat (float excluded)
-    int h_sig, h_mult, h_consumed;
-    bool unused;
-    int_header12((uint32_t)bits(ws, 3, 12), sig, mult, h_sig, h_mult, h_consumed, unused);
+    int h_sig = sig, h_mult = mult, h_consumed = 0;
+    if (to_int) {
+      bool unused;
+      int_header12((uint32_t)(va >> 49) & 0xFFFu, sig, mult, h_sig, h_mult, h_consumed, unused);
+    }
     // sign + <= 31-bit diff from the first two words; r in [1, 15], never 0
     const unsigned r = to_int ? 3u + (unsigned)h_consumed : 1u;
-    const uint32_t w0 = (uint32_t)(ws.a >> 32), w1 = (uint32_t)ws.a;
+    const uint32_t w0 = (uint32_t)(va >> 32), w1 = (uint32_t)va;
     const uint32_t hi32 = (w0 << r) | (w1 >> (32u - r));
     const uint32_t bit32 = (w1 << r) >> 31;
     const uint32_t body = (hi32 << 1) | bit32;
@@ -559,20 +690,24 @@ M3_HD void run_fast_int(const LaneRef& L, int k, Acc& acc) {
     pos += repeat ? 2 : (to_int ? 3 + h_consumed + 1 + h_sig : 2 + sig);
     if (to_int) {
       sig = h_sig;
+      if (h_mult != mult) rcp = mult_rcp(h_mult);
       mult = h_mult;
     }
-    acc.fold(active, (float)iv * mult_rcp(mult));
+    acc.fold_num(active, (float)iv * rcp);
   }
 }
 
 // _run_lane_tile_fast_float: float-mode XOR / repeat records only
-M3_HD void run_fast_float(const LaneRef& L, int k, Acc& acc) {
+template <class Lane>
+M3_HD void run_fast_float(const Lane& L, int k, Acc& acc) {
   const bool active = (int32_t)L.plane(NBITS) > L.rel;
   int pos = 0;
   uint64_t pfb = L.pair(PFB_HI), pxr = L.pair(PXR_HI);
   for (int idx = 0; idx < k; ++idx) {
-    pos += ts_consumed_fast(L.fetch(pos));
-    const Window ws = L.fetch(pos);
+    const Window wt = L.fetch(pos);
+    const int ts = ts_consumed_fast(wt);
+    const Window ws = follow(L, wt, pos, ts, kFloatValueBits);
+    pos += ts;
     const bool repeat = bits(ws, 0, 1) == 0;
     uint64_t nb, nx;
     int consumed;
@@ -627,11 +762,11 @@ M3_HD void decode_field_lane(const uint32_t* row, const FieldPlanes& f, int64_t 
   store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
 }
 
-M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int32_t* tile_flags,
-                       int64_t npad, int cw, int mask, int k, int64_t tile_lanes, int64_t lane,
-                       float* out_f, int32_t* out_cnt, uint8_t* out_err) {
-  const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, lane);
-  const int flag = M3_LOAD(tile_flags + lane / tile_lanes);
+// One lane with the body its tile's flag picks; outputs at `lane` of arrays
+// of length n.
+template <class Lane>
+M3_HD void decode_body(const Lane& L, int flag, int k, int64_t lane, int64_t n, float* out_f,
+                       int32_t* out_cnt, uint8_t* out_err) {
   Acc acc;
   acc.init();
   bool err = false;
@@ -642,21 +777,70 @@ M3_HD void decode_lane(const uint32_t* windows, const uint32_t* lanes, const int
   } else {
     err = run_general(L, k, acc);
   }
-  store_lane(acc, err, lane, npad, out_f, out_cnt, out_err);
+  store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
+}
+
+M3_HD SlabLane slab_lane(const uint32_t* s_win, const uint32_t* lanes, int64_t npad,
+                         int64_t lane, int col, int cw, int mask) {
+  SlabLane L;
+  L.win = s_win + col;
+  L.planes = lanes + lane;
+  L.npad = npad;
+  L.cw = cw;
+  L.mask = mask;
+  L.rel = (int32_t)L.plane(REL);
+  return L;
+}
+
+// Rows of a slab stage: the CW window rows, then zero rows up to the last
+// row a fetch reads, min(cw, mask) + 3.
+M3_HDX int stage_rows(int cw, int mask) {
+  const int rows = (mask < cw ? mask : cw) + 4;
+  return rows > cw ? rows : cw;
+}
+
+// Bytes of shared memory of one slab stage.
+inline size_t stage_bytes(int cw, int mask) { return (size_t)stage_rows(cw, mask) * kSlab * 4; }
+
+// Whether B1 takes this shape: 128-lane slabs that tile Npad and never
+// straddle two tiles, and a stage that fits a block's shared memory.
+inline bool slab_shape_ok(int64_t npad, int64_t tile_lanes, int cw, int mask) {
+  return npad % kSlab == 0 && tile_lanes > 0 && tile_lanes % kSlab == 0 && cw > 0 &&
+         stage_bytes(cw, mask) <= m3::kSmemMax;
 }
 
 #ifdef __CUDACC__
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads)
-lane_aggregates_kernel(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ lanes,
-                       const int32_t* __restrict__ tile_flags, int64_t npad, int cw, int mask,
-                       int k, int64_t tile_lanes, float* __restrict__ out_f,
-                       int32_t* __restrict__ out_cnt, uint8_t* __restrict__ out_err) {
-  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= npad) return;
-  decode_lane(windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, lane, out_f, out_cnt,
-              out_err);
+// B1: a block walks 128-lane slabs (slab += gridDim.x). Each slab's CW
+// window rows are 512-byte runs of the [CW, Npad] array; cp.async copies
+// them, 16 bytes a thread, into the block's stage, and the block then
+// decodes the slab from there while the other blocks on its SM load
+// theirs. The body is chosen per slab (tile_lanes is a multiple of 128).
+__global__ void __launch_bounds__(kSlab)
+lane_aggregates_slab_kernel(const uint32_t* __restrict__ windows,
+                            const uint32_t* __restrict__ lanes,
+                            const int32_t* __restrict__ tile_flags, int64_t npad, int cw,
+                            int mask, int k, int64_t tile_lanes, float* __restrict__ out_f,
+                            int32_t* __restrict__ out_cnt, uint8_t* __restrict__ out_err) {
+  extern __shared__ __align__(16) uint32_t s_stage[];
+  const int stage_words = stage_rows(cw, mask) * kSlab;
+  const int64_t nslab = npad / kSlab;
+  const int tid = threadIdx.x;
+  // the zero rows after the window rows (copies never write them)
+  for (int j = cw * kSlab + tid; j < stage_words; j += kSlab) s_stage[j] = 0u;
+  for (int64_t slab = blockIdx.x; slab < nslab; slab += gridDim.x) {
+    const int64_t col = slab * kSlab;
+    for (int j = tid; j < cw * 32; j += kSlab) {
+      const int row = j >> 5, q = (j & 31) * 4;
+      m3::cp_async16(s_stage + row * kSlab + q, windows + row * npad + col + q);
+    }
+    m3::cp_async_commit();
+    m3::cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed
+    decode_body(slab_lane(s_stage, lanes, npad, col + tid, tid, cw, mask),
+                __ldg(tile_flags + col / tile_lanes), k, col + tid, npad, out_f, out_cnt,
+                out_err);
+    __syncthreads();  // the stage is read before it is refilled
+  }
 }
 
 // Kernel R: the general body's records, one thread per lane. Each thread
@@ -759,14 +943,23 @@ void decode_lane_records(const uint32_t* windows, const uint32_t* lanes, int64_t
 #ifdef __CUDACC__
 // windows u32[cw, npad], lanes u32[17, npad], tile_flags i32[npad / tile_lanes];
 // out_f f32[4, npad] (sum, min, max, last), out_cnt i32[npad], out_err u8[npad].
-// Returns cudaGetLastError() after the launch.
+// Npad and tile_lanes are multiples of 128, windows and lanes 16-byte
+// aligned. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or alignment it does not take).
 extern "C" int m3_lane_aggregates(const uint32_t* windows, const uint32_t* lanes,
                                   const int32_t* tile_flags, int64_t npad, int cw, int mask,
                                   int k, int64_t tile_lanes, float* out_f, int32_t* out_cnt,
                                   uint8_t* out_err, void* stream) {
+  const bool aligned = (((uintptr_t)windows | (uintptr_t)lanes) & 15u) == 0;
+  if (!slab_shape_ok(npad, tile_lanes, cw, mask) || !aligned) return (int)cudaErrorInvalidValue;
   if (npad > 0) {
-    const int64_t blocks = (npad + kThreads - 1) / kThreads;
-    lane_aggregates_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    const size_t smem = stage_bytes(cw, mask);
+    int64_t cap = 0;
+    const cudaError_t e = m3::resident_blocks(lane_aggregates_slab_kernel, kSlab, smem, &cap);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t nslab = npad / kSlab;
+    lane_aggregates_slab_kernel<<<(unsigned)(nslab < cap ? nslab : cap), kSlab, smem,
+                                  (cudaStream_t)stream>>>(
         windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, out_f, out_cnt, out_err);
   }
   return (int)cudaGetLastError();
@@ -784,7 +977,7 @@ extern "C" int m3_decode_records(const uint32_t* windows, const uint32_t* lanes,
                                  int64_t* out_bits, uint8_t* out_pif, uint8_t* out_mult,
                                  uint8_t* out_valid, uint8_t* out_err, void* stream) {
   const size_t smem = (size_t)kRecThreads * (size_t)(k | 1) * kRecBytes;
-  if (k <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (k <= 0 || smem > m3::kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > 49152) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_records_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -808,7 +1001,7 @@ extern "C" int m3_lane_aggregates_fields(const uint32_t* windows, const void* co
                                          int64_t n, int cw, int mask, int k, float* out_f,
                                          int32_t* out_cnt, uint8_t* out_err, void* stream) {
   const size_t smem = (size_t)kFieldThreads * (size_t)(cw | 1) * 4;
-  if (cw <= 0 || k <= 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (cw <= 0 || k <= 0 || smem > m3::kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > 49152) {
     const cudaError_t e = cudaFuncSetAttribute(
         lane_aggregates_fields_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -824,16 +1017,24 @@ extern "C" int m3_lane_aggregates_fields(const uint32_t* windows, const void* co
 }
 #else
 // Host build of the same per-lane code, with subnormals flushed as -ftz=true
-// flushes them on the card.
+// flushes them on the card, and lanes decoded as the card decodes them: each
+// 128-lane slab's window rows copied into a stage and read through
+// SlabLane. Returns 1 for a shape the kernel does not take.
 extern "C" int m3_lane_aggregates_host(const uint32_t* windows, const uint32_t* lanes,
                                        const int32_t* tile_flags, int64_t npad, int cw,
                                        int mask, int k, int64_t tile_lanes, float* out_f,
                                        int32_t* out_cnt, uint8_t* out_err) {
+  if (!slab_shape_ok(npad, tile_lanes, cw, mask)) return 1;
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
-  for (int64_t lane = 0; lane < npad; ++lane) {
-    decode_lane(windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, lane, out_f, out_cnt,
-                out_err);
+  std::vector<uint32_t> st((size_t)stage_rows(cw, mask) * kSlab, 0u);
+  for (int64_t col = 0; col < npad; col += kSlab) {
+    for (int w = 0; w < cw; ++w)
+      std::memcpy(&st[(size_t)w * kSlab], windows + w * npad + col, kSlab * 4);
+    const int flag = tile_flags[col / tile_lanes];
+    for (int t = 0; t < kSlab; ++t)
+      decode_body(slab_lane(st.data(), lanes, npad, col + t, t, cw, mask), flag, k, col + t,
+                  npad, out_f, out_cnt, out_err);
   }
   _mm_setcsr(csr);
   return 0;

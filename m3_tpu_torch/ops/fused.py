@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import device_guard, resolve_device
 from . import decode as D
 
 # rows per tile: a tile is rows x 128 lanes and shares one body
@@ -187,6 +187,9 @@ def _check_inputs(windows, lanes, tile_flags, n, k):
     tiles = tile_flags.shape[0]
     if tiles == 0 or windows.shape[1] % tiles:
         raise ValueError("Npad must be a multiple of the tile count")
+    if (windows.shape[1] // tiles) % 128:
+        # the kernel walks 128-lane slabs, each inside one tile
+        raise ValueError("a tile must hold a multiple of 128 lanes")
     if tile_flags.device != windows.device:
         raise ValueError("tile_flags and windows lie on different devices")
 
@@ -219,7 +222,7 @@ def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
     out_cnt = torch.empty(npad, dtype=torch.int32, device=dev)
     out_err = torch.empty(npad, dtype=torch.uint8, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.m3_lane_aggregates(
             ptr(windows), ptr(lanes), ptr(tile_flags),

@@ -5,8 +5,9 @@ evaluates any of the 15 ``FUSABLE`` functions over one f32 [S, T] range
 matrix: for a CUDA tensor in one launch of the CUDA kernel
 (``csrc/temporal_fused.cu``, one f32 [S, T] output per function), for a
 CPU tensor with the plain PyTorch twin (``temporal.py``). The TPU's
-64-row blocks, NaN row padding and row-count gate are gone: every row is
-one CTA on the card.
+64-row blocks, NaN row padding and row-count gate are gone: each row is
+one warp's on the card, and the function ids pick the kernel's
+instantiation (the state groups those functions need).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import ctypes
 
 import torch
 
+from ... import device_guard
+from ...ops._build import load_library
 from . import temporal as T
 
 # name -> twin(values, window, step_seconds); the order is the kernel's
@@ -68,19 +71,24 @@ def fused_temporal(values, window: int, step_seconds: float, funcs: tuple[str, .
 
 def _launch(v, window, step_seconds, funcs):
     global LAUNCHES
-    from ...ops._build import load_library
-
     lib = load_library("temporal_fused")
     rows, cols = v.shape
     outs = [torch.empty_like(v) for _ in funcs]
     ptrs = (ctypes.c_void_p * len(funcs))(*[o.data_ptr() for o in outs])
     ids = (ctypes.c_int * len(funcs))(*[_FN_ID[f] for f in funcs])
-    with torch.cuda.device(v.device):
+    # rows too long for shared memory keep the kernel's per-row arrays in a
+    # device scratch buffer (0 bytes when they fit)
+    nbytes = lib.m3_temporal_fused_scratch_bytes(rows, cols, window, ids, len(funcs))
+    if nbytes < 0:
+        raise ValueError(f"temporal_fused kernel does not take {funcs}")
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=v.device) if nbytes else None
+    # pointers and sizes go to ctypes as plain ints (the entry's argtypes
+    # convert them; cheaper than a c_void_p object each)
+    with device_guard(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = lib.m3_temporal_fused(
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_int64(rows), ctypes.c_int(cols),
-            ctypes.c_int(window), ctypes.c_double(step_seconds), ptrs, ids,
-            ctypes.c_int(len(funcs)), ctypes.c_void_p(stream),
+            v.data_ptr(), rows, cols, window, step_seconds, ptrs, ids, len(funcs),
+            0 if scratch is None else scratch.data_ptr(), nbytes, stream,
         )
     if rc != 0:
         raise RuntimeError(f"temporal_fused kernel launch failed: CUDA error {rc}")

@@ -163,3 +163,73 @@ def test_cuda_resident_scan_matches_streamed_and_fused():
     assert int(fused_out.total_count) == int(got.total_count)
     arrays, err = resident_fetch_arrays(pool, keys)
     assert len(arrays) == len(keys) and err.shape == (len(keys),)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_all_bodies_ragged_lane_count():
+    """B1's slab kernel on all three tile bodies at 21,000 lanes, not a
+    multiple of its 128-lane slabs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    batch = chunked.build_chunked(synthetic_mixed_streams(64, 97, seed=9, frac_float=0.5), k=16)
+    p = fused.pack_lanes(batch, order="sorted", rows=8, device="cuda", n_series=3000)
+    assert p.n % 128 and (torch.bincount(p.tile_flags, minlength=3) > 0).all()
+    before = fused.LAUNCHES
+    got = fused.lane_aggregates(p.windows, p.lanes, p.tile_flags, n=p.n, k=16)
+    assert fused.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    _assert_identical(got, fused.lane_aggregates_reference(p.windows, p.lanes, p.tile_flags,
+                                                           n=p.n, k=16))
+
+
+def _temporal_input(rows, cols, seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = rng.normal(100, 10, (rows, cols)).astype(np.float32)
+    v[rng.random(v.shape) < 0.02] = np.nan
+    v[min(9, rows - 1)] = np.nan
+    return torch.from_numpy(v).cuda()
+
+
+def _assert_temporal_close(name, got, want):
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), name
+    ok = ~torch.isnan(want)
+    atol = 5e-3 if name.startswith("std") else 1e-4
+    assert bool(((got[ok] - want[ok]).abs() <= atol + 1e-4 * want[ok].abs()).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rate", "irate", "increase", "delta", "idelta", "resets",
+                                  "changes", "sum_over_time", "count_over_time",
+                                  "avg_over_time", "min_over_time", "max_over_time",
+                                  "last_over_time", "stddev_over_time", "stdvar_over_time"])
+def test_cuda_temporal_single_function_matches_twin(name):
+    """B2's one-function specialisations, 515 rows (not a multiple of the
+    kernel's 8 rows per CTA), windows 1/7/61/1000."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+
+    x = _temporal_input(515, 720)
+    for window in (1, 7, 61, 1000):
+        before = TF.LAUNCHES
+        (got,) = TF.fused_temporal(x, window, 10.0, (name,))
+        assert TF.LAUNCHES == before + 1
+        _assert_temporal_close(name, got, TF.fused_temporal(x.cpu(), window, 10.0, (name,))[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("funcs", [("avg_over_time",), ("rate", "stddev_over_time")])
+def test_cuda_temporal_long_rows_use_scratch(funcs):
+    """Rows too long for shared memory (20,000 columns) keep the kernel's
+    arrays in a device scratch buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+
+    x = _temporal_input(37, 20_000)
+    got = TF.fused_temporal(x, 61, 10.0, funcs)
+    for name, g, w in zip(funcs, got, TF.fused_temporal(x.cpu(), 61, 10.0, funcs)):
+        _assert_temporal_close(name, g, w)

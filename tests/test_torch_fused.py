@@ -82,6 +82,11 @@ CASES = {
     "specials": (lambda: _encode_values(
         [[0.5] + [SPECIALS[(j * 7 + s) % len(SPECIALS)] for j in range(96)] for s in range(16)]),
         16, 64, "c"),
+    # 21,000 lanes: not a multiple of the kernel's 128-lane slabs, so the
+    # last slab holds padding lanes; all three bodies, chunks ending
+    # mid-window
+    "ragged": (lambda: jsyn.synthetic_mixed_streams(64, 97, seed=9, frac_float=0.5),
+               16, 3000, "sorted"),
 }
 
 
@@ -132,7 +137,7 @@ def test_twin_matches_pallas_kernel_per_lane(name):
         assert flags[1] > 0
     if name in ("float", "float_repeat"):
         assert flags[2] > 0
-    if name == "mixed":
+    if name in ("mixed", "ragged"):
         assert (flags > 0).all(), flags  # all three bodies run
     if name == "annotated":
         assert np.asarray(want.err).any()
@@ -238,6 +243,8 @@ def host_kernel(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_source_host_build_matches_twin(host_kernel, name):
+    """The card's path: 128-lane slabs of window rows staged as the kernel
+    stages them, one fetch per fast record."""
     _, k, tp = _packed(name)
     cw, npad = tp.windows.shape
     out_f = np.zeros((4, npad), np.float32)
@@ -253,3 +260,22 @@ def test_kernel_source_host_build_matches_twin(host_kernel, name):
                                 max=out_f[2, :n], last=out_f[3, :n], err=out_err[:n] != 0)
     want = tfused.lane_aggregates(tp.windows, tp.lanes, tp.tile_flags, n=n, k=k)
     _assert_lanes_identical(got, want)
+
+
+@pytest.mark.parametrize("npad,tile_lanes", [(3840, 64), (4000, 1000)])
+def test_kernel_refuses_tiles_off_its_slabs(host_kernel, npad, tile_lanes):
+    """Tiles that are not whole 128-lane slabs: the wrapper raises on every
+    device, and the kernel source refuses them."""
+    cw = 6
+    win = torch.zeros((cw, npad), dtype=torch.int32)
+    lanes = torch.zeros((tfused.NLANE, npad), dtype=torch.int32)
+    flags = torch.zeros(npad // tile_lanes, dtype=torch.int32)
+    with pytest.raises(ValueError, match="128 lanes"):
+        tfused.lane_aggregates(win, lanes, flags, n=npad, k=4)
+    out_f = np.zeros((4, npad), np.float32)
+    out_cnt = np.zeros(npad, np.int32)
+    out_err = np.zeros(npad, np.uint8)
+    rc = host_kernel(win.numpy().ctypes.data, lanes.numpy().ctypes.data,
+                     flags.numpy().ctypes.data, npad, cw, tdecode.barrel_mask(cw), 4, tile_lanes,
+                     out_f.ctypes.data, out_cnt.ctypes.data, out_err.ctypes.data)
+    assert rc == 1

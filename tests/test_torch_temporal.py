@@ -7,7 +7,10 @@
   off-TPU.
 - B2's source, compiled as host C++, equals the twin within the
   reference's stated bound (1e-4 abs + 1e-4 rel; 5e-3 abs for stddev/stdvar,
-  TOLERANCE.md), with an identical NaN pattern.
+  TOLERANCE.md), with an identical NaN pattern; every function but
+  stddev/stdvar bit for bit, since the kernel runs the reference's doubling
+  tree. Each one-function specialisation and the all-function kernel are
+  held separately, at windows up to one longer than the row.
 
 Inputs: 96 series x 120 points made with numpy from a seed. "gauge" rows
 are stationary (N(50, 5)) with 8% NaN, an all-NaN row, a sparse row and a
@@ -106,11 +109,96 @@ def host_b2():
          "-o", out, str(_build.SOURCES["temporal_fused"][0])],
         check=True, capture_output=True, text=True,
     )
-    fn = ctypes.CDLL(out).m3_temporal_fused_host
+    lib = ctypes.CDLL(out)
+    fn = lib.m3_temporal_fused_host
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
+    fn.groups = lib.m3_temporal_fused_groups
+    fn.groups.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.groups.restype = ctypes.c_int
     return fn
+
+
+def _host_run(host_b2, v, window, names):
+    outs = [np.zeros_like(v) for _ in names]
+    ptrs = (ctypes.c_void_p * len(names))(*[o.ctypes.data for o in outs])
+    ids = (ctypes.c_int * len(names))(*[list(TF.FUSABLE).index(n) for n in names])
+    assert host_b2(v.ctypes.data, v.shape[0], v.shape[1], window, STEP, ptrs, ids, len(names)) == 0
+    return outs, host_b2.groups(ids, len(names))
+
+
+def _assert_host_matches(names, outs, v, window):
+    twin = TF.fused_temporal(torch.from_numpy(v), window, STEP, tuple(names))
+    for name, got, want in zip(names, outs, twin):
+        want = want.numpy()
+        if name.startswith("std"):  # the row's nanmean is summed in another order
+            _assert_close(got, want, 5e-3, 1e-4, f"{name} w={window}")
+            continue
+        same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+        assert same.all(), f"{name} w={window}: {(~same).sum()} values differ from the twin"
+
+
+# windows 1/5/7/200, and 150 > T = 120; 95 rows, not a multiple of the
+# kernel's 8 rows (one a warp) per CTA
+SPEC_WINDOWS = WINDOWS + [150]
+ALL_GROUPS = 511
+
+
+@pytest.mark.parametrize("name", list(TF.FUSABLE))
+def test_host_build_single_function_specialisation(host_b2, name):
+    kinds = ("gauge",) if name.startswith("std") else ("gauge", "counter")
+    for kind in kinds:
+        v = np.ascontiguousarray(_data(kind)[:95])
+        for window in SPEC_WINDOWS:
+            outs, groups = _host_run(host_b2, v, window, [name])
+            assert groups != ALL_GROUPS, f"{name} ran the all-function kernel"
+            _assert_host_matches([name], outs, v, window)
+
+
+@pytest.mark.parametrize("names", [tuple(TF.FUSABLE), ("rate", "max_over_time", "resets")],
+                         ids=["all15", "mixed3"])
+def test_host_build_multi_function_kernel(host_b2, names):
+    v = np.ascontiguousarray(_data("gauge")[:95])
+    for window in SPEC_WINDOWS:
+        outs, groups = _host_run(host_b2, v, window, list(names))
+        assert groups == ALL_GROUPS
+        _assert_host_matches(names, outs, v, window)
+
+
+def _wide_counters():
+    """Counter rows whose scale runs from 1e-40 (subnormal) to 1e36, with
+    resets to near zero: the zero-point clamp applies often, and the
+    extrapolation table's fast path must hand every column whose operands
+    leave the normal f32 range to the exact formula. The first 12 rows
+    never reset."""
+    rng = np.random.default_rng(11)
+    v = np.cumsum(rng.exponential(5.0, (48, 120)), axis=1)
+    reset = rng.random(v.shape) < 0.05
+    reset[:12] = False
+    v = v - np.maximum.accumulate(np.where(reset, v, 0.0), axis=1) + reset * rng.random(v.shape)
+    v = v * 10.0 ** rng.uniform(-40, 36, (48, 1))
+    v = v.astype(np.float32)
+    v[rng.random(v.shape) < 0.05] = np.nan
+    return np.ascontiguousarray(v)
+
+
+@pytest.mark.parametrize("step", [STEP, 0.1])
+@pytest.mark.parametrize("name", ["rate", "increase", "delta"])
+def test_host_build_rate_family_wide_magnitudes(host_b2, name, step):
+    """rate / increase / delta bit for bit on counters of every magnitude, at
+    a step whose window products are exact (10 s) and one whose are not
+    (0.1 s, where duration_to_start is not 0 on full windows)."""
+    v = _wide_counters()
+    for window in (2, 7, 16, 17, 61):
+        outs = [np.zeros_like(v)]
+        ids = (ctypes.c_int * 1)(list(TF.FUSABLE).index(name))
+        ptrs = (ctypes.c_void_p * 1)(outs[0].ctypes.data)
+        assert host_b2(v.ctypes.data, v.shape[0], v.shape[1], window, step, ptrs, ids, 1) == 0
+        want = TF.FUSABLE[name](torch.from_numpy(v), window, step).numpy()
+        got = outs[0]
+        same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+        assert same.all(), f"{name} w={window} step={step}: {(~same).sum()} values differ"
 
 
 @pytest.mark.parametrize("kind", ["gauge", "counter"])
