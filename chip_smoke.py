@@ -105,6 +105,36 @@ def cuda_ms(fn, iters: int) -> list[float]:
     return times
 
 
+def occupancy(kernel: str, cw: int) -> str:
+    """A lane kernel's registers a thread (of the loaded kernel) and its
+    blocks per SM at windows of cw words (the runtime's occupancy query, as
+    the launch sizes its grid)."""
+    import ctypes
+
+    import torch
+
+    from m3_tpu_torch.ops import _build, fused
+    from m3_tpu_torch.ops.decode import barrel_mask
+
+    cap, regs = ctypes.c_int64(0), ctypes.c_int(0)
+    rc = _build.load_library("lane_aggregates").m3_lane_resident_blocks(
+        fused.LANE_KERNELS[kernel], cw, barrel_mask(cw), ctypes.byref(cap), ctypes.byref(regs))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query for {kernel} failed: CUDA error {rc}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return f"{regs.value} registers, {cap.value / sms:g} blocks of 128 threads per SM"
+
+
+def check_no_unaligned_copies(path: str) -> None:
+    """The kernels' inputs on every path are 16-byte aligned: no wrapper
+    copied one (fused.UNALIGNED_COPIES stays 0)."""
+    from m3_tpu_torch.ops import fused
+
+    log(f"[{path}] UNALIGNED_COPIES {fused.UNALIGNED_COPIES}")
+    if fused.UNALIGNED_COPIES:
+        raise AssertionError(f"{path}: a kernel input was copied to align it")
+
+
 def compare_lanes(got, want) -> float:
     """Per-lane kernel vs twin: count/err exact, floats bit-identical with
     NaN in the same places. Returns the largest absolute difference."""
@@ -231,6 +261,7 @@ def phase_parity_fields(dev) -> float:
         worst = max(worst, err)
         log(f"[parity] B3 {kind:8s} lanes={batch.windows.shape[0]} cw={batch.windows.shape[1]} "
             f"err_lanes={int(want.err.sum())} max_abs_err={err!r}")
+    check_no_unaligned_copies("parity")
     return worst
 
 
@@ -328,6 +359,8 @@ def phase_main(dev, worst: float):
         f"{bound_ms / kernel_ms:.1%} of roofline; f32 ops "
         f"{ops_ms:.4f} ms); twin {plain_ms:.1f} ms; end to end {e2e_med * 1e3:.3f} ms = "
         f"{total_count / e2e_med:.4e} datapoints/s; max_abs_err {worst!r}")
+    log(f"[main] B1 {occupancy('lane_aggregates', cw)}")
+    check_no_unaligned_copies("main")
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("[main] library_ms: no single PyTorch call computes an M3TSZ decode; null")
     return e2e_med, {
@@ -469,6 +502,7 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
     # check 4: B3 == twin per lane at full size; its count == [main]'s
     got = fused.lane_aggregates_fields(**lane_args, k=K)
     b3_ms = statistics.median(cuda_ms(lambda: fused.lane_aggregates_fields(**lane_args, k=K), 20))
+    b3_b2b = per_launch_ms(lambda: fused.lane_aggregates_fields(**lane_args, k=K))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = fused.lane_aggregates_fields_reference(**lane_args, k=K)
@@ -509,9 +543,11 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
     log(f"[resident] host plan_chunked over {s} keys {plan_s * 1e3:.1f} ms; device assembly "
         f"(CUDA events, median of 3): packed 'c' {asm_ms:.3f} ms, per-field {lanes_ms:.3f} ms")
     log(f"[resident] B3 (lane_aggregates_fields) [{n} lanes x {cw} words] warm median "
-        f"{b3_ms:.3f} ms (20 launches, CUDA events); bound {b3_bound:.3f} ms "
-        f"({b3_bytes / 1e9:.4f} GB at 3.35 TB/s = {b3_bound / b3_ms:.1%} of roofline; f32 ops "
-        f"{ops_ms:.4f} ms); twin {b3_plain_ms:.1f} ms")
+        f"{b3_ms:.3f} ms (20 launches, CUDA events; back-to-back {b3_b2b:.3f} ms); bound "
+        f"{b3_bound:.3f} ms ({b3_bytes / 1e9:.4f} GB at 3.35 TB/s = {b3_bound / b3_ms:.1%} of "
+        f"roofline; f32 ops {ops_ms:.4f} ms); twin {b3_plain_ms:.1f} ms; "
+        f"{occupancy('lane_aggregates_fields', cw)}")
+    check_no_unaligned_copies("resident")
     log(f"[resident] warm resident scan end to end (plan + assembly + B1 + reductions, "
         f"to a host read of total_count) {e2e_med * 1e3:.3f} ms, median of 3 = "
         f"{total_count / e2e_med:.4e} datapoints/s; [main] streamed-packed {main_e2e_s * 1e3:.3f} ms")
@@ -557,6 +593,7 @@ def phase_records(dev) -> None:
         log(f"[records] {kind:8s} lanes={p.n} records={p.n * K} valid={int(want.valid.sum())} "
             f"float_points={int((want.point_is_float & want.valid).sum())} "
             f"err_lanes={int(want.err.sum())}: kernel == twin on every field")
+    check_no_unaligned_copies("records")
 
 
 def compare_temporal(name: str, got, want, what: str) -> float:
@@ -770,9 +807,17 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     c = storage.num_chunks
     n = s_q * c
     pk = storage.packed
-    run_r = lambda: chunked.decode_chunked_lanes(pk.windows, pk.lanes, n=n, k=K)
+    # R's input as fetch_grid gathers it: the matched series' lanes in arrays
+    # of their own, [CW, 3,000,000] (not a multiple of the 128-lane slab)
+    sel = storage.match([Matcher("__name__", "=", "m3_scan")])
+    lanes_q = (torch.from_numpy(sel).to(dev)[:, None] * c
+               + torch.arange(c, device=dev)[None, :]).reshape(-1)
+    qw, ql = pk.windows[:, lanes_q], pk.lanes[:, lanes_q]
+    del lanes_q
+    run_r = lambda: chunked.decode_chunked_lanes(qw, ql, n=n, k=K)
     rec = run_r()
     r_ms = statistics.median(cuda_ms(run_r, 10))
+    r_b2b = per_launch_ms(run_r)
     rec_s = chunked.decode_chunked(pk.windows, pk.lanes, s_q, c, K)
     cons_ms = statistics.median(cuda_ms(lambda: consolidate_grid(rec_s, lo, hi, grid, lookback), 5))
     grid32 = values.to(torch.float32)
@@ -818,7 +863,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     # twins on the same inputs: time and check
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rec_twin = chunked.decode_chunked_lanes_reference(pk.windows, pk.lanes, n=n, k=K)
+    rec_twin = chunked.decode_chunked_lanes_reference(qw, ql, n=n, k=K)
     torch.cuda.synchronize()
     r_plain_ms = (time.perf_counter() - t0) * 1e3
     compare_records(rec, rec_twin, "query block")
@@ -855,9 +900,10 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     win_elems = sum(min(window, t + 1) for t in range(cols))
     b2_ops_ms = rows * (2 * win_elems + cols) / F32_FLOP_PER_S * 1e3
     b2_bound = max(b2_bytes_ms, b2_ops_ms)
-    log(f"[query] kernel R (decode_records) [{n} lanes x {K}] {r_ms:.3f} ms (median of 10, CUDA "
-        f"events); bound {r_bound:.3f} ms ({r_bytes / 1e9:.4f} GB at 3.35 TB/s = "
-        f"{r_bound / r_ms:.1%} of roofline); twin {r_plain_ms:.1f} ms")
+    log(f"[query] kernel R (decode_records) [{n} lanes x {K}, gathered as fetch_grid gathers "
+        f"them] {r_ms:.3f} ms (median of 10, CUDA events; back-to-back {r_b2b:.3f} ms); bound "
+        f"{r_bound:.3f} ms ({r_bytes / 1e9:.4f} GB at 3.35 TB/s = {r_bound / r_ms:.1%} of "
+        f"roofline); twin {r_plain_ms:.1f} ms; {occupancy('decode_records', qw.shape[0])}")
     log(f"[query] consolidation (plain torch) [{s_q}, {c * K}] -> [{s_q}, {cols}] {cons_ms:.3f} ms")
     for fn in queries:
         log(f"[query] B2 (temporal_fused) {fn} [{rows}, {cols}] w={window}: {b2[fn]:.3f} ms (median "
@@ -876,6 +922,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
         dev_ms, wall_ms = busy[fn]
         share = f"device busy {dev_ms / wall_ms:.1%}" if dev_ms > 0 else "device time not measured"
         log(f"[query] profiled {q}: device time {dev_ms:.3f} ms of {wall_ms:.3f} ms ({share})")
+    check_no_unaligned_copies("query")
     log(f"[query] peak device memory {peak / 1e9:.2f} GB")
     kernels += [{
         "name": "decode_records",

@@ -50,6 +50,12 @@ SOURCES = {
             # windows, fields (host array of 17 pointers), n, cw, mask, k,
             # out_f, out_cnt, out_err, stream
             "m3_lane_aggregates_fields": [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P],
+            # which (0 B1, 1 R, 2 B3), cw, mask, out int64* blocks, out int* registers
+            "m3_lane_resident_blocks": [_I, _I, _I, _P, _P],
+            # which, cw, mask -> bytes of shared memory a block needs (int64)
+            "m3_lane_smem_bytes": [_I, _I, _I],
+            # -> the most shared memory a block may use (int64)
+            "m3_lane_smem_max_bytes": [],
         },
     ),
     "temporal_fused": (

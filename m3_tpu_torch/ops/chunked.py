@@ -395,7 +395,8 @@ def _launch_records(windows, lanes, n, k) -> D.DecodeResult:
     from ._build import load_library
 
     lib = load_library("lane_aggregates")
-    windows = windows.contiguous()
+    fused.check_launch_shape(lib, "decode_records", windows.shape[0])
+    windows = fused.kernel_input(windows)
     lanes = lanes.contiguous()
     cw, npad = windows.shape
     dev = windows.device

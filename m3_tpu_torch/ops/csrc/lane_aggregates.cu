@@ -1,68 +1,103 @@
-// M3TSZ chunk-lane decode + fold: the CUDA port of the Pallas kernel
-// m3_tpu/ops/fused.py:lane_aggregates_packed (_pallas_kernel_packed and its
-// three bodies _run_lane_tile, _run_lane_tile_fast, _run_lane_tile_fast_float).
+// M3TSZ chunk-lane decode: the CUDA port of the Pallas kernels
+// m3_tpu/ops/fused.py:lane_aggregates_packed (B1) and lane_aggregates_pallas
+// (B3), and of the XLA scan m3_tpu/ops/chunked.py:460 decode_chunked_lanes
+// (kernel R).
 //
 // What it computes. Each lane is one chunk of at most k M3TSZ records. It
 // starts from the decoder state of its side table (17 u32 planes), decodes
 // its records from its own CW-word window (delta-of-delta timestamps, then
-// int-mode sig/mult values or Gorilla XOR floats) and folds every value into
-// f32 sum/min/max/last, an i32 count and an err flag. Only those leave.
+// int-mode sig/mult values or Gorilla XOR floats) and either folds every
+// value into f32 sum/min/max/last, an i32 count and an err flag (B1, B3) or
+// writes every record out (R).
 //
 // Bound. Memory: per lane the work needs the window words its chunk's bits
 // occupy (ceil((rel_pos + span) / 32), at most CW), the state planes its
-// tile's body reads (general 17, int-fast 5: REL NBITS IV_LO SIG MULT,
-// float-fast 6: REL NBITS PFB PXR), one flag per tile, and 21 bytes of
-// aggregates written; the decode itself is integer work in registers. At
-// the main path's shape (31.5M lanes, CW=24, 7,424 int-fast and 256 general
-// tiles, 15.1 words per lane) that is 3.24 GB: windows 1.90, planes 0.68,
-// outputs 0.66; 0.97 ms at 3.35 TB/s (chip_smoke.py needed_bytes).
+// body reads (general 17, int-fast 5: REL NBITS IV_LO SIG MULT, float-fast
+// 6: REL NBITS PFB PXR), one flag per tile (B1), and its outputs: 21 bytes
+// of aggregates (B1, B3), or 19 bytes a record and 1 a lane (R). At B1's
+// main path (31.5M lanes, CW=24, 7,424 int-fast and 256 general tiles, 15.1
+// words per lane) that is 3.24 GB, 0.97 ms at 3.35 TB/s (chip_smoke.py
+// needed_bytes). The decode itself is integer work in registers, and that
+// work, not the loads, is what the card spends its time on (PERF.md).
 //
-// Design. One thread per lane, looping over the k records with the state
-// in registers as native 64-bit integers (the TPU's (hi, lo) u32 pairs
-// are gone). The 4-word fetch is four word loads and a funnel shift; it
-// replaces the TPU's barrel select over window columns (chunked.py
-// _fetch4_select), which existed only because TPU gathers are slow. Words
-// past CW read as zero, and word indices wrap with the barrel's mask
-// exactly as the reference's do. The body is chosen per TILE (rows x 128
-// lanes) by tile_flags, never per lane: the general and int-fast bodies
-// convert int values differently, so the choice shows in the output.
+// Design, common to the three entries:
+// - One thread per lane, looping over the k records with the state in
+//   registers as native 64-bit integers (the TPU's (hi, lo) u32 pairs are
+//   gone). A fetch is four words and a funnel shift (the TPU's barrel select
+//   over window columns, chunked.py _fetch4_select, existed only because TPU
+//   gathers are slow); word indices wrap with the reference's barrel mask.
+// - A block walks 128-lane slabs on a persistent grid, staging each slab's
+//   windows in shared memory by cp.async; the other blocks on its SM
+//   overlap their loads with its decode. (A ring of stages that loads ahead
+//   ran slower on the H100: it fits fewer blocks on an SM.)
+// - State planes are read once per lane straight from device memory.
 //
-// Loads (lane_aggregates_slab_kernel). A thread that fetches every word
-// straight from device memory makes eight scattered 4-byte loads per record
-// (a fetch for the timestamp, another for the value), whose 32 lanes touch
-// up to 32 lines once their bit cursors drift apart, with nothing
-// overlapping them. Instead:
-// - A block walks 128-lane slabs. A slab's [CW, 128] window words are CW
-//   contiguous 512-byte runs of [CW, Npad]; cp.async copies them, 16 bytes
-//   a thread, into shared memory. A block loads its slab, then decodes it,
-//   and the other blocks on its SM overlap its loads. A ring of two or
-//   three stages that loads ahead ran slower on the H100: it fits fewer
-//   blocks on an SM.
-// - A lane reads word w at s[w * 128 + lane]: bank lane % 32 for every w,
-//   so no bank conflicts however far the cursors drift. The fetch clamps
-//   its first word index to CW and four zero rows follow the CW window
-//   rows, so "past CW reads 0" is a plain load and a stage holds CW + 4
-//   rows (28 at CW=24), not the barrel's mask + 4 (35).
-// - One fetch per fast record: the value's bits are the timestamp fetch
-//   shifted by the timestamp's width (follow, run_fast_int), unless the
-//   barrel would wrap between the two or too few bits remain, when a
-//   second fetch reads exactly what the reference reads.
-// - The int-fast body, 97% of the main path's tiles, parses a sig/mult
-//   header only on a to-int record, looks 10^-mult up only when mult
-//   changes, and folds with min/max that skip the NaN test (its values are
-//   never NaN; the bits are those of the NaN-aware fold). The timestamp
-//   width and the fold are selects, not branches: the lanes of a warp
-//   decode different records, so a branch on the data diverges.
-// - State planes are read once per lane straight from [17, Npad]
-//   (neighbouring lanes on neighbouring words): staging them bought
-//   nothing and cost shared memory, that is blocks per SM.
-// What it found (PERF.md): the number of stages, and so of blocks per SM,
-// changed the time little, so the decode is not waiting on loads; it is
-// bound by its own integer work (the int-fast record loop, some of it on
-// rare paths), far from the bytes bound.
-// The kernel takes Npad and the tile as multiples of 128 and windows and
-// planes aligned to 16 bytes, which is all that pack_lanes and the resident
-// assembly give; other shapes are refused (cudaErrorInvalidValue).
+// The general body's record walk (walk_general), shared by R, B3 and B1's
+// general tiles, was rebuilt for this card (PERF.md). It is bound by
+// the instructions it issues per record, so:
+// - Each 32-lane warp takes warp-uniform decisions by vote (group_any): the
+//   timestamp decode drops the marker logic when no active lane is at a
+//   marker or has an unsupported time unit; the value decode is specialised
+//   to int mode or float mode when every active lane is past its first
+//   record and in that mode (first and is_float are then constants), skips
+//   the int header and diff when no lane takes them and read_xor when no lane
+//   stays in float mode; the fold converts to f32 only the kinds of value
+//   that some valid lane has. What is computed is selected exactly as
+//   before, so the result cannot change. A warp whose lanes are in both
+//   modes past their first record stops voting on its value records for the
+//   rest of the chunk (the mode-agnostic decode is right for any lane).
+// - Bit extraction (get64, bits, read_xor, the timestamp head) is shifts and
+//   selects, with no branch on a data-dependent bit offset; every offset the
+//   walk reads at is below 64, so get64 is two 64-bit shifts.
+// - A compile-time switch (kTime): R keeps the timestamps; the folds drop the
+//   64-bit dod * unit_nanos, the time carry and the first-time fetch, and
+//   keep the consumed width, the markers (EOS, annotation, time-unit change)
+//   and err bit for bit.
+// - 10^-mult comes from a table in shared memory: one load, however the
+//   lanes' mults differ.
+// - The value record is fetched anew after its timestamp: deriving it from
+//   the timestamp's window (follow, as the fast bodies do) shifts 128 bits
+//   by a variable width, which cost more than four loads from shared memory.
+// The host build walks each group of 32 lanes in step and takes the same
+// decisions over the group, so the CPU tests reach every path.
+//
+// B1 (m3_lane_aggregates): packed layout, word-major windows [CW, Npad] and
+// state planes [17, Npad]. A slab's [CW, 128] words are CW 512-byte runs,
+// copied 16 bytes a thread into a stage where word w of lane t sits at
+// s[w * 128 + t]: a warp reading one word of each of its lanes hits 32
+// distinct banks however far the lanes' bit cursors have drifted apart.
+// Words past CW read as zero: the fetch clamps its first word index to CW,
+// and zero rows follow the CW window rows (stage_rows). The body is chosen
+// per TILE (rows x 128 lanes) by tile_flags, never per lane: the general and
+// int-fast bodies convert int values differently, so the choice shows in
+// the output. The int-fast body, 97% of the main path's tiles, reads one
+// fetch per record, parses a sig/mult header only on a to-int record, looks
+// 10^-mult up only when mult changes, and folds with selects. It takes Npad
+// and the tile as multiples of 128 and windows and planes aligned to 16
+// bytes; other shapes are refused (cudaErrorInvalidValue).
+//
+// Kernel R (m3_decode_records) writes the general body's records instead of
+// folding them: per record the timestamp, raw value bits, point_is_float,
+// mult and valid, plus err per lane, lane-major [n, k]. Its input is B1's
+// packed layout and stage, at any lane count (a query's gathered lanes are
+// ragged): full slabs come in by 16-byte cp.async when Npad is a multiple of
+// 4, the tail slab (and every slab otherwise) word by word, zero-filled.
+// Records leave through a per-warp stage of kRecGroup records a lane (odd
+// stride, free of bank conflicts), which the warp flushes as runs of whole
+// sectors of the lane-major outputs. Stored straight to device memory, the
+// same records take several times as long on the H100 (chip_smoke.py
+// [query] times both).
+//
+// B3 (m3_lane_aggregates_fields): the general body on every lane over the
+// per-field layout (lane-major windows [N, CW], 17 separate field arrays),
+// which chunked_device_args and the resident lane assembly give. A slab's
+// rows are one contiguous range: consecutive threads cp.async consecutive
+// words into 128 rows at an odd stride (CW words and four zero words, so a
+// fetch needs no bounds test), so the copies are coalesced and their
+// writes, like the warp's fetches at one word index, fall in distinct
+// banks. A word-major stage (as B1's) needs the rows transposed
+// through a second buffer, which halved the blocks per SM at wide windows
+// and ran slower on mixed int/float lanes.
 //
 // Parity with the reference, bit for bit:
 // - f32 values come from the reference's formulas (f64_bits_to_f32, to_f32,
@@ -79,29 +114,11 @@
 // - Markers: EOS ends a lane; annotations and unsupported time units set
 //   err; a time-unit marker switches the unit and reads a 64-bit dod.
 //
-// Kernel R, the second entry (m3_decode_records), writes records instead of
-// folding them: the general body's per-record timestamp, raw value bits,
-// point_is_float, mult and valid, plus err per lane. It replaces XLA code,
-// not a Pallas kernel: m3_tpu/ops/chunked.py:460 decode_chunked_lanes. Bound:
-// memory, as B1's: the lanes' window words and 17 planes read, 19 bytes per
-// record and 1 per lane written. Its records leave through shared memory so
-// that the stores to device memory are coalesced (see decode_records_kernel).
-//
-// B3, the third entry (m3_lane_aggregates_fields), is the port of the Pallas
-// kernel m3_tpu/ops/fused.py:lane_aggregates_pallas (_pallas_kernel): the
-// same decode and fold with the general body on every lane, over the
-// per-field layout (lane-major windows [n, CW], 17 separate field arrays),
-// which is what chunked_device_args and the resident lane assembly give.
-// Bound: memory, as B1's general tiles: per lane its chunk's window words,
-// 15 u32 fields + 2 bool fields, 21 output bytes. Its trouble is the load: a
-// thread per lane reading its own row strides CW*4 bytes across a warp, so
-// the block stages its rows, one contiguous range, through shared memory
-// with coalesced loads (see lane_aggregates_fields_kernel).
-//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
-// -ftz=true -shared (ops/_build.py). Without __CUDACC__ the same per-lane
-// code compiles as host C++ (with FTZ/DAZ set), which the CPU tests use to
-// hold this file's arithmetic against the PyTorch twin.
+// -ftz=true -shared (ops/_build.py). Without __CUDACC__ the same code
+// compiles as host C++ (with FTZ/DAZ set), which the CPU tests use to hold
+// this file's arithmetic, staging and warp decisions against the PyTorch
+// twins.
 
 #include <cstdint>
 
@@ -113,6 +130,7 @@
 #define M3_HDX __host__ __device__ inline
 #define M3_LOAD(p) __ldg(p)
 #else
+#include <algorithm>
 #include <cstring>
 #include <vector>
 #include <xmmintrin.h>
@@ -136,29 +154,38 @@ enum Plane {
   PXR_HI, PXR_LO, IV_HI, IV_LO, TU, SIG, MULT, ISF
 };
 
+// Lanes of a slab, a block's threads.
+constexpr int kSlab = 128;
+// Lanes that take one decision together: a warp on the card, a group of
+// lanes walked in step on the host.
+constexpr int kGroup = 32;
+
 // Four window words aligned to the cursor, as two 64-bit halves: a = w0:w1,
 // b = w2:w3. The low bits of w3 past the shift are zero, as in the reference.
 struct Window {
   uint64_t a, b;
 };
 
-// 64 bits at bit `start` of the 128-bit window (zeros past its end).
+// 64 bits at bit `start` of the 128-bit window, for 0 <= start < 64 (every
+// offset the record decode reads at): two shifts, no branch on the offset.
 M3_HD uint64_t get64(const Window& w, int start) {
-  if (start == 0) return w.a;
-  if (start < 64) return (w.a << start) | (w.b >> (64 - start));
-  if (start == 64) return w.b;
-  if (start < 128) return w.b << (start - 64);
-  return 0;
+  return (w.a << start) | ((w.b >> 1) >> (63 - start));
+}
+
+// 64 bits at bit `start` >= 0, zeros past the window's end.
+M3_HD uint64_t get64_any(const Window& w, int start) {
+  if (start >= 128) return 0ull;
+  return start >= 64 ? w.b << (start - 64) : get64(w, start);
 }
 
 // n bits at `start`, right-aligned. n outside [1, 64] gives 0, as the
 // reference's shift by 64 or more does.
 M3_HD uint64_t bits(const Window& w, int start, int n) {
-  if ((unsigned)(n - 1) >= 64u) return 0;
-  return get64(w, start) >> (64 - n);
+  const uint64_t v = get64(w, start) >> ((64 - n) & 63);
+  return (unsigned)(n - 1) < 64u ? v : 0ull;
 }
 
-M3_HD uint64_t shl64(uint64_t x, int s) { return s >= 64 ? 0 : x << s; }
+M3_HD uint64_t shl64(uint64_t x, int s) { return s >= 64 ? 0 : x << (s & 63); }
 M3_HD int clz64(uint64_t x) { return x ? __clzll((long long)x) : 64; }
 M3_HD int ctz64(uint64_t x) { return x ? __ffsll((long long)x) - 1 : 64; }
 M3_HD int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
@@ -169,73 +196,72 @@ M3_HD int clz32(uint32_t x) { return __clz((int)x); }
 inline int clz32(uint32_t x) { return x ? __builtin_clz(x) : 32; }
 #endif
 
-// The four window words at bit rel + pos of a lane, aligned to that bit.
-// Word indices wrap with the reference's barrel mask; words past CW read as
-// zero (Lane::word).
-template <class Lane>
-M3_HD Window fetch_window(const Lane& L, int pos) {
-  const int p = L.rel + pos;
-  const int widx = (p >> 5) & L.mask;
-  const uint32_t w0 = L.word(widx), w1 = L.word(widx + 1);
-  const uint32_t w2 = L.word(widx + 2), w3 = L.word(widx + 3);
-  const unsigned r = (unsigned)p & 31u;
-  const uint32_t s0 = __funnelshift_l(w1, w0, r);
-  const uint32_t s1 = __funnelshift_l(w2, w1, r);
-  const uint32_t s2 = __funnelshift_l(w3, w2, r);
-  const uint32_t s3 = w3 << r;
-  return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
+// Whether any lane of the group holds p: a warp vote on the card (where a
+// group is one thread of a warp whose 32 threads all walk together), an OR
+// over the G lanes walked in step on the host.
+template <int G>
+M3_HD bool group_any(const bool* p) {
+#ifdef __CUDA_ARCH__
+  static_assert(G == 1, "on the card a thread walks one lane and the warp votes");
+  return __any_sync(0xffffffffu, p[0]) != 0;
+#else
+  bool any = false;
+  for (int i = 0; i < G; ++i) any = any || p[i];
+  return any;
+#endif
 }
 
-// A lane of the packed layout (B1, R): word-major windows [CW, Npad] and
-// state planes [17, Npad].
-struct LaneRef {
-  const uint32_t* win;  // this lane's word 0 in the [CW, Npad] window array
-  const uint32_t* planes;  // this lane's plane 0 in the [17, Npad] array
-  int64_t npad;
+// Whether every lane of the group holds p.
+template <int G>
+M3_HD bool group_all(const bool* p) {
+  bool q[G];
+  for (int i = 0; i < G; ++i) q[i] = !p[i];
+  return !group_any<G>(q);
+}
+
+// ---------------------------------------------------------------------------
+// Lanes: a slab's window words in shared memory (a staged copy on the host),
+// and where the lane's state planes come from
+// ---------------------------------------------------------------------------
+
+// The window part of a lane: its CW window words staged in shared memory,
+// word w at win[w * kStride], then (at least) four zero words. B1's and R's
+// word-major slab stage has kStride = 128 (stage_rows), B3's lane rows
+// kStride = 1 (fields_row_stride).
+template <int kStride>
+struct StagedWin {
+  const uint32_t* win;  // this lane's word 0
   int cw, mask, rel;
 
-  M3_HD uint32_t plane(int p) const { return M3_LOAD(planes + (int64_t)p * npad); }
-  M3_HD uint32_t word(int i) const { return i < cw ? M3_LOAD(win + (int64_t)i * npad) : 0u; }
-  M3_HD uint64_t pair(int p_hi) const {
-    return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
-  }
-
-  M3_HD Window fetch(int pos) const { return fetch_window(*this, pos); }
-};
-
-// A lane of a B1 slab: the slab's CW window rows of 128 words staged in
-// shared memory (then up to four zero rows, stage_rows), this lane at
-// column `col`, and its state planes read in place from the [17, Npad]
-// array (once per lane, neighbouring lanes on neighbouring words). A warp
-// reads word w of its 32 lanes from one row, 32 consecutive words: one bank
-// each, however far the lanes' bit cursors have drifted apart.
-constexpr int kSlab = 128;
-
-struct SlabLane {
-  const uint32_t* win;     // this lane's word 0 in the slab's [CW, 128] rows
-  const uint32_t* planes;  // this lane's plane 0 in the [17, Npad] array
-  int64_t npad;
-  int cw, mask, rel;
-
-  M3_HD uint32_t plane(int p) const { return M3_LOAD(planes + (int64_t)p * npad); }
-  M3_HD uint64_t pair(int p_hi) const {
-    return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
-  }
-
-  // fetch_window with the first word index clamped to cw: a fetch from a
-  // word at or past CW reads four zero words either way, and the stage
-  // needs zero rows only up to cw + 3 (not the barrel's mask + 3)
+  // The four window words at bit rel + pos, aligned to that bit. The first
+  // word index wraps with the barrel's mask and is clamped to cw: a fetch
+  // from a word at or past CW reads four zero words either way, and the
+  // stage needs zero words only up to cw + 3 (not the barrel's mask + 3).
   M3_HD Window fetch(int pos) const {
     const int p = rel + pos;
     const int widx = min_i((p >> 5) & mask, cw);
-    const uint32_t* w = win + widx * kSlab;
-    const uint32_t w0 = w[0], w1 = w[kSlab], w2 = w[2 * kSlab], w3 = w[3 * kSlab];
+    const uint32_t* w = win + widx * kStride;
+    const uint32_t w0 = w[0], w1 = w[kStride], w2 = w[2 * kStride], w3 = w[3 * kStride];
     const unsigned r = (unsigned)p & 31u;
     const uint32_t s0 = __funnelshift_l(w1, w0, r);
     const uint32_t s1 = __funnelshift_l(w2, w1, r);
     const uint32_t s2 = __funnelshift_l(w3, w2, r);
     const uint32_t s3 = w3 << r;
     return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
+  }
+};
+
+// A lane of the packed layout (B1, R): planes [17, Npad], this lane's plane
+// 0 at `planes`. A lane past the last (R's tail slab) is not `live` and
+// reads zero planes: zero bits, so it is done before its first record.
+struct SlabLane : StagedWin<kSlab> {
+  const uint32_t* planes;
+  int64_t npad;
+  bool live;
+
+  M3_HD uint32_t plane(int p) const { return live ? M3_LOAD(planes + (int64_t)p * npad) : 0u; }
+  M3_HD uint64_t pair(int p_hi) const {
+    return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
   }
 };
 
@@ -247,26 +273,22 @@ struct FieldPlanes {
   const uint8_t* isf;
 };
 
-// A lane of the per-field layout (B3): its CW window words in one row (a
-// row of shared memory on the card) and its fields at index `lane`.
-struct FieldLane {
-  const uint32_t* row;
+// A lane of the per-field layout (B3): its fields at index `lane`.
+struct FieldLane : StagedWin<1> {
   FieldPlanes f;  // by value: p is a constant at every inlined call, so
                   // only the pointers the walk reads stay in registers
   int64_t lane;
-  int cw, mask, rel;
+  bool live;
 
   M3_HD uint32_t plane(int p) const {
+    if (!live) return 0u;
     if (p == FIRST) return M3_LOAD(f.first + lane);
     if (p == ISF) return M3_LOAD(f.isf + lane);
     return M3_LOAD(f.p[p] + lane);
   }
-  M3_HD uint32_t word(int i) const { return i < cw ? row[i] : 0u; }
   M3_HD uint64_t pair(int p_hi) const {
     return ((uint64_t)plane(p_hi) << 32) | plane(p_hi + 1);
   }
-
-  M3_HD Window fetch(int pos) const { return fetch_window(*this, pos); }
 };
 
 // The host's array of the 17 field pointers, in Plane order, as a struct
@@ -278,6 +300,42 @@ inline FieldPlanes make_field_planes(const void* const* fields) {
   f.isf = static_cast<const uint8_t*>(fields[ISF]);
   return f;
 }
+
+M3_HD SlabLane slab_lane(const uint32_t* s_win, const uint32_t* lanes, int64_t npad,
+                         int64_t lane, int col, int cw, int mask, bool live) {
+  SlabLane L;
+  L.win = s_win + col;
+  L.planes = lanes + (live ? lane : 0);
+  L.npad = npad;
+  L.cw = cw;
+  L.mask = mask;
+  L.live = live;
+  L.rel = (int32_t)L.plane(REL);
+  return L;
+}
+
+M3_HD FieldLane field_lane(const uint32_t* row, const FieldPlanes& f, int64_t lane, int cw,
+                           int mask, bool live) {
+  FieldLane L;
+  L.win = row;
+  L.f = f;
+  L.lane = live ? lane : 0;
+  L.cw = cw;
+  L.mask = mask;
+  L.live = live;
+  L.rel = (int32_t)L.plane(REL);
+  return L;
+}
+
+// Rows of a slab stage: the CW window rows, then zero rows up to the last
+// row a fetch reads, min(cw, mask) + 3.
+M3_HDX int stage_rows(int cw, int mask) {
+  const int rows = (mask < cw ? mask : cw) + 4;
+  return rows > cw ? rows : cw;
+}
+
+// Bytes of shared memory of one slab stage.
+inline size_t stage_bytes(int cw, int mask) { return (size_t)stage_rows(cw, mask) * kSlab * 4; }
 
 // ---------------------------------------------------------------------------
 // f32 conversions: the reference's formulas (m3_tpu/ops/u64.py, decode.py)
@@ -307,35 +365,35 @@ M3_HD float f64_bits_to_f32(uint64_t v) {
   return sign * mag;
 }
 
-// 10^-mult as the reference's correctly rounded f32 constants; 1 outside [1, 6]
+// 10^-mult as the reference's correctly rounded f32 constants; 1 outside
+// [1, 6]
 M3_HD float mult_rcp(int mult) {
-  switch (mult) {
-    case 1: return __int_as_float(0x3DCCCCCD);
-    case 2: return __int_as_float(0x3C23D70A);
-    case 3: return __int_as_float(0x3A83126F);
-    case 4: return __int_as_float(0x38D1B717);
-    case 5: return __int_as_float(0x3727C5AC);
-    case 6: return __int_as_float(0x358637BD);
-    default: return 1.0f;
-  }
+  const int bits = mult == 1 ? 0x3DCCCCCD
+                 : mult == 2 ? 0x3C23D70A
+                 : mult == 3 ? 0x3A83126F
+                 : mult == 4 ? 0x38D1B717
+                 : mult == 5 ? 0x3727C5AC
+                 : mult == 6 ? 0x358637BD
+                             : 0x3F800000;
+  return __int_as_float(bits);
 }
 
 // ---------------------------------------------------------------------------
 // Aggregates
 // ---------------------------------------------------------------------------
 
+// jnp.minimum / jnp.maximum: NaN if either is NaN; of equal values min
+// takes the sign bit and max drops it. Selects, not branches.
 M3_HD float min_nan(float a, float b) {
-  if (a != a || b != b) return __int_as_float(0x7FC00000);
-  if (a < b) return a;
-  if (b < a) return b;
-  return __int_as_float(__float_as_int(a) | __float_as_int(b));
+  const float eq = __int_as_float(__float_as_int(a) | __float_as_int(b));
+  const float m = a < b ? a : (b < a ? b : eq);
+  return (a != a || b != b) ? __int_as_float(0x7FC00000) : m;
 }
 
 M3_HD float max_nan(float a, float b) {
-  if (a != a || b != b) return __int_as_float(0x7FC00000);
-  if (a > b) return a;
-  if (b > a) return b;
-  return __int_as_float(__float_as_int(a) & __float_as_int(b));
+  const float eq = __int_as_float(__float_as_int(a) & __float_as_int(b));
+  const float m = a > b ? a : (b > a ? b : eq);
+  return (a != a || b != b) ? __int_as_float(0x7FC00000) : m;
 }
 
 struct Acc {
@@ -354,12 +412,10 @@ struct Acc {
     cnt += valid ? 1 : 0;
     mn = min_nan(mn, valid ? v : __int_as_float(0x7F800000));
     mx = max_nan(mx, valid ? v : __int_as_float((int)0xFF800000));
-    if (valid) last = v;
+    last = valid ? v : last;
   }
   // fold() for values that are never NaN (the int-fast body's): min and
-  // max without the NaN test, the same bits otherwise (equal values merge
-  // their bits, so -0 is below +0), every operand computed first so that
-  // the compiler selects instead of branching
+  // max without the NaN test, the same bits otherwise
   M3_HD void fold_num(bool valid, float v) {
     sum = sum + (valid ? v : 0.0f);
     cnt += valid ? 1 : 0;
@@ -387,75 +443,88 @@ struct State {
 };
 
 M3_HD uint64_t unit_nanos(int tu) {
-  switch (tu) {
-    case 1: return 1000000000ull;
-    case 2: return 1000000ull;
-    case 3: return 1000ull;
-    case 4: return 1ull;
-    default: return 0ull;
-  }
+  return tu == 1 ? 1000000000ull : tu == 2 ? 1000000ull : tu == 3 ? 1000ull : tu == 4 ? 1ull : 0ull;
 }
 
-// _decode_timestamp
+M3_HD int64_t sext(uint32_t x, int width) {
+  const uint32_t sign = 1u << (width - 1);
+  return (int64_t)((int32_t)(x ^ sign) - (int32_t)sign);
+}
+
+// The window at bit pos + c, given w = fetch(pos): w shifted left by c bits
+// when that holds the first `need` bits exactly as a fetch at pos + c would
+// (no barrel wrap, and need bits left of w's 128 - r valid ones), else a
+// second fetch. (The general walk fetches its value records anew: shifting
+// a 128-bit window by a variable width costs more than four loads from
+// shared memory.)
 template <class Lane>
-M3_HD void decode_timestamp(const Lane& L, int nb, State& st, bool first, uint64_t nt) {
-  const int pos = first ? st.pos + 64 : st.pos;
-  const uint64_t prev_time0 = first ? nt : st.prev_time;
-  const Window ws = L.fetch(pos);
-  const bool in_range = pos + 11 <= nb;
-  const uint32_t peek = (uint32_t)bits(ws, 0, 11);
-  const bool is_marker = in_range && (peek >> 2) == 0x100u;
+M3_HD Window follow(const Lane& L, const Window& w, int pos, int c, int need) {
+  const int p = L.rel + pos;
+  if (((p + c) >> 5) <= L.mask && 128 - (p & 31) - c >= need)
+    return {get64_any(w, c), get64_any(w, c + 64)};
+  return L.fetch(pos + c);
+}
+
+// Whether a timestamp record at pos (its window ws) is a marker (EOS,
+// annotation, time unit) inside the lane's bits.
+M3_HD bool ts_marker(const Window& ws, int pos, int nb) {
+  return pos + 11 <= nb && (uint32_t)(ws.a >> 55) == 0x100u;
+}
+
+// _decode_timestamp of the record at pos (its window ws). kTime: keep
+// prev_time / prev_delta (R); without it only the width, the markers, the
+// time unit and err are kept (the folds read nothing else). kPlain: every
+// lane of the group is inactive or at a record that is not a marker, with a
+// supported time unit (the common case), so the marker logic drops out.
+template <bool kTime, bool kPlain>
+M3_HD void decode_timestamp(const Window& ws, int pos, int nb, State& st, bool first,
+                            uint64_t nt) {
+  const uint32_t top = (uint32_t)(ws.a >> 32);
+  const uint32_t peek = top >> 21;  // 11 bits
+  const bool is_marker = !kPlain && ts_marker(ws, pos, nb);
   const uint32_t mv = peek & 3u;
   const bool eos = is_marker && mv == 0;
   const bool ann = is_marker && mv == 1;
   const bool tu_marker = is_marker && mv == 2;
 
-  const int new_unit = (int)bits(ws, 11, 8);
+  const int new_unit = (int)((top >> 13) & 0xFFu);
   const bool tu_supported = new_unit >= 1 && new_unit <= 4;
   const bool tu_changed = tu_marker && tu_supported && new_unit != st.time_unit;
   const int time_unit = (tu_marker && tu_supported) ? new_unit : st.time_unit;
   const int dod_off = tu_marker ? 19 : 0;
 
-  const uint32_t head16 = (uint32_t)bits(ws, dod_off, 16);
-  const uint32_t b0 = (head16 >> 15) & 1u, b1 = (head16 >> 14) & 1u;
-  const uint32_t b2 = (head16 >> 13) & 1u, b3 = (head16 >> 12) & 1u;
-  const bool zero_dod = b0 == 0;
-  const bool sel7 = b0 == 1 && b1 == 0;
-  const bool sel9 = b0 == 1 && b1 == 1 && b2 == 0;
-  const bool sel12 = b0 == 1 && b1 == 1 && b2 == 1 && b3 == 0;
+  // the dod's 16 head bits; the leading ones of its first 4 (0..4) pick a
+  // zero dod, 7, 9 or 12 bits, or the unit's default width
+  const uint32_t head16 = tu_marker ? (uint32_t)(ws.a >> 29) & 0xFFFFu : top >> 16;
+  const int ones = clz32(~((head16 >> 12) << 28));
   const int default_bits = (time_unit == 1 || time_unit == 2) ? 32 : 64;
-  const int nbits = sel7 ? 7 : (sel9 ? 9 : (sel12 ? 12 : default_bits));
-  const int opbits = sel7 ? 2 : (sel9 ? 3 : 4);
-  uint64_t dod_norm;
-  if (sel7) {
-    dod_norm = (uint64_t)(int64_t)((int32_t)(((head16 >> 7) & 0x7Fu) ^ 0x40u) - 0x40);
-  } else if (sel9) {
-    dod_norm = (uint64_t)(int64_t)((int32_t)(((head16 >> 4) & 0x1FFu) ^ 0x100u) - 0x100);
-  } else if (sel12) {
-    dod_norm = (uint64_t)(int64_t)((int32_t)((head16 & 0xFFFu) ^ 0x800u) - 0x800);
-  } else if (default_bits == 32) {
-    dod_norm = (uint64_t)(int64_t)(int32_t)(uint32_t)bits(ws, dod_off + 4, 32);
-  } else {
-    dod_norm = bits(ws, dod_off + 4, 64);
-  }
-  const uint64_t dod_bucket = dod_norm * unit_nanos(time_unit);
-  const int bucket_consumed = zero_dod ? 1 : opbits + nbits;
-
-  uint64_t dod = tu_changed ? bits(ws, 19, 64) : dod_bucket;
-  if (zero_dod && !tu_changed) dod = 0;
+  const int bucket_consumed =
+      ones < 4 ? (int)((0x100C0901u >> ((8 * ones) & 31)) & 0xFFu) : 4 + default_bits;
   const int consumed = dod_off + (tu_changed ? 64 : bucket_consumed);
 
-  const bool unit_ok = time_unit >= 1 && time_unit <= 4;
+  const bool unit_ok = kPlain || (time_unit >= 1 && time_unit <= 4);
   const bool err_now = (ann || !unit_ok || (tu_marker && !tu_supported)) && !st.done && !eos;
-  uint64_t prev_delta = st.prev_delta + dod;
-  const uint64_t prev_time = prev_time0 + prev_delta;
-  if (tu_changed) prev_delta = 0;
-
   const bool active = !st.done && !st.err && !eos && !err_now;
+
+  if (kTime) {
+    const uint64_t wide = get64(ws, dod_off + 4);
+    const int64_t dod_default =
+        default_bits == 32 ? (int64_t)(int32_t)(uint32_t)(wide >> 32) : (int64_t)wide;
+    const int64_t dod_norm = ones == 1   ? sext((head16 >> 7) & 0x7Fu, 7)
+                             : ones == 2 ? sext((head16 >> 4) & 0x1FFu, 9)
+                             : ones == 3 ? sext(head16 & 0xFFFu, 12)
+                                         : dod_default;
+    const uint64_t dod_bucket = ones == 0 ? 0ull : (uint64_t)dod_norm * unit_nanos(time_unit);
+    const uint64_t dod = tu_changed ? get64(ws, 19) : dod_bucket;
+    const uint64_t prev_delta = st.prev_delta + dod;
+    const uint64_t prev_time = (first ? nt : st.prev_time) + prev_delta;
+    if (active) {
+      st.prev_time = prev_time;
+      st.prev_delta = tu_changed ? 0ull : prev_delta;
+    }
+  }
   if (active) {
     st.pos = pos + consumed;
-    st.prev_time = prev_time;
-    st.prev_delta = prev_delta;
     st.time_unit = time_unit;
   }
   st.done = st.done || eos;
@@ -480,38 +549,58 @@ M3_HD void int_header12(uint32_t hb, int sig, int mult, int& new_sig, int& new_m
   mult_invalid = mupd && mult_v > 6;
 }
 
-// _read_xor: Gorilla XOR float record at bit `off`
+// _read_xor: Gorilla XOR float record at bit `off`. Both the contained
+// (reuse the previous leading/trailing window) and the uncontained (6-bit
+// lead, 6-bit nm - 1) forms are computed and selected; one extraction.
 M3_HD void read_xor(const Window& ws, int off, uint64_t prev_bits, uint64_t prev_xor,
                     uint64_t& new_bits, uint64_t& new_xor, int& consumed) {
-  const uint32_t c0 = (uint32_t)bits(ws, off, 1);
-  const uint32_t c1 = (uint32_t)bits(ws, off + 1, 1);
-  uint64_t x;
-  if (c0 == 0) {
-    x = 0;
-    consumed = 1;
-  } else if (c1 == 0) {  // contained: reuse the previous leading/trailing window
-    const int lead = prev_xor ? clz64(prev_xor) : 64;
-    const int trail = prev_xor ? ctz64(prev_xor) : 0;
-    const int nm = clampi(64 - lead - trail, 0, 64);
-    x = shl64(bits(ws, off + 2, nm), trail);
-    consumed = 2 + nm;
-  } else {  // uncontained: 6-bit lead, 6-bit (nm - 1), nm bits
-    const int lead = (int)bits(ws, off + 2, 6);
-    const int nm = (int)bits(ws, off + 8, 6) + 1;
-    const int trail = clampi(64 - lead - nm, 0, 64);
-    x = shl64(bits(ws, off + 14, nm), trail);
-    consumed = 14 + nm;
-  }
+  const uint64_t g = get64(ws, off);
+  const bool c0 = (g >> 63) != 0;
+  const bool c1 = ((g >> 62) & 1u) != 0;
+  const int lead_c = clz64(prev_xor);
+  const int trail_c = prev_xor ? ctz64(prev_xor) : 0;
+  const int nm_c = clampi(64 - lead_c - trail_c, 0, 64);
+  const int lead_u = (int)((g >> 56) & 63u);
+  const int nm_u = (int)((g >> 50) & 63u) + 1;
+  const int trail_u = clampi(64 - lead_u - nm_u, 0, 64);
+  const int nm = c1 ? nm_u : nm_c;
+  const int trail = c1 ? trail_u : trail_c;
+  const int head = c1 ? 14 : 2;
+  const uint64_t x = c0 ? shl64(bits(ws, off + head, nm), trail) : 0ull;
+  consumed = c0 ? head + nm : 1;
   new_bits = prev_bits ^ x;
   new_xor = x;
 }
 
-// _decode_value with int_optimized: one value record
-template <class Lane>
-M3_HD void decode_value(const Lane& L, State& st, bool first) {
-  const int pos = st.pos;
-  const Window ws = L.fetch(pos);
-  const uint32_t head3 = (uint32_t)bits(ws, 0, 3);
+// Which lanes a value decode serves: any (kAny), or, when every active lane
+// of the group is past its first record and in int mode (kInt) or in float
+// mode (kFloat), those alone: `first` and is_float are then constants.
+enum Mode { kAny, kInt, kFloat };
+
+// The parts of _decode_value that an active lane's record needs: the int
+// header + diff (a first int value, a to-int record, an int record that
+// stays) and read_xor (a float record that stays).
+template <int kMode>
+M3_HD void value_needs(const Window& ws, const State& st, bool first_lane, bool& need_int,
+                       bool& need_xor) {
+  const bool first = kMode == kAny && first_lane;
+  const bool is_float = kMode == kAny ? st.is_float : kMode == kFloat;
+  const uint32_t head3 = (uint32_t)(ws.a >> 61);
+  const bool active = !st.done && !st.err;
+  const bool stay = (head3 >> 2) != 0;
+  const bool to_int = !stay && (head3 & 3u) == 0;
+  need_int = active && (first ? !stay : (to_int || (stay && !is_float)));
+  need_xor = active && !first && stay && is_float;
+}
+
+// _decode_value with int_optimized: one value record at the window ws.
+// do_int / do_xor: whether any lane of the group needs the int header and
+// diff, or read_xor (value_needs); a lane never reads a part it skips.
+template <int kMode>
+M3_HD void decode_value(const Window& ws, State& st, bool first_lane, bool do_int, bool do_xor) {
+  const bool first = kMode == kAny && first_lane;
+  const bool is_float = kMode == kAny ? st.is_float : kMode == kFloat;
+  const uint32_t head3 = (uint32_t)(ws.a >> 61);
   const bool first_is_float = ((head3 >> 2) & 1u) == 1;
   const bool upd = ((head3 >> 2) & 1u) == 0;
   const bool repeat = upd && ((head3 >> 1) & 1u) == 1;
@@ -523,56 +612,178 @@ M3_HD void decode_value(const Lane& L, State& st, bool first) {
   const bool sel_first_int = first && !first_is_float;
   const bool sel_to_float = !first && to_float;
   const bool sel_to_int = !first && to_int;
-  const bool sel_stay_float = !first && stay && st.is_float;
-  const bool sel_stay_int = !first && stay && !st.is_float;
+  const bool sel_stay_float = !first && stay && is_float;
+  const bool sel_stay_int = !first && stay && !is_float;
 
-  const uint64_t full = bits(ws, first ? 1 : 3, 64);
+  const int off = first ? 1 : 3;
+  const uint64_t full = get64(ws, off);
   const bool takes_header = sel_first_int || sel_to_int;
-  int h_sig, h_mult, h_consumed;
-  bool h_mult_bad;
-  int_header12((uint32_t)bits(ws, first ? 1 : 3, 12), st.sig, st.mult, h_sig, h_mult,
-               h_consumed, h_mult_bad);
-  const int diff_off = first ? 1 + h_consumed : (to_int ? 3 + h_consumed : 1);
-  const int diff_sig = takes_header ? h_sig : st.sig;
-  const uint64_t diff_base = first ? 0 : st.int_val;
-  const uint64_t diff = bits(ws, diff_off + 1, diff_sig);
-  const uint64_t d_int_val = diff_base + (bits(ws, diff_off, 1) == 1 ? diff : (uint64_t)0 - diff);
-  const int d_consumed = 1 + diff_sig;
-  uint64_t x_bits, x_xor;
-  int x_consumed;
-  read_xor(ws, 1, st.prev_float_bits, st.prev_xor, x_bits, x_xor, x_consumed);
+  int h_sig = st.sig, h_mult = st.mult, h_consumed = 0;
+  bool h_mult_bad = false;
+  uint64_t d_int_val = st.int_val;
+  int d_consumed = 0;
+  if (do_int) {
+    int_header12((uint32_t)(full >> 52), st.sig, st.mult, h_sig, h_mult, h_consumed, h_mult_bad);
+    const int diff_off = first ? 1 + h_consumed : (to_int ? 3 + h_consumed : 1);
+    const int diff_sig = takes_header ? h_sig : st.sig;
+    const uint64_t diff_base = first ? 0 : st.int_val;
+    const bool sign = ((ws.a << diff_off) >> 63) != 0;  // diff_off <= 15
+    const uint64_t diff = bits(ws, diff_off + 1, diff_sig);
+    d_int_val = diff_base + (sign ? diff : (uint64_t)0 - diff);
+    d_consumed = 1 + diff_sig;
+  }
+  uint64_t x_bits = st.prev_float_bits, x_xor = st.prev_xor;
+  int x_consumed = 0;
+  if (do_xor) read_xor(ws, 1, st.prev_float_bits, st.prev_xor, x_bits, x_xor, x_consumed);
 
   const int first_consumed = first_is_float ? 65 : 1 + h_consumed + d_consumed;
   const int next_consumed =
       repeat ? 2
              : (to_float ? 3 + 64
                          : (to_int ? 3 + h_consumed + d_consumed
-                                   : (st.is_float ? 1 + x_consumed : 1 + d_consumed)));
+                                   : (is_float ? 1 + x_consumed : 1 + d_consumed)));
   const int consumed = first ? first_consumed : next_consumed;
 
   const bool new_is_float =
-      (sel_first_float || sel_to_float) || (!(sel_first_int || sel_to_int) && st.is_float);
+      (sel_first_float || sel_to_float) || (!(sel_first_int || sel_to_int) && is_float);
   const bool takes_full = sel_first_float || sel_to_float;
-  uint64_t new_float_bits = takes_full ? full : st.prev_float_bits;
-  if (sel_stay_float) new_float_bits = x_bits;
-  uint64_t new_xor = takes_full ? full : st.prev_xor;
-  if (sel_stay_float) new_xor = x_xor;
+  const uint64_t new_float_bits =
+      sel_stay_float ? x_bits : (takes_full ? full : st.prev_float_bits);
+  const uint64_t new_xor = sel_stay_float ? x_xor : (takes_full ? full : st.prev_xor);
   const bool takes_diff = sel_first_int || sel_to_int || sel_stay_int;
   const bool err_now = takes_header && h_mult_bad;
 
   const bool active = !st.done && !st.err && !err_now;
   st.err = st.err || (err_now && !st.done);
   if (active) {
-    st.pos = pos + consumed;
+    st.pos = st.pos + consumed;
     st.prev_float_bits = new_float_bits;
     st.prev_xor = new_xor;
-    if (takes_diff) st.int_val = d_int_val;
-    if (takes_header) {
-      st.sig = h_sig;
-      st.mult = h_mult;
-    }
+    st.int_val = takes_diff ? d_int_val : st.int_val;
+    st.sig = takes_header ? h_sig : st.sig;
+    st.mult = takes_header ? h_mult : st.mult;
     st.is_float = new_is_float;
   }
+}
+
+// The general body's record walk (_run_lane_tile with int_optimized, and
+// chunked.py decode_chunked_lanes' step) over a group of G lanes walked in
+// step: G = 1 on the card (the warp is the group), kGroup on the host.
+// emit(idx, valid[G], state[G]) after each record; err[G] at the end.
+template <bool kTime, int G, class Lane, class Emit>
+M3_HD void walk_general(const Lane* L, int k, bool* err, Emit&& emit) {
+  State st[G];
+  bool first_chunk[G];
+  int nb[G];
+  uint64_t nt[G];
+  for (int i = 0; i < G; ++i) {
+    const Lane& l = L[i];
+    const int num_bits = (int32_t)l.plane(NBITS);
+    State& s = st[i];
+    s.pos = 0;
+    s.done = num_bits <= l.rel;
+    s.err = false;
+    s.prev_time = kTime ? l.pair(PT_HI) : 0ull;
+    s.prev_delta = kTime ? l.pair(PD_HI) : 0ull;
+    s.time_unit = (int32_t)l.plane(TU);
+    s.prev_float_bits = l.pair(PFB_HI);
+    s.prev_xor = l.pair(PXR_HI);
+    s.int_val = l.pair(IV_HI);
+    s.mult = (int32_t)l.plane(MULT);
+    s.sig = (int32_t)l.plane(SIG);
+    s.is_float = l.plane(ISF) != 0;
+    first_chunk[i] = l.plane(FIRST) != 0;
+    nb[i] = num_bits - l.rel;
+    nt[i] = kTime ? l.fetch(0).a : 0ull;
+  }
+  // whether the group has met a record with both int and float lanes: from
+  // then on its value records take the mode-agnostic decode (kAny, every
+  // part computed), which is right for any lane, without the votes
+  bool mixed = false;
+  for (int idx = 0; idx < k; ++idx) {
+    Window ws[G];
+    int pos[G];
+    bool was[G], plain[G], ts_ok[G], need_int[G], need_xor[G], in_int[G], in_float[G];
+    bool valid[G];
+    for (int i = 0; i < G; ++i) {
+      const bool first = first_chunk[i] && idx == 0;
+      was[i] = !st[i].done && !st[i].err;
+      pos[i] = first ? st[i].pos + 64 : st[i].pos;
+      ws[i] = L[i].fetch(pos[i]);
+      plain[i] = !was[i] || (!ts_marker(ws[i], pos[i], nb[i]) && st[i].time_unit >= 1 &&
+                             st[i].time_unit <= 4);
+    }
+    const bool all_plain = group_all<G>(plain);
+    for (int i = 0; i < G; ++i) {
+      const bool first = first_chunk[i] && idx == 0;
+      if (all_plain) decode_timestamp<kTime, true>(ws[i], pos[i], nb[i], st[i], first, nt[i]);
+      else decode_timestamp<kTime, false>(ws[i], pos[i], nb[i], st[i], first, nt[i]);
+      ts_ok[i] = !st[i].done && !st[i].err;
+      // an inactive lane's value decode is inactive too: its window is unused
+      ws[i] = L[i].fetch(st[i].pos);
+      in_int[i] = !ts_ok[i] || (!first && !st[i].is_float);
+      in_float[i] = !ts_ok[i] || (!first && st[i].is_float);
+    }
+    const bool all_int = !mixed && group_all<G>(in_int);
+    const bool all_float = !mixed && !all_int && group_all<G>(in_float);
+    if (all_int) {
+      for (int i = 0; i < G; ++i) value_needs<kInt>(ws[i], st[i], false, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int);
+      for (int i = 0; i < G; ++i) decode_value<kInt>(ws[i], st[i], false, do_int, false);
+    } else if (all_float) {
+      for (int i = 0; i < G; ++i)
+        value_needs<kFloat>(ws[i], st[i], false, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int), do_xor = group_any<G>(need_xor);
+      for (int i = 0; i < G; ++i) decode_value<kFloat>(ws[i], st[i], false, do_int, do_xor);
+    } else if (mixed) {
+      for (int i = 0; i < G; ++i) decode_value<kAny>(ws[i], st[i], false, true, true);
+    } else {
+      for (int i = 0; i < G; ++i)
+        value_needs<kAny>(ws[i], st[i], first_chunk[i] && idx == 0, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int), do_xor = group_any<G>(need_xor);
+      for (int i = 0; i < G; ++i)
+        decode_value<kAny>(ws[i], st[i], first_chunk[i] && idx == 0, do_int, do_xor);
+      // int and float lanes past their first record: the group stays mixed
+      // for the rest of its records, as a rule, so it stops voting
+      mixed = idx > 0;
+    }
+    for (int i = 0; i < G; ++i) valid[i] = was[i] && ts_ok[i] && !st[i].done && !st[i].err;
+    emit(idx, valid, st);
+  }
+  for (int i = 0; i < G; ++i) err[i] = st[i].err;
+}
+
+// 10^-mult (mult_rcp) looked up in a table of 8 (1 outside [1, 6]): on the
+// card a table in shared memory, one load whatever the lanes' mults.
+struct RcpTable {
+  const float* t;
+  M3_HD float operator()(int mult) const { return t[(unsigned)mult < 8u ? mult : 0]; }
+};
+M3_HD void fill_rcp_table(float* t, int i) {
+  if (i < 8) t[i] = mult_rcp(i);
+}
+
+// A record's f32 value as the general body folds it; each conversion only
+// if some valid lane of the group needs it (do_f, do_i)
+template <class Rcp>
+M3_HD float value_f32(const State& st, bool do_f, bool do_i, const Rcp& rcp) {
+  const float vf = do_f ? f64_bits_to_f32(st.prev_float_bits) : 0.0f;
+  const float vi = do_i ? to_f32(st.int_val) * rcp(st.mult) : 0.0f;
+  return st.is_float ? vf : vi;
+}
+
+// _run_lane_tile (int_optimized) over a group of G lanes
+template <int G, class Lane, class Rcp>
+M3_HD void run_general(const Lane* L, int k, Acc* acc, bool* err, const Rcp& rcp) {
+  walk_general<false, G>(L, k, err, [&](int, const bool* valid, const State* st) {
+    bool need_f[G], need_i[G];
+    for (int i = 0; i < G; ++i) {
+      need_f[i] = valid[i] && st[i].is_float;
+      need_i[i] = valid[i] && !st[i].is_float;
+    }
+    const bool do_f = group_any<G>(need_f), do_i = group_any<G>(need_i);
+    for (int i = 0; i < G; ++i) acc[i].fold(valid[i], value_f32(st[i], do_f, do_i, rcp));
+  });
 }
 
 // _ts_consumed_fast: width of a marker-free {s, ms} timestamp record. The
@@ -583,65 +794,6 @@ M3_HD int ts_consumed_fast(const Window& ws) {
   const uint32_t h = (uint32_t)(ws.a >> 60);
   const int ones = clz32(~(h << 28));  // the low 28 bits are set: at most 4
   return (int)((0x24100C0901ull >> (8 * ones)) & 0xFFu);
-}
-
-// ---------------------------------------------------------------------------
-// The three bodies
-// ---------------------------------------------------------------------------
-
-// The general body's record walk (_run_lane_tile with int_optimized, and
-// chunked.py decode_chunked_lanes' step): emit(idx, valid, state) after each
-// record. Returns the lane's err flag.
-template <class Lane, class Emit>
-M3_HD bool walk_general(const Lane& L, int k, Emit&& emit) {
-  const int num_bits = (int32_t)L.plane(NBITS);
-  State st;
-  st.pos = 0;
-  st.done = num_bits <= L.rel;
-  st.err = false;
-  st.prev_time = L.pair(PT_HI);
-  st.prev_delta = L.pair(PD_HI);
-  st.time_unit = (int32_t)L.plane(TU);
-  st.prev_float_bits = L.pair(PFB_HI);
-  st.prev_xor = L.pair(PXR_HI);
-  st.int_val = L.pair(IV_HI);
-  st.mult = (int32_t)L.plane(MULT);
-  st.sig = (int32_t)L.plane(SIG);
-  st.is_float = L.plane(ISF) != 0;
-  const bool first_chunk = L.plane(FIRST) != 0;
-  const int nb = num_bits - L.rel;
-  const uint64_t nt = bits(L.fetch(0), 0, 64);
-  for (int idx = 0; idx < k; ++idx) {
-    const bool first = first_chunk && idx == 0;
-    const bool was_active = !st.done && !st.err;
-    decode_timestamp(L, nb, st, first, nt);
-    const bool ts_active = !st.done && !st.err;
-    decode_value(L, st, first);
-    emit(idx, was_active && ts_active && !st.done && !st.err, st);
-  }
-  return st.err;
-}
-
-// _run_lane_tile (int_optimized)
-template <class Lane>
-M3_HD bool run_general(const Lane& L, int k, Acc& acc) {
-  return walk_general(L, k, [&](int, bool valid, const State& st) {
-    const float v = st.is_float ? f64_bits_to_f32(st.prev_float_bits)
-                                : to_f32(st.int_val) * mult_rcp(st.mult);
-    acc.fold(valid, v);
-  });
-}
-
-// The window at bit pos + c, given w = fetch(pos): w shifted left by c bits
-// when that holds the first `need` bits exactly as a fetch at pos + c would
-// (no barrel wrap, and need bits left of w's 128 - r valid ones), else a
-// second fetch. The fast bodies read a timestamp and then its value from
-// one fetch this way.
-template <class Lane>
-M3_HD Window follow(const Lane& L, const Window& w, int pos, int c, int need) {
-  const int p = L.rel + pos;
-  if (((p + c) >> 5) <= L.mask && 128 - (p & 31) - c >= need) return {get64(w, c), get64(w, c + 64)};
-  return L.fetch(pos + c);
 }
 
 // Bits of a fast value record's window that its decode reads: int-fast
@@ -721,18 +873,6 @@ M3_HD void run_fast_float(const Lane& L, int k, Acc& acc) {
   }
 }
 
-M3_HD LaneRef lane_ref(const uint32_t* windows, const uint32_t* lanes, int64_t npad, int cw,
-                       int mask, int64_t lane) {
-  LaneRef L;
-  L.win = windows + lane;
-  L.planes = lanes + lane;
-  L.npad = npad;
-  L.cw = cw;
-  L.mask = mask;
-  L.rel = (int32_t)L.plane(REL);
-  return L;
-}
-
 // out_f [4, n] (sum, min, max, last), out_cnt [n], out_err [n]
 M3_HD void store_lane(const Acc& acc, bool err, int64_t lane, int64_t n, float* out_f,
                       int32_t* out_cnt, uint8_t* out_err) {
@@ -744,77 +884,78 @@ M3_HD void store_lane(const Acc& acc, bool err, int64_t lane, int64_t n, float* 
   out_err[lane] = err ? 1 : 0;
 }
 
-// B3: one lane of the per-field layout, general body only (_pallas_kernel
-// runs _run_lane_tile on every tile). `row` holds the lane's CW words.
-M3_HD void decode_field_lane(const uint32_t* row, const FieldPlanes& f, int64_t n, int cw,
-                             int mask, int k, int64_t lane, float* out_f, int32_t* out_cnt,
-                             uint8_t* out_err) {
-  FieldLane L;
-  L.row = row;
-  L.f = f;
-  L.lane = lane;
-  L.cw = cw;
-  L.mask = mask;
-  L.rel = (int32_t)L.plane(REL);
-  Acc acc;
-  acc.init();
-  const bool err = run_general(L, k, acc);
-  store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
+// Kernel R's per-warp record stage: kRecGroup records of each of a warp's 32
+// lanes (row stride kRecGroup + 1, odd, so the 64-bit stores and loads are
+// free of bank conflicts), flushed by the warp after every kRecGroup records.
+constexpr int kRecGroup = 8;
+constexpr int kRecStride = kRecGroup + 1;
+constexpr int kRecBytes = 8 + 8 + 1 + 1 + 1;  // ts, bits, pif, mult, valid
+constexpr size_t kRecStageBytes = (size_t)kSlab * kRecStride * kRecBytes;
+
+// Words from one of B3's staged lane rows to the next: CW words and four
+// zero words, odd, so the words of a warp's rows at one index fall in
+// distinct banks.
+M3_HDX int fields_row_stride(int cw) { return (cw + 4) | 1; }
+
+// The three lane kernels, as m3_lane_smem_bytes and m3_lane_resident_blocks
+// name them.
+enum LaneKernel { kB1 = 0, kR = 1, kB3 = 2 };
+
+// Bytes of shared memory a block of `which` needs at windows of cw words:
+// B1's and R's slab stage (R's record stage after it), B3's 128 staged lane
+// rows.
+inline size_t smem_bytes(int which, int cw, int mask) {
+  if (which == kB3) return (size_t)kSlab * fields_row_stride(cw) * 4;
+  return stage_bytes(cw, mask) + (which == kR ? kRecStageBytes : 0);
 }
 
-// One lane with the body its tile's flag picks; outputs at `lane` of arrays
-// of length n.
-template <class Lane>
-M3_HD void decode_body(const Lane& L, int flag, int k, int64_t lane, int64_t n, float* out_f,
-                       int32_t* out_cnt, uint8_t* out_err) {
-  Acc acc;
-  acc.init();
-  bool err = false;
-  if (flag == 1) {
-    run_fast_int(L, k, acc);
-  } else if (flag == 2) {
-    run_fast_float(L, k, acc);
-  } else {
-    err = run_general(L, k, acc);
-  }
-  store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
+// Whether a block of `which` takes windows of cw words.
+inline bool smem_ok(int which, int cw, int mask) {
+  return cw > 0 && smem_bytes(which, cw, mask) <= m3::kSmemMax;
 }
-
-M3_HD SlabLane slab_lane(const uint32_t* s_win, const uint32_t* lanes, int64_t npad,
-                         int64_t lane, int col, int cw, int mask) {
-  SlabLane L;
-  L.win = s_win + col;
-  L.planes = lanes + lane;
-  L.npad = npad;
-  L.cw = cw;
-  L.mask = mask;
-  L.rel = (int32_t)L.plane(REL);
-  return L;
-}
-
-// Rows of a slab stage: the CW window rows, then zero rows up to the last
-// row a fetch reads, min(cw, mask) + 3.
-M3_HDX int stage_rows(int cw, int mask) {
-  const int rows = (mask < cw ? mask : cw) + 4;
-  return rows > cw ? rows : cw;
-}
-
-// Bytes of shared memory of one slab stage.
-inline size_t stage_bytes(int cw, int mask) { return (size_t)stage_rows(cw, mask) * kSlab * 4; }
 
 // Whether B1 takes this shape: 128-lane slabs that tile Npad and never
 // straddle two tiles, and a stage that fits a block's shared memory.
 inline bool slab_shape_ok(int64_t npad, int64_t tile_lanes, int cw, int mask) {
-  return npad % kSlab == 0 && tile_lanes > 0 && tile_lanes % kSlab == 0 && cw > 0 &&
-         stage_bytes(cw, mask) <= m3::kSmemMax;
+  return npad % kSlab == 0 && tile_lanes > 0 && tile_lanes % kSlab == 0 &&
+         smem_ok(kB1, cw, mask);
 }
+inline bool records_shape_ok(int cw, int mask, int k) { return k > 0 && smem_ok(kR, cw, mask); }
+inline bool fields_shape_ok(int cw, int mask, int k) { return k > 0 && smem_ok(kB3, cw, mask); }
 
 #ifdef __CUDACC__
-// B1: a block walks 128-lane slabs (slab += gridDim.x). Each slab's CW
-// window rows are 512-byte runs of the [CW, Npad] array; cp.async copies
-// them, 16 bytes a thread, into the block's stage, and the block then
-// decodes the slab from there while the other blocks on its SM load
-// theirs. The body is chosen per slab (tile_lanes is a multiple of 128).
+// The slab at column `col` of the word-major [CW, Npad] windows into the
+// stage: `live` lanes (the rest zero). A full slab of a 16-byte aligned
+// array whose rows are 16-byte aligned (Npad % 4 == 0) comes in as 16-byte
+// copies, others word by word.
+__device__ __forceinline__ void stage_packed(uint32_t* s, const uint32_t* windows, int64_t npad,
+                                             int64_t col, int cw, int live, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec && live == kSlab) {
+    for (int j = tid; j < cw * 32; j += kSlab) {
+      const int row = j >> 5, q = (j & 31) * 4;
+      m3::cp_async16(s + row * kSlab + q, windows + row * npad + col + q);
+    }
+  } else {
+    for (int j = tid; j < cw * kSlab; j += kSlab) {
+      const int row = j >> 7, c = j & (kSlab - 1);
+      if (c < live) m3::cp_async4(s + j, windows + row * npad + col + c);
+      else s[j] = 0u;
+    }
+  }
+  m3::cp_async_commit();
+  m3::cp_async_wait<0>();
+  __syncthreads();  // every thread's copies have landed
+}
+
+// Zero rows after the CW window rows (copies never write them).
+__device__ __forceinline__ void zero_rows(uint32_t* s, int cw, int mask) {
+  const int stage_words = stage_rows(cw, mask) * kSlab;
+  for (int j = cw * kSlab + (int)threadIdx.x; j < stage_words; j += kSlab) s[j] = 0u;
+}
+
+// B1: a block walks 128-lane slabs (slab += gridDim.x), decoding each with
+// the body its tile's flag picks (tile_lanes is a multiple of 128).
 __global__ void __launch_bounds__(kSlab)
 lane_aggregates_slab_kernel(const uint32_t* __restrict__ windows,
                             const uint32_t* __restrict__ lanes,
@@ -822,119 +963,179 @@ lane_aggregates_slab_kernel(const uint32_t* __restrict__ windows,
                             int mask, int k, int64_t tile_lanes, float* __restrict__ out_f,
                             int32_t* __restrict__ out_cnt, uint8_t* __restrict__ out_err) {
   extern __shared__ __align__(16) uint32_t s_stage[];
-  const int stage_words = stage_rows(cw, mask) * kSlab;
+  __shared__ float s_rcp[8];
   const int64_t nslab = npad / kSlab;
   const int tid = threadIdx.x;
-  // the zero rows after the window rows (copies never write them)
-  for (int j = cw * kSlab + tid; j < stage_words; j += kSlab) s_stage[j] = 0u;
+  zero_rows(s_stage, cw, mask);
+  fill_rcp_table(s_rcp, tid);
   for (int64_t slab = blockIdx.x; slab < nslab; slab += gridDim.x) {
     const int64_t col = slab * kSlab;
-    for (int j = tid; j < cw * 32; j += kSlab) {
-      const int row = j >> 5, q = (j & 31) * 4;
-      m3::cp_async16(s_stage + row * kSlab + q, windows + row * npad + col + q);
+    stage_packed(s_stage, windows, npad, col, cw, kSlab, true);
+    const SlabLane L = slab_lane(s_stage, lanes, npad, col + tid, tid, cw, mask, true);
+    const int flag = __ldg(tile_flags + col / tile_lanes);
+    Acc acc;
+    acc.init();
+    bool err = false;
+    if (flag == 1) {
+      run_fast_int(L, k, acc);
+    } else if (flag == 2) {
+      run_fast_float(L, k, acc);
+    } else {
+      run_general<1>(&L, k, &acc, &err, RcpTable{s_rcp});
     }
-    m3::cp_async_commit();
-    m3::cp_async_wait<0>();
-    __syncthreads();  // every thread's copies have landed
-    decode_body(slab_lane(s_stage, lanes, npad, col + tid, tid, cw, mask),
-                __ldg(tile_flags + col / tile_lanes), k, col + tid, npad, out_f, out_cnt,
-                out_err);
+    store_lane(acc, err, col + tid, npad, out_f, out_cnt, out_err);
     __syncthreads();  // the stage is read before it is refilled
   }
 }
 
-// Kernel R: the general body's records, one thread per lane. Each thread
-// stages its k records in shared memory (row stride k|1, odd, so 64-bit
-// stores and loads are free of bank conflicts); then the block writes its
-// lanes' records out as one contiguous range of the lane-major [n, k]
-// arrays, so the stores to device memory are coalesced.
-constexpr int kRecThreads = 64;
-constexpr int kRecBytes = 8 + 8 + 1 + 1 + 1;  // ts, bits, pif, mult, valid
-
-__global__ void __launch_bounds__(kRecThreads)
-decode_records_kernel(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ lanes,
-                      int64_t npad, int64_t n, int cw, int mask, int k,
-                      int64_t* __restrict__ out_ts, int64_t* __restrict__ out_bits,
-                      uint8_t* __restrict__ out_pif, uint8_t* __restrict__ out_mult,
-                      uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_err) {
-  extern __shared__ int64_t smem[];
-  const int ks = k | 1;
-  int64_t* s_ts = smem;
-  int64_t* s_bits = s_ts + kRecThreads * ks;
-  uint8_t* s_pif = reinterpret_cast<uint8_t*>(s_bits + kRecThreads * ks);
-  uint8_t* s_mult = s_pif + kRecThreads * ks;
-  uint8_t* s_valid = s_mult + kRecThreads * ks;
-  const int t = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * kRecThreads;
-  if (base + t < n) {
-    const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, base + t);
-    const bool err = walk_general(L, k, [&](int idx, bool valid, const State& st) {
-      const int i = t * ks + idx;
-      s_ts[i] = (int64_t)st.prev_time;
-      s_bits[i] = (int64_t)(st.is_float ? st.prev_float_bits : st.int_val);
-      s_pif[i] = st.is_float ? 1 : 0;
-      s_mult[i] = (uint8_t)st.mult;
-      s_valid[i] = valid ? 1 : 0;
+// Kernel R: a block walks 128-lane slabs of the first n lanes; each thread
+// walks its lane with the general body and kTime, staging its records in
+// its warp's record stage, which the warp flushes every kRecGroup records:
+// kRecGroup consecutive records of a lane are one 64-byte run of ts and of
+// bits (two whole sectors) and 8 bytes of each u8 array.
+__global__ void __launch_bounds__(kSlab)
+decode_records_slab_kernel(const uint32_t* __restrict__ windows,
+                           const uint32_t* __restrict__ lanes, int64_t npad, int64_t n, int cw,
+                           int mask, int k, bool vec, int64_t* __restrict__ out_ts,
+                           int64_t* __restrict__ out_bits, uint8_t* __restrict__ out_pif,
+                           uint8_t* __restrict__ out_mult, uint8_t* __restrict__ out_valid,
+                           uint8_t* __restrict__ out_err) {
+  extern __shared__ __align__(16) uint32_t s_stage[];
+  const int tid = threadIdx.x, l32 = tid & 31, warp = tid >> 5;
+  // the record stage after the window stage, one part of kGroup rows per warp
+  int64_t* s_ts = reinterpret_cast<int64_t*>(s_stage + stage_rows(cw, mask) * kSlab);
+  int64_t* s_bits = s_ts + kSlab * kRecStride;
+  uint8_t* s_small = reinterpret_cast<uint8_t*>(s_bits + kSlab * kRecStride);
+  const int wrow = warp * kGroup * kRecStride;  // this warp's first stage row
+  const int64_t nslab = (n + kSlab - 1) / kSlab;
+  zero_rows(s_stage, cw, mask);
+  for (int64_t slab = blockIdx.x; slab < nslab; slab += gridDim.x) {
+    const int64_t col = slab * kSlab;
+    const int live = n - col < kSlab ? (int)(n - col) : kSlab;
+    stage_packed(s_stage, windows, npad, col, cw, live, vec);
+    const SlabLane L = slab_lane(s_stage, lanes, npad, col + tid, tid, cw, mask, tid < live);
+    const int64_t wlane = col + warp * kGroup;  // the warp's first lane
+    bool err;
+    walk_general<true, 1>(&L, k, &err, [&](int idx, const bool* valid, const State* st) {
+      const int g = idx % kRecGroup;
+      const int i = wrow + l32 * kRecStride + g;
+      s_ts[i] = (int64_t)st->prev_time;
+      s_bits[i] = (int64_t)(st->is_float ? st->prev_float_bits : st->int_val);
+      s_small[i] = st->is_float ? 1 : 0;
+      s_small[kSlab * kRecStride + i] = (uint8_t)st->mult;
+      s_small[2 * kSlab * kRecStride + i] = valid[0] ? 1 : 0;
+      if (g == kRecGroup - 1 || idx == k - 1) {  // the same for the whole warp
+        __syncwarp();
+        const int cnt = g + 1, idx0 = idx - g;
+        for (int j = l32; j < kGroup * cnt; j += kGroup) {
+          const int ln = j / cnt, r = j - ln * cnt;
+          const int64_t lane = wlane + ln;
+          if (lane < n) {
+            const int si = wrow + ln * kRecStride + r;
+            const int64_t o = lane * k + idx0 + r;
+            out_ts[o] = s_ts[si];
+            out_bits[o] = s_bits[si];
+            out_pif[o] = s_small[si];
+            out_mult[o] = s_small[kSlab * kRecStride + si];
+            out_valid[o] = s_small[2 * kSlab * kRecStride + si];
+          }
+        }
+        __syncwarp();  // the stage is read before the next records land
+      }
     });
-    out_err[base + t] = err ? 1 : 0;
-  }
-  __syncthreads();
-  const int64_t here = n - base < kRecThreads ? n - base : kRecThreads;
-  const int total = (int)here * k;
-  const int64_t o = base * k;
-  for (int i = t; i < total; i += kRecThreads) {
-    const int j = (i / k) * ks + i % k;
-    out_ts[o + i] = s_ts[j];
-    out_bits[o + i] = s_bits[j];
-    out_pif[o + i] = s_pif[j];
-    out_mult[o + i] = s_mult[j];
-    out_valid[o + i] = s_valid[j];
+    if (tid < live) out_err[col + tid] = err ? 1 : 0;
+    __syncthreads();  // the window stage is read before it is refilled
   }
 }
 
-// B3: the per-field layout, one thread per lane. A block's lanes are
-// consecutive rows of the lane-major [n, CW] windows, so its windows are
-// one contiguous range: the block loads it with coalesced loads into
-// shared memory, one row per lane at an odd stride (cw|1), so the fetches
-// of a warp, at row t plus one word index, fall in distinct banks. The 17
-// state fields are per-lane arrays, read coalesced once per lane.
-constexpr int kFieldThreads = 128;
-
-__global__ void __launch_bounds__(kFieldThreads)
-lane_aggregates_fields_kernel(const uint32_t* __restrict__ windows, const FieldPlanes f,
-                              int64_t n, int cw, int mask, int k, float* __restrict__ out_f,
-                              int32_t* __restrict__ out_cnt, uint8_t* __restrict__ out_err) {
-  extern __shared__ uint32_t s_rows[];
-  const int stride = cw | 1;
-  const int64_t base = (int64_t)blockIdx.x * kFieldThreads;
-  const int here = n - base < kFieldThreads ? (int)(n - base) : kFieldThreads;
+// B3's slab `slab` of the lane-major [n, CW] windows into `rows`, lane t's
+// row at rows[t * fields_row_stride(cw)]: consecutive threads copy
+// consecutive words by cp.async (coalesced reads, and conflict-free writes
+// at the odd row stride), rows past the last lane zero. The zero words
+// after each row are written once (zero_row_tails).
+__device__ __forceinline__ void stage_fields(uint32_t* rows, const uint32_t* windows, int64_t n,
+                                             int64_t slab, int cw) {
+  const int64_t base = slab * kSlab;
+  const int here = n - base < kSlab ? (int)(n - base) : kSlab;
   const uint32_t* src = windows + base * cw;
-  const int total = here * cw;
-  for (int i = threadIdx.x; i < total; i += kFieldThreads) {
-    s_rows[(i / cw) * stride + i % cw] = __ldg(src + i);
+  const int stride = fields_row_stride(cw), total = here * cw;
+  int ln = (int)threadIdx.x / cw, w = (int)threadIdx.x - ln * cw;
+  const int step_ln = kSlab / cw, step_w = kSlab - step_ln * cw;
+  for (int i = threadIdx.x; i < kSlab * cw; i += kSlab) {
+    if (i < total) m3::cp_async4(rows + ln * stride + w, src + i);
+    else rows[ln * stride + w] = 0u;
+    ln += step_ln;
+    w += step_w;
+    if (w >= cw) {
+      w -= cw;
+      ++ln;
+    }
   }
-  __syncthreads();
-  if ((int)threadIdx.x < here) {
-    decode_field_lane(s_rows + threadIdx.x * stride, f, n, cw, mask, k, base + threadIdx.x,
-                      out_f, out_cnt, out_err);
+  m3::cp_async_commit();
+  m3::cp_async_wait<0>();
+  __syncthreads();  // every thread's copies have landed
+}
+
+// The zero words after each of B3's staged rows (copies never write them).
+__device__ __forceinline__ void zero_row_tails(uint32_t* rows, int cw) {
+  const int stride = fields_row_stride(cw);
+  for (int j = cw; j < stride; ++j) rows[threadIdx.x * stride + j] = 0u;
+}
+
+// B3: a block walks 128-lane slabs of the lane-major [n, CW] windows,
+// stages each (stage_fields) and decodes it with the general body, each
+// thread from its lane's row.
+__global__ void __launch_bounds__(kSlab)
+lane_aggregates_fields_slab_kernel(const uint32_t* __restrict__ windows, const FieldPlanes f,
+                                   int64_t n, int cw, int mask, int k,
+                                   float* __restrict__ out_f, int32_t* __restrict__ out_cnt,
+                                   uint8_t* __restrict__ out_err) {
+  extern __shared__ __align__(16) uint32_t s_rows[];
+  __shared__ float s_rcp[8];
+  const int tid = threadIdx.x;
+  const int64_t nslab = (n + kSlab - 1) / kSlab;
+  fill_rcp_table(s_rcp, tid);
+  zero_row_tails(s_rows, cw);
+  for (int64_t slab = blockIdx.x; slab < nslab; slab += gridDim.x) {
+    stage_fields(s_rows, windows, n, slab, cw);
+    const int64_t lane = slab * kSlab + tid;
+    const bool live = lane < n;
+    const FieldLane L = field_lane(s_rows + tid * fields_row_stride(cw), f, lane, cw, mask, live);
+    Acc acc;
+    acc.init();
+    bool err;
+    run_general<1>(&L, k, &acc, &err, RcpTable{s_rcp});
+    if (live) store_lane(acc, err, lane, n, out_f, out_cnt, out_err);
+    __syncthreads();  // the rows are read before they are refilled
   }
+}
+
+// Launch `kernel` on a persistent grid: at most as many blocks as the card
+// holds at once, and no more than there are slabs.
+template <class Kernel, class... Args>
+int launch_slabs(Kernel kernel, int64_t nslab, size_t smem, void* stream, Args... args) {
+  if (nslab > 0) {
+    int64_t cap = 0;
+    const cudaError_t e = m3::resident_blocks(kernel, kSlab, smem, &cap);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned)(nslab < cap ? nslab : cap), kSlab, smem, (cudaStream_t)stream>>>(args...);
+  }
+  return (int)cudaGetLastError();
 }
 #else
-// One lane's records straight into the lane-major [n, k] outputs.
-void decode_lane_records(const uint32_t* windows, const uint32_t* lanes, int64_t npad, int cw,
-                         int mask, int k, int64_t lane, int64_t* out_ts, int64_t* out_bits,
-                         uint8_t* out_pif, uint8_t* out_mult, uint8_t* out_valid,
-                         uint8_t* out_err) {
-  const LaneRef L = lane_ref(windows, lanes, npad, cw, mask, lane);
-  const bool err = walk_general(L, k, [&](int idx, bool valid, const State& st) {
-    const int64_t i = lane * k + idx;
-    out_ts[i] = (int64_t)st.prev_time;
-    out_bits[i] = (int64_t)(st.is_float ? st.prev_float_bits : st.int_val);
-    out_pif[i] = st.is_float ? 1 : 0;
-    out_mult[i] = (uint8_t)st.mult;
-    out_valid[i] = valid ? 1 : 0;
-  });
-  out_err[lane] = err ? 1 : 0;
+// The host's stage of a packed slab, as stage_packed leaves it: `live`
+// lanes' columns of the CW window rows, zeros elsewhere.
+void host_stage_packed(std::vector<uint32_t>& s, const uint32_t* windows, int64_t npad,
+                       int64_t col, int cw, int live) {
+  std::fill(s.begin(), s.end(), 0u);
+  for (int w = 0; w < cw; ++w)
+    std::memcpy(&s[(size_t)w * kSlab], windows + w * npad + col, (size_t)live * 4);
+}
+
+// Runs fn(lanes, count) over the slab's groups of kGroup lanes
+template <class Lane, class Fn>
+void host_groups(const Lane* lanes, Fn&& fn) {
+  for (int g = 0; g < kSlab; g += kGroup) fn(lanes + g, g);
 }
 #endif
 
@@ -952,74 +1153,70 @@ extern "C" int m3_lane_aggregates(const uint32_t* windows, const uint32_t* lanes
                                   uint8_t* out_err, void* stream) {
   const bool aligned = (((uintptr_t)windows | (uintptr_t)lanes) & 15u) == 0;
   if (!slab_shape_ok(npad, tile_lanes, cw, mask) || !aligned) return (int)cudaErrorInvalidValue;
-  if (npad > 0) {
-    const size_t smem = stage_bytes(cw, mask);
-    int64_t cap = 0;
-    const cudaError_t e = m3::resident_blocks(lane_aggregates_slab_kernel, kSlab, smem, &cap);
-    if (e != cudaSuccess) return (int)e;
-    const int64_t nslab = npad / kSlab;
-    lane_aggregates_slab_kernel<<<(unsigned)(nslab < cap ? nslab : cap), kSlab, smem,
-                                  (cudaStream_t)stream>>>(
-        windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, out_f, out_cnt, out_err);
-  }
-  return (int)cudaGetLastError();
+  return launch_slabs(lane_aggregates_slab_kernel, npad / kSlab, smem_bytes(kB1, cw, mask),
+                      stream, windows, lanes, tile_flags, npad, cw, mask, k, tile_lanes, out_f,
+                      out_cnt, out_err);
 }
 
-// Kernel R. windows u32[cw, npad], lanes u32[17, npad] as for
-// m3_lane_aggregates; the first n lanes are decoded with the general body.
-// Outputs, lane-major [n, k]: out_ts i64 (prev_time after each record),
-// out_bits i64 (f64 bits if the point is float, else the int value),
-// out_pif / out_mult / out_valid u8; out_err u8[n]. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue if k needs
-// more shared memory than a block has).
+// Kernel R. windows u32[cw, npad] (16-byte aligned), lanes u32[17, npad] as
+// for m3_lane_aggregates but of any npad; the first n lanes are decoded with
+// the general body. Outputs, lane-major [n, k]: out_ts i64 (prev_time after
+// each record), out_bits i64 (f64 bits if the point is float, else the int
+// value), out_pif / out_mult / out_valid u8; out_err u8[n]. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
+// whose stages exceed shared memory, or unaligned windows).
 extern "C" int m3_decode_records(const uint32_t* windows, const uint32_t* lanes, int64_t npad,
                                  int64_t n, int cw, int mask, int k, int64_t* out_ts,
                                  int64_t* out_bits, uint8_t* out_pif, uint8_t* out_mult,
                                  uint8_t* out_valid, uint8_t* out_err, void* stream) {
-  const size_t smem = (size_t)kRecThreads * (size_t)(k | 1) * kRecBytes;
-  if (k <= 0 || smem > m3::kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 49152) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_records_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (n > 0) {
-    const int64_t blocks = (n + kRecThreads - 1) / kRecThreads;
-    decode_records_kernel<<<(unsigned)blocks, kRecThreads, smem, (cudaStream_t)stream>>>(
-        windows, lanes, npad, n, cw, mask, k, out_ts, out_bits, out_pif, out_mult, out_valid,
-        out_err);
-  }
-  return (int)cudaGetLastError();
+  if (!records_shape_ok(cw, mask, k) || ((uintptr_t)windows & 15u) != 0 || n > npad)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = npad % 4 == 0;
+  return launch_slabs(decode_records_slab_kernel, (n + kSlab - 1) / kSlab,
+                      smem_bytes(kR, cw, mask), stream, windows, lanes, npad, n, cw,
+                      mask, k, vec, out_ts, out_bits, out_pif, out_mult, out_valid, out_err);
 }
 
 // B3. windows u32[n, cw] lane-major; fields: a host array of 17 device
 // pointers in Plane order (rel_pos ... is_float), each an [n] array, u32
 // but for first and is_float (bool as u8). Outputs as m3_lane_aggregates',
 // over n lanes. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue if a block's window rows exceed shared memory).
+// (cudaErrorInvalidValue if a slab's stage exceeds shared memory).
 extern "C" int m3_lane_aggregates_fields(const uint32_t* windows, const void* const* fields,
                                          int64_t n, int cw, int mask, int k, float* out_f,
                                          int32_t* out_cnt, uint8_t* out_err, void* stream) {
-  const size_t smem = (size_t)kFieldThreads * (size_t)(cw | 1) * 4;
-  if (cw <= 0 || k <= 0 || smem > m3::kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 49152) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lane_aggregates_fields_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (!fields_shape_ok(cw, mask, k)) return (int)cudaErrorInvalidValue;
+  return launch_slabs(lane_aggregates_fields_slab_kernel, (n + kSlab - 1) / kSlab,
+                      smem_bytes(kB3, cw, mask), stream, windows, make_field_planes(fields), n, cw,
+                      mask, k, out_f, out_cnt, out_err);
+}
+// Blocks of each kernel the card holds at once (SMs x blocks per SM) at
+// windows of cw words, and the registers a thread of the loaded kernel
+// uses: which = 0 B1, 1 R, 2 B3. Returns a CUDA error code.
+extern "C" int m3_lane_resident_blocks(int which, int cw, int mask, int64_t* out, int* regs) {
+  const void* fn = which == kB1  ? (const void*)lane_aggregates_slab_kernel
+                   : which == kR ? (const void*)decode_records_slab_kernel
+                                 : (const void*)lane_aggregates_fields_slab_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = attr.numRegs;
+  const size_t smem = smem_bytes(which, cw, mask);
+  if (which == kB1) {
+    e = m3::resident_blocks(lane_aggregates_slab_kernel, kSlab, smem, out);
+  } else if (which == kR) {
+    e = m3::resident_blocks(decode_records_slab_kernel, kSlab, smem, out);
+  } else {
+    e = m3::resident_blocks(lane_aggregates_fields_slab_kernel, kSlab, smem, out);
   }
-  if (n > 0) {
-    const int64_t blocks = (n + kFieldThreads - 1) / kFieldThreads;
-    lane_aggregates_fields_kernel<<<(unsigned)blocks, kFieldThreads, smem,
-                                    (cudaStream_t)stream>>>(
-        windows, make_field_planes(fields), n, cw, mask, k, out_f, out_cnt, out_err);
-  }
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 #else
-// Host build of the same per-lane code, with subnormals flushed as -ftz=true
-// flushes them on the card, and lanes decoded as the card decodes them: each
-// 128-lane slab's window rows copied into a stage and read through
-// SlabLane. Returns 1 for a shape the kernel does not take.
+// Host builds of the three entries, with subnormals flushed as -ftz=true
+// flushes them on the card, and lanes decoded as the card decodes them:
+// each 128-lane slab staged word-major and read through the same lanes, the
+// general body's lanes walked in groups of kGroup that take the warp's
+// decisions together. Each returns 1 for a shape its kernel does not take.
 extern "C" int m3_lane_aggregates_host(const uint32_t* windows, const uint32_t* lanes,
                                        const int32_t* tile_flags, int64_t npad, int cw,
                                        int mask, int k, int64_t tile_lanes, float* out_f,
@@ -1028,13 +1225,25 @@ extern "C" int m3_lane_aggregates_host(const uint32_t* windows, const uint32_t* 
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
   std::vector<uint32_t> st((size_t)stage_rows(cw, mask) * kSlab, 0u);
+  std::vector<SlabLane> L(kSlab);
+  float rcp[8];
+  for (int i = 0; i < 8; ++i) fill_rcp_table(rcp, i);
   for (int64_t col = 0; col < npad; col += kSlab) {
-    for (int w = 0; w < cw; ++w)
-      std::memcpy(&st[(size_t)w * kSlab], windows + w * npad + col, kSlab * 4);
-    const int flag = tile_flags[col / tile_lanes];
+    host_stage_packed(st, windows, npad, col, cw, kSlab);
     for (int t = 0; t < kSlab; ++t)
-      decode_body(slab_lane(st.data(), lanes, npad, col + t, t, cw, mask), flag, k, col + t,
-                  npad, out_f, out_cnt, out_err);
+      L[t] = slab_lane(st.data(), lanes, npad, col + t, t, cw, mask, true);
+    const int flag = tile_flags[col / tile_lanes];
+    host_groups(L.data(), [&](const SlabLane* g, int t0) {
+      Acc acc[kGroup];
+      bool err[kGroup] = {};
+      for (int i = 0; i < kGroup; ++i) acc[i].init();
+      if (flag == 0) run_general<kGroup>(g, k, acc, err, RcpTable{rcp});
+      for (int i = 0; i < kGroup; ++i) {
+        if (flag == 1) run_fast_int(g[i], k, acc[i]);
+        if (flag == 2) run_fast_float(g[i], k, acc[i]);
+        store_lane(acc[i], err[i], col + t0 + i, npad, out_f, out_cnt, out_err);
+      }
+    });
   }
   _mm_setcsr(csr);
   return 0;
@@ -1045,24 +1254,72 @@ extern "C" int m3_decode_records_host(const uint32_t* windows, const uint32_t* l
                                       int64_t n, int cw, int mask, int k, int64_t* out_ts,
                                       int64_t* out_bits, uint8_t* out_pif, uint8_t* out_mult,
                                       uint8_t* out_valid, uint8_t* out_err) {
-  for (int64_t lane = 0; lane < n; ++lane) {
-    decode_lane_records(windows, lanes, npad, cw, mask, k, lane, out_ts, out_bits, out_pif,
-                        out_mult, out_valid, out_err);
+  if (!records_shape_ok(cw, mask, k) || n > npad) return 1;
+  std::vector<uint32_t> st((size_t)stage_rows(cw, mask) * kSlab, 0u);
+  std::vector<SlabLane> L(kSlab);
+  for (int64_t col = 0; col < n; col += kSlab) {
+    const int live = n - col < kSlab ? (int)(n - col) : kSlab;
+    host_stage_packed(st, windows, npad, col, cw, live);
+    for (int t = 0; t < kSlab; ++t)
+      L[t] = slab_lane(st.data(), lanes, npad, col + t, t, cw, mask, t < live);
+    host_groups(L.data(), [&](const SlabLane* g, int t0) {
+      bool err[kGroup];
+      walk_general<true, kGroup>(g, k, err, [&](int idx, const bool* valid, const State* s) {
+        for (int i = 0; i < kGroup && t0 + i < live; ++i) {
+          const int64_t o = (col + t0 + i) * k + idx;
+          out_ts[o] = (int64_t)s[i].prev_time;
+          out_bits[o] = (int64_t)(s[i].is_float ? s[i].prev_float_bits : s[i].int_val);
+          out_pif[o] = s[i].is_float ? 1 : 0;
+          out_mult[o] = (uint8_t)s[i].mult;
+          out_valid[o] = valid[i] ? 1 : 0;
+        }
+      });
+      for (int i = 0; i < kGroup && t0 + i < live; ++i) out_err[col + t0 + i] = err[i] ? 1 : 0;
+    });
   }
   return 0;
 }
 
-// Host build of B3, each lane's window row read in place.
+// Host build of B3: each slab's lane rows staged as the card stages them.
 extern "C" int m3_lane_aggregates_fields_host(const uint32_t* windows, const void* const* fields,
                                               int64_t n, int cw, int mask, int k, float* out_f,
                                               int32_t* out_cnt, uint8_t* out_err) {
+  if (!fields_shape_ok(cw, mask, k)) return 1;
   const FieldPlanes f = make_field_planes(fields);
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
-  for (int64_t lane = 0; lane < n; ++lane) {
-    decode_field_lane(windows + lane * cw, f, n, cw, mask, k, lane, out_f, out_cnt, out_err);
+  const int stride = fields_row_stride(cw);
+  std::vector<uint32_t> rows((size_t)kSlab * stride);
+  std::vector<FieldLane> L(kSlab);
+  float rcp[8];
+  for (int i = 0; i < 8; ++i) fill_rcp_table(rcp, i);
+  for (int64_t base = 0; base < n; base += kSlab) {
+    const int live = n - base < kSlab ? (int)(n - base) : kSlab;
+    std::fill(rows.begin(), rows.end(), 0u);
+    for (int t = 0; t < live; ++t)
+      std::memcpy(&rows[(size_t)t * stride], windows + (base + t) * cw, (size_t)cw * 4);
+    for (int t = 0; t < kSlab; ++t)
+      L[t] = field_lane(&rows[(size_t)t * stride], f, base + t, cw, mask, t < live);
+    host_groups(L.data(), [&](const FieldLane* g, int t0) {
+      Acc acc[kGroup];
+      bool err[kGroup];
+      for (int i = 0; i < kGroup; ++i) acc[i].init();
+      run_general<kGroup>(g, k, acc, err, RcpTable{rcp});
+      for (int i = 0; i < kGroup && t0 + i < live; ++i)
+        store_lane(acc[i], err[i], base + t0 + i, n, out_f, out_cnt, out_err);
+    });
   }
   _mm_setcsr(csr);
   return 0;
 }
 #endif
+
+// Bytes of shared memory a block of kernel `which` (0 B1, 1 R, 2 B3) needs
+// at windows of cw words (both builds: the wrappers check a shape with it
+// before any launch).
+extern "C" int64_t m3_lane_smem_bytes(int which, int cw, int mask) {
+  return (int64_t)smem_bytes(which, cw, mask);
+}
+
+// The most shared memory a block may use.
+extern "C" int64_t m3_lane_smem_max_bytes() { return (int64_t)m3::kSmemMax; }

@@ -49,6 +49,15 @@ NLANE = len(PACKED_LANE_PLANES)
 # Launches of the CUDA kernel, counted by lane_aggregates where it launches.
 LAUNCHES = 0
 
+# Kernel inputs copied into fresh storage because a kernel needs them
+# 16-byte aligned and they were not (a view at an odd offset), by
+# kernel_input; chip_smoke.py prints it, and 0 is expected on every path.
+UNALIGNED_COPIES = 0
+
+# the lane kernels of csrc/lane_aggregates.cu, as its m3_lane_smem_bytes and
+# m3_lane_resident_blocks number them
+LANE_KERNELS = {"lane_aggregates": 0, "decode_records": 1, "lane_aggregates_fields": 2}
+
 
 class LaneAggregates(NamedTuple):
     """Per-lane (= per chunk) reductions."""
@@ -194,6 +203,30 @@ def _check_inputs(windows, lanes, tile_flags, n, k):
         raise ValueError("tile_flags and windows lie on different devices")
 
 
+def kernel_input(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' 16-byte copies
+    need: a misaligned tensor is copied into fresh storage and counted in
+    UNALIGNED_COPIES."""
+    global UNALIGNED_COPIES
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+        UNALIGNED_COPIES += 1
+    return t
+
+
+def check_launch_shape(lib, kernel: str, cw: int) -> None:
+    """Raise ValueError, naming the shape, for windows of ``cw`` words that a
+    block of ``kernel`` (a key of LANE_KERNELS) cannot stage in shared
+    memory, as the kernel source ``lib`` was built from lays it out."""
+    need = lib.m3_lane_smem_bytes(LANE_KERNELS[kernel], cw, D.barrel_mask(cw))
+    most = lib.m3_lane_smem_max_bytes()
+    if cw <= 0 or need > most:
+        raise ValueError(
+            f"{kernel}: windows of CW={cw} words need {need} bytes of shared memory a "
+            f"block; a block may use {most}")
+
+
 def lane_aggregates(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregates:
     """Decode k records per lane and fold them into per-lane aggregates.
 
@@ -212,8 +245,9 @@ def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
     from ._build import load_library
 
     lib = load_library("lane_aggregates")
-    windows = windows.contiguous()
-    lanes = lanes.contiguous()
+    check_launch_shape(lib, "lane_aggregates", windows.shape[0])
+    windows = kernel_input(windows)
+    lanes = kernel_input(lanes)
     cw, npad = windows.shape
     dev = windows.device
     tile_flags = tile_flags.contiguous()
@@ -476,7 +510,8 @@ def _launch_fields(windows, planes, k) -> LaneAggregates:
     from ._build import load_library
 
     lib = load_library("lane_aggregates")
-    windows = windows.contiguous()
+    check_launch_shape(lib, "lane_aggregates_fields", windows.shape[1])
+    windows = windows.contiguous()  # 4-byte copies: any offset will do
     planes = [p.contiguous() for p in planes]
     n, cw = windows.shape
     dev = windows.device

@@ -10,12 +10,14 @@ a machine without JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
 from m3_tpu_torch.codec.m3tsz import encode_series
 from m3_tpu_torch.ops import chunked, fused
 from m3_tpu_torch.utils.synthetic import synthetic_mixed_streams, synthetic_streams
+from torch_streams import group_streams
 
 T0 = 1_600_000_000 * 10**9
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -30,6 +32,11 @@ def _streams(name):
     return [encode_series([T0 + j * 10**9 for j in range(97)],
                           [0.5] + [SPECIALS[(j * 7 + s) % len(SPECIALS)] for j in range(96)])
             for s in range(16)]
+
+
+def _assert_records(got, want):
+    for f in ("ts", "bits", "point_is_float", "mult", "valid", "err"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def _assert_identical(got, want):
@@ -233,3 +240,65 @@ def test_cuda_temporal_long_rows_use_scratch(funcs):
     got = TF.fused_temporal(x, 61, 10.0, funcs)
     for name, g, w in zip(funcs, got, TF.fused_temporal(x.cpu(), 61, 10.0, funcs)):
         _assert_temporal_close(name, g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_records_and_fields_on_warp_groups_ragged():
+    """R and B3 on lanes whose warps are all int, all float or mixed, with
+    time-unit changes and annotations: R on 20,997 lanes gathered into
+    arrays of their own as fetch_grid gathers them (Npad neither a multiple
+    of 128 nor of 4), B3 on 21,000 per-field lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel.scan import chunked_device_args
+
+    batch = chunked.build_chunked(group_streams(), k=16)
+    p = fused.pack_lanes(batch, order="s", rows=8, device="cuda", n_series=3000)
+    n = p.n - 3
+    win, lanes = p.windows[:, :n].contiguous(), p.lanes[:, :n].contiguous()
+    before = chunked.LAUNCHES
+    got = chunked.decode_chunked_lanes(win, lanes, n=n, k=16)
+    assert chunked.LAUNCHES == before + 1 and n % 128 and n % 4
+    torch.cuda.synchronize()
+    _assert_records(got, chunked.decode_chunked_lanes_reference(win, lanes, n=n, k=16))
+    args = chunked_device_args(chunked.tile_chunked(batch, 3000), device="cuda")
+    got = fused.lane_aggregates_fields(**args, k=16)
+    torch.cuda.synchronize()
+    _assert_identical(got, fused.lane_aggregates_fields_reference(**args, k=16))
+
+
+def _offset_views(x):
+    """x as a view at column 1 of a wider buffer (not contiguous), and as a
+    contiguous view 4 bytes past a 16-byte boundary."""
+    rows, cols = x.shape
+    wide = torch.zeros((rows, cols + 1), dtype=x.dtype, device=x.device)
+    wide[:, 1:] = x
+    flat = torch.zeros(rows * cols + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view(rows, cols)
+    assert shifted.data_ptr() % 16
+    return wide[:, 1:], shifted
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_offset_views():
+    """B1, R and B3 on windows that are offset views of a wider buffer give
+    the twin's answer; a contiguous but misaligned input to B1 or R is
+    copied into fresh storage once and counted in UNALIGNED_COPIES."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel.scan import chunked_device_args
+
+    batch = chunked.build_chunked(_streams("mixed"), k=16)
+    p = fused.pack_lanes(batch, order="s", rows=8, device="cuda", n_series=1024)
+    want_b1 = fused.lane_aggregates_reference(p.windows, p.lanes, p.tile_flags, n=p.n, k=16)
+    want_r = chunked.decode_chunked_lanes_reference(p.windows, p.lanes, n=p.n, k=16)
+    for win, copies in zip(_offset_views(p.windows), (0, 1)):
+        before = fused.UNALIGNED_COPIES
+        _assert_identical(fused.lane_aggregates(win, p.lanes, p.tile_flags, n=p.n, k=16), want_b1)
+        _assert_records(chunked.decode_chunked_lanes(win, p.lanes, n=p.n, k=16), want_r)
+        assert fused.UNALIGNED_COPIES == before + 2 * copies
+    args = chunked_device_args(chunked.tile_chunked(batch, 1024), device="cuda")
+    want_b3 = fused.lane_aggregates_fields_reference(**args, k=16)
+    for rows in _offset_views(args["windows"]):
+        _assert_identical(fused.lane_aggregates_fields(**dict(args, windows=rows), k=16), want_b3)

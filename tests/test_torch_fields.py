@@ -5,7 +5,11 @@
   ``lane_aggregates_pallas`` (run in interpret mode, as tests/test_fused.py
   runs it on the CPU) PER LANE: count and err exact, sum/min/max/last
   bit-identical with NaN in the same places.
-- B3's CUDA source, compiled as host C++, equals the twin per lane.
+- B3's CUDA source, compiled as host C++, equals the twin per lane, also
+  on a ragged lane count and on 32-lane groups that are all int, all float
+  or mixed (the walk's per-warp decisions, taken by the host build per
+  group), with time-unit changes, annotations, EOS mid-chunk, mult up to 6
+  and values scaled to 1e-40.
 - ``chunked_scan_aggregate_fused`` equals the JAX package's
   ``chunked_scan_aggregate_fused(backend="jnp")``: counts, min, max, last
   and err exact; sums within rtol 1e-6, because torch and XLA add a
@@ -32,6 +36,7 @@ from m3_tpu_torch.ops import chunked as tchunked
 from m3_tpu_torch.ops import decode as tdecode
 from m3_tpu_torch.ops import fused as tfused
 from m3_tpu_torch.parallel import scan as tscan
+from torch_streams import group_streams
 
 NANOS = 1_000_000_000
 T0 = 1_600_000_000 * NANOS
@@ -61,6 +66,12 @@ CASES = {
     # B3 runs the general body on every lane
     "negative_int": (lambda: _encode_values(
         [[-3.0] * 97, [-1.0, -2.0, 0.0, -7.0] * 24 + [-5.0]]), 24),
+    # 32-lane groups all int / all float / mixed, 672 lanes (not a multiple
+    # of 128); see tests/torch_streams.group_streams
+    "groups": (group_streams, 16),
+    # time-unit markers (19 + 64-bit timestamps) in half the series
+    "tu_change": (lambda: jsyn.synthetic_mixed_streams(
+        32, 97, seed=11, frac_float=0.3, frac_tu_change=0.5, frac_annotation=0.0), 16),
     # NaN, infinities, signed zeros, f64 and f32 subnormals, f32 overflow
     "specials": (lambda: _encode_values(
         [[0.5] + [SPECIALS[(j * 7 + s) % len(SPECIALS)] for j in range(96)] for s in range(16)]),

@@ -279,3 +279,83 @@ def test_kernel_refuses_tiles_off_its_slabs(host_kernel, npad, tile_lanes):
                      flags.numpy().ctypes.data, npad, cw, tdecode.barrel_mask(cw), 4, tile_lanes,
                      out_f.ctypes.data, out_cnt.ctypes.data, out_err.ctypes.data)
     assert rc == 1
+
+
+def test_kernel_input_copies_only_misaligned_storage():
+    """The kernels' 16-byte copies need aligned inputs: a contiguous view off
+    a 16-byte boundary is copied and counted, anything else is not."""
+    base = torch.arange(4 * 130, dtype=torch.int32)
+    aligned = base[:4 * 128].view(4, 128)
+    before = tfused.UNALIGNED_COPIES
+    assert tfused.kernel_input(aligned).data_ptr() == aligned.data_ptr()
+    strided = base.view(4, 130)[:, 1:129]  # not contiguous: a fresh copy anyway
+    got = tfused.kernel_input(strided)
+    assert got.is_contiguous() and torch.equal(got, strided)
+    assert tfused.UNALIGNED_COPIES == before
+    shifted = base[1:1 + 4 * 128].view(4, 128)
+    assert shifted.data_ptr() % 16
+    got = tfused.kernel_input(shifted)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, shifted)
+    assert tfused.UNALIGNED_COPIES == before + 1
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
+    out = tmp_path_factory.mktemp("kernel") / "lane_aggregates_host.so"
+    subprocess.run(
+        [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(out), str(_build.SOURCES["lane_aggregates"][0])],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(out))
+    lib.m3_lane_smem_bytes.restype = ctypes.c_int64
+    lib.m3_lane_smem_max_bytes.restype = ctypes.c_int64
+    return lib
+
+
+def _launch_shape_ok(lib, kernel, cw):
+    try:
+        tfused.check_launch_shape(lib, kernel, cw)
+    except ValueError as e:
+        assert f"CW={cw}" in str(e)
+        return False
+    return True
+
+
+@pytest.mark.parametrize("kernel", list(tfused.LANE_KERNELS))
+def test_check_launch_shape_matches_the_kernel_source(host_lib, kernel):
+    """check_launch_shape, asking the kernel source for its shared memory
+    layout, takes the widest windows the source's entries take and raises,
+    naming the shape, on the next width: the wrappers refuse a shape before
+    any launch."""
+    widths = [cw for cw in range(0, 600) if _launch_shape_ok(host_lib, kernel, cw)]
+    cw_max = widths[-1]
+    assert widths == list(range(1, cw_max + 1)) and cw_max >= 24
+    n, k, vp = 128, 4, ctypes.c_void_p
+    for cw, want in ((cw_max, 0), (cw_max + 1, 1)):
+        win = np.zeros((cw, n), np.uint32)
+        planes = np.zeros((tfused.NLANE, n), np.uint32)
+        out = np.zeros(64 * n * k, np.uint8)  # room for any entry's outputs
+        o = out.ctypes.data
+        mask = tdecode.barrel_mask(cw)
+        if kernel == "lane_aggregates":
+            fn = host_lib.m3_lane_aggregates_host
+            flags = np.zeros(1, np.int32)
+            rc = fn(vp(win.ctypes.data), vp(planes.ctypes.data), vp(flags.ctypes.data),
+                    ctypes.c_int64(n), cw, mask, k, ctypes.c_int64(n), vp(o), vp(o + 16 * n),
+                    vp(o + 20 * n))
+        elif kernel == "decode_records":
+            fn = host_lib.m3_decode_records_host
+            rc = fn(vp(win.ctypes.data), vp(planes.ctypes.data), ctypes.c_int64(n),
+                    ctypes.c_int64(n), cw, mask, k, vp(o), vp(o + 8 * n * k), vp(o + 16 * n * k),
+                    vp(o + 17 * n * k), vp(o + 18 * n * k), vp(o + 19 * n * k))
+        else:
+            fn = host_lib.m3_lane_aggregates_fields_host
+            fields = (vp * tfused.NLANE)(*[planes[i].ctypes.data for i in range(tfused.NLANE)])
+            rows = np.ascontiguousarray(win.T)
+            rc = fn(vp(rows.ctypes.data), fields, ctypes.c_int64(n), cw, mask, k, vp(o),
+                    vp(o + 16 * n), vp(o + 20 * n))
+        assert rc == want, (cw, rc)

@@ -5,7 +5,10 @@
   point_is_float, mult, valid and err.
 - ``finalize_decode`` equals the JAX package's ``finalize_decode`` bit for
   bit in float64.
-- Kernel R's source, compiled as host C++, equals the twin on every record.
+- Kernel R's source, compiled as host C++, equals the twin on every record,
+  also on a ragged lane count gathered as ``BlockStorage.fetch_grid``
+  gathers it, and on 32-lane groups that are all int, all float or mixed
+  (the walk's per-warp decisions, taken by the host build per group).
 The kernel itself is held to the twin on a card by tests/test_torch_cuda.py
 and chip_smoke.py.
 """
@@ -25,12 +28,19 @@ from m3_tpu_torch.ops import _build
 from m3_tpu_torch.ops import chunked as tchunked
 from m3_tpu_torch.ops import decode as tdecode
 from m3_tpu_torch.ops import fused as tfused
+from torch_streams import group_streams
 
 N_SERIES, N_POINTS, K = 96, 120, 24
-KINDS = ["gauge", "counter", "float", "mixed"]
+KINDS = ["gauge", "counter", "float", "mixed", "groups", "tu_change"]
 
 
 def _streams(kind):
+    if kind == "groups":
+        return group_streams()
+    if kind == "tu_change":
+        # time-unit markers (19 + 64-bit timestamps) in half the series
+        return jsyn.synthetic_mixed_streams(N_SERIES, N_POINTS, seed=11, frac_float=0.3,
+                                            frac_tu_change=0.5, frac_annotation=0.0)
     if kind == "mixed":
         # floats, counters, time-unit changes and annotations (err series)
         return jsyn.synthetic_mixed_streams(N_SERIES, N_POINTS, seed=31, frac_float=0.3,
@@ -124,21 +134,27 @@ def host_records():
     return fn
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ["groups_ragged"])
 def test_kernel_r_source_host_build_matches_twin(host_records, kind):
-    _, _, p = _decoded(kind)
-    cw, npad = p.windows.shape
-    n = p.n
+    _, _, p = _decoded(kind.removesuffix("_ragged"))
+    windows, lanes, n = p.windows, p.lanes, p.n
+    if kind.endswith("_ragged"):
+        # the lanes gathered into arrays of their own, as fetch_grid gathers
+        # a query's series: Npad = n, neither a multiple of 128 nor of 4
+        n -= 3
+        windows, lanes = windows[:, :n].contiguous(), lanes[:, :n].contiguous()
+        assert n % 128 and n % 4
+    cw, npad = windows.shape
     ts = np.zeros((n, K), np.int64)
     bits = np.zeros((n, K), np.int64)
     small = np.zeros((3, n, K), np.uint8)
     err = np.zeros(n, np.uint8)
-    win, lanes = p.windows.numpy(), p.lanes.numpy()
-    rc = host_records(win.ctypes.data, lanes.ctypes.data, npad, n, cw, tdecode.barrel_mask(cw), K,
+    win, lns = windows.numpy(), lanes.numpy()
+    rc = host_records(win.ctypes.data, lns.ctypes.data, npad, n, cw, tdecode.barrel_mask(cw), K,
                       ts.ctypes.data, bits.ctypes.data, small[0].ctypes.data,
                       small[1].ctypes.data, small[2].ctypes.data, err.ctypes.data)
     assert rc == 0
-    want = tchunked.decode_chunked_lanes(p.windows, p.lanes, n=n, k=K)
+    want = tchunked.decode_chunked_lanes(windows, lanes, n=n, k=K)
     np.testing.assert_array_equal(ts, want.ts.numpy())
     np.testing.assert_array_equal(bits, want.bits.numpy())
     np.testing.assert_array_equal(small[0] != 0, want.point_is_float.numpy())
