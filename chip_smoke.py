@@ -58,7 +58,27 @@ Phases (any failure exits non-zero):
              multiplicity, within rtol 1e-4. Then each stage's time (CUDA
              events), the end-to-end query_range median of 10 (host clock,
              ending in a host copy), each kernel's bound, B2's library
-             yardstick and the peak device memory.
+             yardstick and the peak device memory. BlockStorage resolves
+             matchers through the index (its segment resident in a
+             DeviceIndexStore): K1 and K2 launch, no store miss. A third
+             query in BASELINE config 5's shape,
+             sum(rate(m3_scan{host=~"h1.*"}[1m])) (a fan-out prefix regexp
+             over 11,111 series, one group), is held to an f64 sum as
+             above; each query run twice is bit-identical; K3 (the grouped
+             reductions) equals its twin on a CPU copy bit for bit for all
+             seven ops, timed beside index_add_ at 10 groups and at one
+             group of all 100,000 series (a plain sum over the block).
+  index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
+             x 10 cpu fields = 1,000,000 series, each with __name__ and
+             TSBS's 10 host tags, values drawn from --seed over TSBS's value
+             sets, written into a NamespaceIndex with a DeviceIndexStore as
+             one block, and the first 10,000 hosts' series as a second block.
+             Six TSBS query shapes as matchers through NamespaceIndex.query
+             over both blocks (prematch batching K1 across the two resident
+             segments): doc ids == the host executor's exactly; every
+             segment resident, 0 misses, 0 errors; K1 and K2 launched. Then
+             K1's and K2's times beside their bounds, their twins' times, and
+             each query's host time end to end (median of 10).
 Prints the card as nvidia-smi reports it, a {"kernels": [...]} line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -78,6 +98,33 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PARITY_SERIES, MAIN_SERIES, N_POINTS, K, N_UNIQUE = 4096, 1 << 20, 720, 24, 64
 QUERY_SERIES, QUERY_JOBS, STEP = 100_000, 10, 10 * 10**9
+INDEX_HOSTS, INDEX_SECOND_BLOCK_HOSTS, HOUR = 100_000, 10_000, 3600 * 10**9
+# TSBS devops: the cpu measurement's fields and the host tags' value sets
+# (pkg/data/usecases/devops/host.go)
+CPU_FIELDS = ["usage_user", "usage_system", "usage_idle", "usage_nice", "usage_iowait",
+              "usage_irq", "usage_softirq", "usage_steal", "usage_guest", "usage_guest_nice"]
+TSBS_REGIONS = {
+    "us-east-1": ["us-east-1a", "us-east-1b", "us-east-1c", "us-east-1e"],
+    "us-west-1": ["us-west-1a", "us-west-1b"],
+    "us-west-2": ["us-west-2a", "us-west-2b", "us-west-2c"],
+    "eu-west-1": ["eu-west-1a", "eu-west-1b", "eu-west-1c"],
+    "eu-central-1": ["eu-central-1a", "eu-central-1b"],
+    "ap-southeast-1": ["ap-southeast-1a", "ap-southeast-1b"],
+    "ap-southeast-2": ["ap-southeast-2a", "ap-southeast-2b"],
+    "ap-northeast-1": ["ap-northeast-1a", "ap-northeast-1c"],
+    "sa-east-1": ["sa-east-1a", "sa-east-1b", "sa-east-1c"],
+}
+TSBS_CHOICES = {
+    "rack": [str(i) for i in range(100)],
+    "os": ["Ubuntu16.10", "Ubuntu16.04LTS", "Ubuntu15.10"],
+    "arch": ["x64", "x86"],
+    "team": ["SF", "NYC", "LON", "CHI"],
+    "service": [str(i) for i in range(20)],
+    "service_version": ["0", "1"],
+    "service_environment": ["production", "staging", "test"],
+}
+SEED = 6
+FANOUT_QUERY = 'sum(rate(m3_scan{host=~"h1.*"}[1m]))'
 RESIDENT_SERIES, RESIDENT_CALLS, FETCH_KEYS = 1 << 20, 16, 100_000
 T0 = 1_600_000_000 * 10**9
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
@@ -720,6 +767,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
 
     from m3_tpu_torch.block.core import Bounds, make_tags
     from m3_tpu_torch.codec.m3tsz import decode
+    from m3_tpu_torch.index.device import kernels as IK
     from m3_tpu_torch.ops import chunked
     from m3_tpu_torch.query import engine as E
     from m3_tpu_torch.query.functions import aggregation as A
@@ -747,16 +795,42 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
                "avg_over_time": "avg by (job) (avg_over_time(m3_scan[1m]))"}
     window = 60 * 10**9 // STEP + 1
 
-    # the main path, counted: both queries once, counts set to 0 just before
+    # the main path, counted: the three queries once, counts set to 0 just
+    # before and read just after
     chunked.LAUNCHES = 0
     TF.LAUNCHES = 0
+    A.LAUNCHES = 0
+    for k in IK.LAUNCHES:
+        IK.LAUNCHES[k] = 0
     results = {fn: eng.query_range(q, start, end, STEP) for fn, q in queries.items()}
+    fanout = eng.query_range(FANOUT_QUERY, start, end, STEP)
     torch.cuda.synchronize()
-    launches = {"decode_records": chunked.LAUNCHES, "temporal_fused": TF.LAUNCHES}
-    log(f"[query] launches on the main path (2 queries): {launches}")
+    launches = {"decode_records": chunked.LAUNCHES, "temporal_fused": TF.LAUNCHES,
+                "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
+                "index_bitmap": IK.LAUNCHES["bitmap_from_terms"]
+                + IK.LAUNCHES["bitmap_from_term_range"]}
+    log(f"[query] launches on the main path (3 queries): {launches}")
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the query path did not launch {name}")
+    st = storage.index_store.stats()
+    if st["search_misses"] or st["errors"] or not st["search_hits"]:
+        raise AssertionError(f"[query] matchers did not resolve on the device index: {st}")
+    log(f"[query] BlockStorage's index store: {st}")
+
+    # each query run again gives the same bits
+    def same_bits(a, b):
+        a, b = a.cpu(), b.cpu()
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            torch.where(a.isnan(), 0.0, a).view(torch.int64 if a.dtype == torch.float64
+                                                else torch.int32),
+            torch.where(b.isnan(), 0.0, b).view(torch.int64 if b.dtype == torch.float64
+                                                else torch.int32))
+
+    for q, first in [(q, results[fn]) for fn, q in queries.items()] + [(FANOUT_QUERY, fanout)]:
+        if not same_bits(eng.query_range(q, start, end, STEP).values, first.values):
+            raise AssertionError(f"{q}: a second run differs from the first")
+    log("[query] each of the 3 queries run twice: bit-identical results")
 
     # check 1: the grid of the unique rows equals the host decode +
     # consolidate_row bit for bit
@@ -802,6 +876,22 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
             raise AssertionError(f"{queries[fn]}: rel err {rel} vs the f64 check")
         log(f"[query] {queries[fn]}: [{QUERY_JOBS}, {N_POINTS}], {int(ok.sum())} finite, max rel "
             f"err {rel:.3g} vs the f64 sum of the unique rows' twin outputs")
+    # config 5's shape: the series whose host starts with h1, one group
+    hit = np.asarray([str(i).startswith("1") for i in range(s_q)])
+    mult_f = np.bincount(idx[hit] % N_UNIQUE, minlength=N_UNIQUE).astype(np.float64)
+    out = TF.FUSABLE["rate"](uniq, window, STEP / 1e9)[:, window - 1:].double().cpu().numpy()
+    valid = ~np.isnan(out)
+    s = mult_f @ np.where(valid, out, 0.0)
+    c = mult_f @ valid.astype(np.float64)
+    want = np.where(c > 0, s, np.nan)[None, :]
+    got = fanout.values.double().cpu().numpy()
+    ok = ~np.isnan(want)
+    rel = float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]))) if ok.any() else 0.0
+    if got.shape != (1, N_POINTS) or not np.array_equal(np.isnan(got), np.isnan(want)) or not (
+            ok.any() and rel <= 1e-4):
+        raise AssertionError(f"{FANOUT_QUERY}: shape, NaN pattern or rel err {rel} vs f64")
+    log(f"[query] {FANOUT_QUERY}: {int(hit.sum())} series matched through the index, [1, "
+        f"{N_POINTS}], {int(ok.sum())} finite, max rel err {rel:.3g} vs the f64 check")
 
     # stage times at this shape (CUDA events, median)
     c = storage.num_chunks
@@ -830,7 +920,41 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     t0 = time.perf_counter()
     layout = A.group_by_tags(metas, [b"job"])
     group_s = time.perf_counter() - t0
-    agg_ms = statistics.median(cuda_ms(lambda: A.grouped_sum(out_rate[:, window - 1:], layout), 20))
+    agg_x = out_rate[:, window - 1:].contiguous()
+    agg_ms = statistics.median(cuda_ms(lambda: A.grouped_sum(agg_x, layout), 20))
+    agg_b2b = per_launch_ms(lambda: A.grouped_sum(agg_x, layout))
+    # K3 == its twin on a CPU copy of the same values, all seven ops
+    agg_cpu = agg_x.cpu()
+    for op in A.OPS:
+        if not same_bits(A.grouped_reduce(agg_x, layout, op), A.grouped_reduce(agg_cpu, layout, op)):
+            raise AssertionError(f"K3 {op} differs from its twin on the CPU")
+    log(f"[query] K3 (grouped_reduce) == its twin on a CPU copy bit for bit: {', '.join(A.OPS)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A.grouped_reduce_reference(agg_x, layout, "sum")
+    torch.cuda.synchronize()
+    k3_plain = (time.perf_counter() - t0) * 1e3
+    gids = torch.from_numpy(layout.group_ids.astype(np.int64)).to(dev)
+    filled = agg_x.nan_to_num(0.0)
+    index_add = lambda: torch.zeros((layout.num_groups, filled.shape[1]), device=dev).index_add_(
+        0, gids, filled)
+    k3_lib = statistics.median(cuda_ms(index_add, 20))
+    a_rows, a_cols = agg_x.shape
+    k3_bytes = (a_rows * a_cols + layout.num_groups * a_cols + layout.pad_index.size) * 4
+    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3_ops_ms = 2 * a_rows * a_cols / F32_FLOP_PER_S * 1e3  # the sum's and the count's adds
+    k3_bound = max(k3_bytes_ms, k3_ops_ms)
+    # the one-group shape of a plain sum(...) over every series of the block:
+    # each of the [cols] threads folds all [rows] members in order
+    layout1 = A.group_by_tags(metas)
+    if not same_bits(A.grouped_sum(agg_x, layout1), A.grouped_sum(agg_cpu, layout1)):
+        raise AssertionError("K3 sum into one group differs from its twin on the CPU")
+    k3_one = statistics.median(cuda_ms(lambda: A.grouped_sum(agg_x, layout1), 20))
+    gids1 = torch.zeros(a_rows, dtype=torch.int64, device=dev)
+    k3_one_lib = statistics.median(cuda_ms(
+        lambda: torch.zeros((1, a_cols), device=dev).index_add_(0, gids1, filled), 20))
+    k3_one_bound = (a_rows * a_cols + a_cols + a_rows) * 4 / HBM_BYTES_PER_S * 1e3
+    del agg_cpu, filled, gids1
 
     e2e = {}
     for fn, q in queries.items():
@@ -913,8 +1037,14 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     log(f"[query] B2 library yardstick: F.avg_pool1d over the zero-filled, left-padded matrix "
         f"{lib_ms:.3f} ms (back-to-back {lib_b2b:.3f} ms); it computes only the NaN-free avg_over_time (no NaN gate, no "
         f"valid count); none exists for rate (null)")
-    log(f"[query] aggregation: group_by_tags (host) {group_s * 1e3:.1f} ms, grouped_sum "
-        f"[{rows}, {cols - window + 1}] -> [{QUERY_JOBS}, ...] {agg_ms:.3f} ms")
+    log(f"[query] aggregation: group_by_tags (host) {group_s * 1e3:.1f} ms, grouped_sum (K3) "
+        f"[{rows}, {cols - window + 1}] -> [{QUERY_JOBS}, ...] {agg_ms:.3f} ms (median of 20; "
+        f"back-to-back {agg_b2b:.3f} ms); bound {k3_bound:.3f} ms ({k3_bytes / 1e9:.4f} GB at "
+        f"3.35 TB/s = {k3_bound / agg_ms:.1%} of roofline; f32 ops {k3_ops_ms:.4f} ms); twin "
+        f"{k3_plain:.1f} ms; index_add_ (the same sum, atomics) {k3_lib:.3f} ms")
+    log(f"[query] aggregation into one group (a plain sum over all {a_rows} series): grouped_sum "
+        f"(K3) [{a_rows}, {a_cols}] -> [1, {a_cols}] {k3_one:.3f} ms (median of 20, == twin bit for "
+        f"bit); bound {k3_one_bound:.3f} ms; index_add_ (the same sum, atomics) {k3_one_lib:.3f} ms")
     for fn, q in queries.items():
         log(f"[query] end to end {q}: {e2e[fn] * 1e3:.3f} ms (median of 10, host clock, "
             f"ending in a host copy)")
@@ -948,11 +1078,226 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
         "bound_ms": b2_bound,
         "bound_by": "bytes" if b2_bytes_ms >= b2_ops_ms else "operations",
         "library_ms": lib_ms,
+    }, {
+        "name": "grouped_reduce",
+        "route": "cuda",
+        "source": "m3_tpu_torch/query/functions/csrc/grouped_reduce.cu",
+        "replaces": "m3_tpu/query/functions/aggregation.py:95",
+        "launches": launches["grouped_reduce"],
+        "max_abs_err": 0,
+        "ms": agg_ms,
+        "plain_ms": k3_plain,
+        "bound_ms": k3_bound,
+        "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+        "library_ms": k3_lib,
+    }]
+
+
+def tsbs_host_tags(n_hosts: int, seed: int) -> list:
+    """Each host's 10 TSBS devops tags, (name, value) bytes pairs sorted by
+    name, drawn with numpy from ``seed`` over TSBS's value sets."""
+    rng = np.random.default_rng(seed)
+    regions = list(TSBS_REGIONS)
+    reg = rng.integers(len(regions), size=n_hosts)
+    dc_pick = rng.integers(1 << 30, size=n_hosts)
+    picks = {k: rng.integers(len(v), size=n_hosts) for k, v in TSBS_CHOICES.items()}
+    out = []
+    for h in range(n_hosts):
+        region = regions[reg[h]]
+        dcs = TSBS_REGIONS[region]
+        tags = {"hostname": f"host_{h}", "region": region, "datacenter": dcs[dc_pick[h] % len(dcs)]}
+        tags.update({k: TSBS_CHOICES[k][picks[k][h]] for k in TSBS_CHOICES})
+        out.append(tuple(sorted((k.encode(), v.encode()) for k, v in tags.items())))
+    return out
+
+
+def phase_index(dev, kernels: list, seed: int) -> None:
+    """The inverted index at the TSBS devops cpu scale on the card."""
+    import torch
+
+    from m3_tpu_torch.index.device import DeviceIndexStore
+    from m3_tpu_torch.index.device import batch as index_batch
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.index.device.segment import collect_leaves
+    from m3_tpu_torch.index.ns_index import NamespaceIndex
+    from m3_tpu_torch.query.m3_storage import matchers_to_index_query
+    from m3_tpu_torch.query.promql import Matcher
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hosts = tsbs_host_tags(INDEX_HOSTS, seed)
+    store = DeviceIndexStore(device=dev)
+    ix = NamespaceIndex(HOUR, device_store=store)
+    for block, n_hosts in ((0, INDEX_HOSTS), (1, INDEX_SECOND_BLOCK_HOSTS)):
+        ix.write_batch([(b"cpu_%s,host_%d" % (f.encode(), h),
+                         ((b"__name__", b"cpu_" + f.encode()),) + hosts[h], T0 + block * HOUR)
+                        for f in CPU_FIELDS for h in range(n_hosts)])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix.seal_before(T0 + 2 * HOUR)
+    torch.cuda.synchronize()
+    seal_s = time.perf_counter() - t0
+    segs = [s for b in sorted(ix.blocks) for s in ix.blocks[b].segments]
+    states = [s.status() for s in segs]
+    if states != ["resident", "resident"]:
+        raise AssertionError(f"index segments not resident: {states}")
+    arrays = [s._arrays for s in segs]
+    log(f"[index] TSBS devops cpu: {INDEX_HOSTS} hosts x {len(CPU_FIELDS)} fields = "
+        f"{len(segs[0])} series + a second block of {len(segs[1])} (the first "
+        f"{INDEX_SECOND_BLOCK_HOSTS} hosts), seed {seed}: host build {build_s:.2f} s, seal + "
+        f"admission {seal_s:.2f} s; terms {[a.n_terms for a in arrays]}, key words "
+        f"{[a.k_words for a in arrays]}, postings {[int(a.post_data.numel()) for a in arrays]}, "
+        f"bitmap words {[a.n_words for a in arrays]}; device bytes {store.device_bytes()}")
+
+    hosts8 = "|".join(f"host_{h}" for h in (3, 17, 42, 99, 1234, 20000, 54321, 99999))
+    queries = {
+        "single-groupby-1-1-1": [Matcher("__name__", "=", "cpu_usage_user"),
+                                 Matcher("hostname", "=", "host_42")],
+        "single-groupby-1-8-1": [Matcher("__name__", "=", "cpu_usage_user"),
+                                 Matcher("hostname", "=~", hosts8)],
+        "cpu-max-all": [Matcher("__name__", "=~", "cpu_.*")],
+        "prefix-and-negation": [Matcher("region", "=~", "us-.*"), Matcher("service", "!=", "7")],
+        "general-regexp": [Matcher("datacenter", "=~", ".*a")],
+        "negated-prefix": [Matcher("hostname", "!~", "host_1.*")],
+    }
+    asts = {name: matchers_to_index_query(m) for name, m in queries.items()}
+    span = (T0 - HOUR, T0 + 3 * HOUR)
+
+    # the main path, counted: the six queries once, counts set to 0 just
+    # before and read just after
+    for k in IK.LAUNCHES:
+        IK.LAUNCHES[k] = 0
+    results = {name: ix.query(q, *span) for name, q in asts.items()}
+    torch.cuda.synchronize()
+    launches = dict(IK.LAUNCHES)
+    log(f"[index] launches on the index path (6 queries over 2 resident segments): {launches}")
+    if launches["match_terms"] < 1 or launches["bitmap_from_terms"] + launches[
+            "bitmap_from_term_range"] < 1:
+        raise AssertionError("the index path did not launch K1 and K2")
+    for name, q in asts.items():
+        got = results[name].docs.ids()
+        if got != ix.query(q, *span, force_host=True).docs.ids():
+            raise AssertionError(f"[index] {name}: device doc ids differ from the host executor")
+        log(f"[index] {name}: {len(got)} series, == host executor")
+    st = store.stats()
+    if st["search_misses"] or st["errors"] or [s.status() for s in segs] != states:
+        raise AssertionError(f"[index] the store routed to the host or failed: {st}")
+    log(f"[index] store: {st}")
+
+    # K1 at the batched shape of query 2: both segments' keys, 9 leaves x 2
+    keys, lens, bases, k_max = index_batch._combined(arrays)
+    vals, lo, hi = [], [], []
+    for si, a in enumerate(arrays):
+        for field, value in collect_leaves(asts["single-groupby-1-8-1"])[0]:
+            start, count = a.fields.get(field, (0, 0, 0, 0))[:2]
+            vals.append(value)
+            lo.append(int(bases[si]) + start)
+            hi.append(int(bases[si]) + start + count)
+    qk, ql = IK.build_query_keys(vals, k_max)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+
+    k1_args = (keys, lens, up(np.asarray(lo, np.int32)), up(np.asarray(hi, np.int32)), up(qk),
+               up(ql))
+    k1_out = IK.match_terms(*k1_args)
+    k1_ms = statistics.median(cuda_ms(lambda: IK.match_terms(*k1_args), 20))
+    k1_b2b = per_launch_ms(lambda: IK.match_terms(*k1_args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k1_twin = IK.match_terms_reference(*k1_args)
+    torch.cuda.synchronize()
+    k1_plain = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(k1_out, k1_twin):
+        raise AssertionError("K1 differs from its twin")
+    rows, n_keys = len(vals), int(keys.shape[0])
+    # bytes: each row's key, length, bounds and result once, and the
+    # log2(n) probed keys (k words + a length) of its search
+    k1_bytes = rows * (k_max + 4) * 4 + rows * max(n_keys.bit_length(), 1) * (k_max + 1) * 4
+    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+
+    # K2 at the path's largest leaf (cpu_.*: every posting of __name__ in
+    # block 0), and its term-list form on query 1's __name__ term
+    a0 = arrays[0]
+    name_start, _, ds, de = a0.fields[b"__name__"]
+    k2r = lambda: IK.bitmap_from_term_range(a0.post_data, ds, de, a0.n_words)
+    k2r_out = k2r()
+    k2r_ms = statistics.median(cuda_ms(k2r, 20))
+    k2r_b2b = per_launch_ms(k2r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k2r_twin = IK.bitmap_from_term_range_reference(a0.post_data, ds, de, a0.n_words)
+    torch.cuda.synchronize()
+    k2_plain = (time.perf_counter() - t0) * 1e3
+    gi = name_start + segs[0].terms(b"__name__").index(b"cpu_usage_user")
+    cnt = int(a0.host_post_idx[gi, 1] - a0.host_post_idx[gi, 0])
+    gis = torch.tensor([gi], dtype=torch.int32, device=dev)
+    k2t = lambda: IK.bitmap_from_terms(a0.post_idx, a0.post_data, gis, a0.n_words, cnt)
+    k2t_out = k2t()
+    k2t_ms = statistics.median(cuda_ms(k2t, 20))
+    k2t_twin = IK.bitmap_from_terms_reference(a0.post_idx, a0.post_data, gis, a0.n_words)
+    if not (torch.equal(k2r_out, k2r_twin) and torch.equal(k2t_out, k2t_twin)):
+        raise AssertionError("K2 differs from its twin")
+    k2_bytes = (de - ds) * 4 + a0.n_words * 4
+    k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
+    k2t_bound = (cnt * 4 + a0.n_words * 4 + 12) / HBM_BYTES_PER_S * 1e3
+    log(f"[index] K1 (match_terms) {rows} rows over {n_keys} keys x {k_max} words: "
+        f"{k1_ms:.4f} ms (median of 20, CUDA events; back-to-back {k1_b2b:.4f} ms); bound "
+        f"{k1_bound:.6f} ms ({k1_bytes} bytes at 3.35 TB/s: the launch's latency is the cost); "
+        f"twin {k1_plain:.2f} ms")
+    log(f"[index] K2 (bitmap_from_term_range) {de - ds} postings -> {a0.n_words} words: "
+        f"{k2r_ms:.4f} ms (back-to-back {k2r_b2b:.4f} ms); bound {k2_bound:.6f} ms "
+        f"({k2_bytes / 1e6:.3f} MB at 3.35 TB/s = {k2_bound / k2r_ms:.1%} of roofline); twin "
+        f"{k2_plain:.2f} ms")
+    log(f"[index] K2 (bitmap_from_terms) one term of {cnt} postings: {k2t_ms:.4f} ms; bound "
+        f"{k2t_bound:.6f} ms")
+    log("[index] library_ms: no single PyTorch call computes a multi-word lower-bound search "
+        "(torch.searchsorted takes one scalar key a row) or a packed doc bitmap; null")
+
+    for name, q in asts.items():
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            len(ix.query(q, *span).docs)
+            times.append(time.perf_counter() - t0)
+        log(f"[index] end to end {name}: {statistics.median(times) * 1e3:.3f} ms (median of 10, "
+            f"host clock, NamespaceIndex.query over both blocks to the matched docs)")
+    log(f"[index] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    kernels += [{
+        "name": "index_match_terms",
+        "route": "cuda",
+        "source": "m3_tpu_torch/index/device/csrc/index_kernels.cu",
+        "replaces": "m3_tpu/index/device/kernels.py:133",
+        "launches": launches["match_terms"],
+        "max_abs_err": 0,
+        "ms": k1_ms,
+        "plain_ms": k1_plain,
+        "bound_ms": k1_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "index_bitmap",
+        "route": "cuda",
+        "source": "m3_tpu_torch/index/device/csrc/index_kernels.cu",
+        "replaces": "m3_tpu/index/device/kernels.py:269",
+        "launches": launches["bitmap_from_terms"] + launches["bitmap_from_term_range"],
+        "max_abs_err": 0,
+        "ms": k2r_ms,
+        "plain_ms": k2_plain,
+        "bound_ms": k2_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }]
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=SEED, help="seed of the [index] phase's tags")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -980,6 +1325,7 @@ def main() -> int:
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
     phase_query(dev, kernels, temporal_err)
+    phase_index(dev, kernels, args.seed)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -69,6 +69,26 @@ SOURCES = {
             "m3_temporal_fused_scratch_bytes": [_I64, _I, _I, _P, _I],
         },
     ),
+    "index_kernels": (
+        PKG / "index" / "device" / "csrc" / "index_kernels.cu",
+        _COMMON,
+        {
+            # keys, lens, n_terms, k_words, lo, hi, q_keys, q_lens, rows, out, stream
+            "m3_index_match_terms": [_P, _P, _I64, _I, _P, _P, _P, _P, _I64, _P, _P],
+            # post_idx, post_data, n_terms, gis, n_gis, chunks, words, n_words, stream
+            "m3_index_bitmap_terms": [_P, _P, _I64, _P, _I64, _I, _P, _I64, _P],
+            # post_data, start, end, words, n_words, stream
+            "m3_index_bitmap_range": [_P, _I64, _I64, _P, _I64, _P],
+        },
+    ),
+    "grouped_reduce": (
+        PKG / "query" / "functions" / "csrc" / "grouped_reduce.cu",
+        _COMMON,
+        {
+            # values, cols, pad_index, groups, m, op, out, stream
+            "m3_grouped_reduce": [_P, _I64, _P, _I64, _I64, _I, _P, _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()

@@ -46,15 +46,12 @@ from .. import resolve_device
 from ..cache.block_cache import BlockKey
 from ..ops.sideplane import SIDE_WORDS as N_SIDE_PLANES
 from ..ops.sideplane import pack_side_rows
+from ..utils.config import ConfigError
 from ..utils.instrument import DEFAULT as METRICS
 from .heat import ShardHeat
 
 # records per chunk of a fileset's side table (m3_tpu/storage/fs.py:36)
 CHUNK_K = 32
-
-
-class ConfigError(ValueError):
-    """Invalid options (m3_tpu/utils/config.py:23)."""
 
 
 class ResidentPoolError(ValueError):

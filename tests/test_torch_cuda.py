@@ -302,3 +302,221 @@ def test_cuda_kernels_take_offset_views():
     want_b3 = fused.lane_aggregates_fields_reference(**args, k=16)
     for rows in _offset_views(args["windows"]):
         _assert_identical(fused.lane_aggregates_fields(**dict(args, windows=rows), k=16), want_b3)
+
+
+# ---------------------------------------------------------------------------
+# The index kernels K1 (term lookup) and K2 (postings bitmaps), the index's
+# device tier on the card, and the grouped reductions K3
+# ---------------------------------------------------------------------------
+
+
+def _key_matrix(n_terms, seed):
+    """Sorted distinct terms of 0-10 bytes (NUL extensions among them) in
+    four fields, their keys, and query rows over them (present, absent,
+    over-width, empty and one-term ranges)."""
+    import numpy as np
+
+    from m3_tpu_torch.index.device import kernels as K
+
+    rng = np.random.default_rng(seed)
+    raw = {bytes(rng.integers(0, 5, rng.integers(0, 11)).astype(np.uint8) + 96)
+           for _ in range(n_terms)}
+    raw |= {b"ab", b"ab\x00", b"ab\x00\x00", b""}
+    terms = sorted(raw)
+    cuts = [0, len(terms) // 5, len(terms) // 2, len(terms) - 1, len(terms)]
+    fields = [(a, b - a) for a, b in zip(cuts[:-1], cuts[1:])]
+    k = K.key_width_words(max(len(t) for t in terms))
+    keys, lens = K.build_term_keys(terms, k)
+    values, lo, hi = [], [], []
+    for i in range(4 * len(terms) // 3):
+        start, count = fields[i % 4]
+        r = rng.random()
+        values.append(terms[start + int(rng.integers(count))] if r < 0.6 and count else
+                      b"a" * (4 * k + 1) if r < 0.7 else
+                      bytes(rng.integers(96, 101, rng.integers(0, 9)).astype(np.uint8)))
+        a, b = (start, start + count) if rng.random() > 0.1 else (start, start + min(count, 1))
+        lo.append(a)
+        hi.append(b if rng.random() > 0.05 else a)
+    qk, ql = K.build_query_keys(values, k)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+    return t(keys), t(lens), t(np.asarray(lo, np.int32)), t(np.asarray(hi, np.int32)), t(qk), t(ql)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_terms,seed", [(1, 0), (37, 1), (5000, 2), (120000, 3)])
+def test_cuda_index_match_terms_matches_twin(n_terms, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import kernels as K
+
+    args = _key_matrix(n_terms, seed)
+    before = K.LAUNCHES["match_terms"]
+    got = K.match_terms(*(a.cuda() for a in args))
+    assert K.LAUNCHES["match_terms"] == before + 1
+    torch.cuda.synchronize()
+    want = K.match_terms_reference(*args)
+    assert torch.equal(got.cpu(), want)
+    assert bool((want >= 0).any())
+
+
+def _postings(n_terms, n_docs, seed, long_term=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lists = [np.sort(rng.choice(n_docs, int(rng.integers(0, min(n_docs, 300)) * (rng.random() > 0.1)),
+                                replace=False)) for _ in range(n_terms)]
+    if long_term:
+        lists[n_terms // 2] = np.sort(rng.choice(n_docs, min(long_term, n_docs), replace=False))
+    offs = np.cumsum([0] + [len(p) for p in lists])
+    post_idx = np.stack([offs[:-1], offs[1:]], axis=1).astype(np.int32)
+    data = np.concatenate(lists).astype(np.int32)
+    return torch.from_numpy(post_idx), torch.from_numpy(data), offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs", [1, 33, 4096, 1_000_003])
+def test_cuda_index_bitmaps_match_twin(n_docs):
+    """K2's term-list and range forms == their twins word for word; the
+    longest term (600,000 postings at 1M docs) takes several blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from m3_tpu_torch.index.device import kernels as K
+
+    n_terms = 64
+    post_idx, data, offs = _postings(n_terms, n_docs, n_docs % 97, long_term=600_000)
+    n_words = -(-n_docs // 32)
+    counts = np.diff(offs)
+    rng = np.random.default_rng(5)
+    pi, pd = post_idx.cuda(), data.cuda()
+    for trial in range(8):
+        gis = rng.integers(-1, n_terms, rng.integers(0, 20)).astype(np.int32)
+        if trial == 0:
+            gis = np.asarray([n_terms // 2, -1, n_terms // 2, 3], np.int32)
+        longest = int(counts[gis[gis >= 0]].max()) if (gis >= 0).any() else 0
+        before = K.LAUNCHES["bitmap_from_terms"]
+        got = K.bitmap_from_terms(pi, pd, torch.from_numpy(gis).cuda(), n_words, longest)
+        assert K.LAUNCHES["bitmap_from_terms"] == before + 1
+        want = K.bitmap_from_terms_reference(post_idx, data, torch.from_numpy(gis), n_words)
+        assert torch.equal(got.cpu(), want)
+        lo, hi = sorted(rng.integers(0, n_terms + 1, 2).tolist())
+        start, end = (int(offs[lo]), int(offs[hi])) if hi > lo else (0, 0)
+        got = K.bitmap_from_term_range(pd, start, end, n_words)
+        want = K.bitmap_from_term_range_reference(data, start, end, n_words)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_index_k2_launch_error_raises(monkeypatch):
+    """A launch the card refuses (a grid.y past its limit) raises out of
+    the wrapper and out of a query through the device segment, counted as
+    an error; nothing answers from the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import DeviceIndexStore, IndexDeviceOptions
+    from m3_tpu_torch.index.device import kernels as K
+    from m3_tpu_torch.index.ns_index import NamespaceIndex
+    from m3_tpu_torch.index.query import term
+
+    post_idx, data, _ = _postings(8, 1000, 1)
+    monkeypatch.setattr(K, "k2_chunks", lambda n: 70000)
+    gis = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K.bitmap_from_terms(post_idx.cuda(), data.cuda(), gis, 32, 10)
+    store = DeviceIndexStore(IndexDeviceOptions(max_bytes=1 << 24), device="cuda")
+    ix = NamespaceIndex(3600 * 10**9, device_store=store)
+    ix.write_batch([(b"s%d" % i, ((b"dc", b"dc%d" % (i % 3)),), T0) for i in range(100)])
+    ix.seal_before(T0 + 7200 * 10**9)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ix.query(term(b"dc", b"dc1"), T0 - 1, T0 + 1)
+    assert store.stats()["errors"] == 1 and store.stats()["search_hits"] == 0
+    torch.cuda.synchronize()  # the refused launch left no fault behind
+
+
+@pytest.mark.cuda
+def test_cuda_index_device_segments_match_host():
+    """Two resident index blocks on the card: every query == the host
+    executor, through K1 (one batched launch over both segments) and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from m3_tpu_torch.index.device import DeviceIndexStore, IndexDeviceOptions
+    from m3_tpu_torch.index.device import kernels as K
+    from m3_tpu_torch.index.ns_index import NamespaceIndex
+    from m3_tpu_torch.index.query import FieldQuery, conj, disj, neg, regexp, term
+
+    hour = 3600 * 10**9
+    rng = np.random.default_rng(7)
+    store = DeviceIndexStore(IndexDeviceOptions(max_bytes=1 << 26), device="cuda")
+    ix = NamespaceIndex(hour, device_store=store)
+    for blk, n in ((0, 20000), (1, 3000)):
+        ix.write_batch([(b"s%d" % i, ((b"name", b"m_%d" % (i % 50)), (b"host", b"h%d" % i),
+                                      (b"dc", b"dc%d" % rng.integers(5))), T0 + blk * hour)
+                        for i in range(n)])
+    ix.seal_before(T0 + 3 * hour)
+    assert store.stats()["admissions"] == 2
+    queries = [term(b"name", b"m_7"), regexp(b"host", b"h1.*"), regexp(b"name", b"m_1|m_22"),
+               regexp(b"dc", b".*[13]"), conj(regexp(b"name", b"m_.*"), neg(term(b"dc", b"dc2"))),
+               disj(term(b"host", b"h5"), FieldQuery(b"dc")), neg(regexp(b"host", b"h2.*")),
+               term(b"nope", b"x")]
+    before = dict(K.LAUNCHES)
+    for q in queries:
+        dev = ix.query(q, T0 - hour, T0 + 3 * hour).docs.ids()
+        host = ix.query(q, T0 - hour, T0 + 3 * hour, force_host=True).docs.ids()
+        assert dev == host, q
+    st = store.stats()
+    assert st["search_misses"] == 0 and st["errors"] == 0
+    assert st["search_hits"] == 2 * len(queries)
+    assert all(K.LAUNCHES[k] > before[k] for k in K.LAUNCHES)
+
+
+def _grouped_input(s, t, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0, 50, (s, t)).astype(np.float32)
+    roll = rng.random(v.shape)
+    v[roll < 0.1] = 0.0
+    v[(roll >= 0.1) & (roll < 0.2)] = -0.0
+    v[(roll >= 0.2) & (roll < 0.3)] = np.nan
+    v[:, 0] = np.nan
+    v[:, 1] = np.where(rng.random(s) < 0.5, 0.0, -0.0)
+    return v
+
+
+def _bits_identical(a, b):
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a).view(torch.int32),
+                            torch.where(b.isnan(), 0.0, b).view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 10, 1000])
+def test_cuda_grouped_reduce_matches_twin_and_repeats(groups):
+    """K3 == its twin on the CPU bit for bit for all seven ops (+0, -0 and
+    NaN in every group; one group of 5,000 members spans several staged
+    member lists), and two runs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.block.core import SeriesMeta
+    from m3_tpu_torch.query.functions import aggregation as A
+
+    s, t = 5000, 300
+    v = _grouped_input(s, t, groups)
+    metas = [SeriesMeta(tags=((b"g", b"%d" % (i % groups)), (b"i", b"%d" % i))) for i in range(s)]
+    layout = A.group_by_tags(metas, [b"g"])
+    x = torch.from_numpy(v)
+    xc = x.cuda()
+    for op in A.OPS:
+        before = A.LAUNCHES
+        got = A.grouped_reduce(xc, layout, op)
+        again = A.grouped_reduce(xc, layout, op)
+        assert A.LAUNCHES == before + 2
+        torch.cuda.synchronize()
+        assert _bits_identical(got, again), op
+        assert _bits_identical(got.cpu(), A.grouped_reduce(x, layout, op)), op

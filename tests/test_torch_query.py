@@ -4,13 +4,19 @@
   err-row host stitch) equals ``m3_tpu.query.engine.consolidate`` of the
   host-decoded samples bit for bit in float64, on jittered, gapped
   timestamps with lookbacks shorter than a gap.
-- Tag matching follows ``m3_tpu.services.comparator`` ``_match``.
+- Tag matching follows the JAX storage path: ``m3_tpu``'s
+  ``search_segment`` of ``matchers_to_index_query`` over a segment of the
+  same tags (a missing tag matches no term).
 - The grouped aggregations equal ``m3_tpu.query.functions.aggregation``.
 - The whole slice: the port's ``Engine(BlockStorage(..., device="cpu"))``
   equals the JAX ``Engine`` over a storage that decodes the same streams
   with ``m3_tpu.codec``, within 1e-4 abs + 1e-4 rel, with identical NaN
   patterns and metas.
 """
+
+import ctypes
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -20,12 +26,17 @@ from m3_tpu.block.core import Bounds as JBounds
 from m3_tpu.block.core import SeriesMeta as JSeriesMeta
 from m3_tpu.codec.m3tsz import Encoder
 from m3_tpu.codec.m3tsz import decode as jdecode
+from m3_tpu.index.query import search_segment as jsearch_segment
+from m3_tpu.index.segment import Document as JDocument
+from m3_tpu.index.segment import MutableSegment as JMutableSegment
 from m3_tpu.query import engine as jengine
 from m3_tpu.query.functions import aggregation as jagg
+from m3_tpu.query.m3_storage import matchers_to_index_query as jmatchers_to_index_query
 from m3_tpu.query.promql import Matcher as JMatcher
 from m3_tpu.services.comparator import SyntheticStorage
 from m3_tpu.utils import synthetic as jsyn
 from m3_tpu_torch.block.core import SeriesMeta, make_tags
+from m3_tpu_torch.ops import _build
 from m3_tpu_torch.query import engine as tengine
 from m3_tpu_torch.query.functions import aggregation as tagg
 from m3_tpu_torch.query.m3_storage import BlockStorage
@@ -123,11 +134,21 @@ def test_fetch_grid_matches_host_consolidate(kind, lookback_s):
     [("__name__", "=~", "m3_.+"), ("job", "=~", "job-(0|3)")],
 ])
 def test_match_follows_comparator(matchers):
+    """The oracle is m3_tpu's index search over the same tags, as the JAX
+    storage path resolves matchers (the comparator reads a missing tag as
+    "", so {missing=""} and {missing!=""} answer differently there)."""
     storage = _storage("gapped")
     got = storage.match([Matcher(*m) for m in matchers]).tolist()
-    want = [i for i, t in enumerate(_tags())
-            if SyntheticStorage._match(t, [JMatcher(*m) for m in matchers])]
+    seg = JMutableSegment()
+    for i, t in enumerate(_tags()):
+        seg.insert(JDocument(b"s%d" % i, t))
+    q = jmatchers_to_index_query([JMatcher(*m) for m in matchers])
+    want = jsearch_segment(seg.seal(), q).tolist()
     assert got == want
+    if matchers == [("missing", "=", "")]:
+        assert got == []
+    if matchers == [("missing", "!=", "")]:
+        assert got == list(range(N_SERIES))
 
 
 def _agg_values():
@@ -156,6 +177,83 @@ def test_grouped_ops_match_jax(op, grouping):
     assert np.array_equal(np.isnan(got), np.isnan(want))
     m = ~np.isnan(want)
     np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-5)
+
+
+def _signed_zero_values():
+    """Values whose groups hold +0, -0 and NaN together: whole columns of
+    signed zeros in mixed orders, columns of one sign, an all-NaN column,
+    and random values with zeros and NaN sprinkled in."""
+    rng = np.random.default_rng(9)
+    v = rng.normal(0, 3, (N_SERIES, 48)).astype(np.float32)
+    roll = rng.random(v.shape)
+    v[roll < 0.15] = 0.0
+    v[(roll >= 0.15) & (roll < 0.3)] = -0.0
+    v[(roll >= 0.3) & (roll < 0.45)] = np.nan
+    v[:, :6] = np.where(rng.random((N_SERIES, 6)) < 0.5, 0.0, -0.0)
+    v[:, 6] = -0.0
+    v[:, 7] = 0.0
+    v[:, 8] = np.nan
+    v[::3, 9] = np.nan
+    v[1::3, 9] = -0.0
+    v[2::3, 9] = 0.0
+    return v
+
+
+def _bits_equal(got, want):
+    return (np.array_equal(np.isnan(got), np.isnan(want))
+            and np.array_equal(np.where(np.isnan(got), 0, got).view(np.int32),
+                               np.where(np.isnan(want), 0, want).view(np.int32)))
+
+
+@pytest.mark.parametrize("op", ["sum", "count", "avg", "min", "max", "stdvar", "stddev"])
+@pytest.mark.parametrize("grouping", [("by", ["job"]), ("by", [])])
+def test_grouped_ops_bit_identical_with_signed_zeros(op, grouping):
+    """The twin (K3's CPU path) equals m3_tpu bit for bit, signed zeros
+    included: min/max order -0 below +0 as XLA does, and stddev is the
+    correctly rounded root."""
+    v = _signed_zero_values()
+    tags = _tags()
+    matching = [x.encode() for x in grouping[1]] or None
+    jl = jagg.group_by_tags([JSeriesMeta(tags=t) for t in tags], matching)
+    tl = tagg.group_by_tags([SeriesMeta(tags=t) for t in tags], matching)
+    want = np.asarray(getattr(jagg, f"grouped_{op}")(v, jl))
+    got = getattr(tagg, f"grouped_{op}")(torch.from_numpy(v), tl).numpy()
+    assert _bits_equal(got, want)
+    if op in ("min", "max"):
+        zero = got[:, :8] == 0
+        assert zero.any() and np.signbit(got[:, :8][zero]).any()
+
+
+@pytest.fixture(scope="module")
+def host_k3(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
+    out = tmp_path_factory.mktemp("kernel") / "grouped_reduce_host.so"
+    subprocess.run(
+        [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(out), str(_build.SOURCES["grouped_reduce"][0])],
+        check=True, capture_output=True, text=True,
+    )
+    fn = ctypes.CDLL(str(out)).m3_grouped_reduce_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("op", tagg.OPS)
+@pytest.mark.parametrize("values", ["signed_zeros", "agg"])
+def test_k3_source_host_build_matches_twin(host_k3, op, values):
+    v = _signed_zero_values() if values == "signed_zeros" else _agg_values()
+    tags = _tags()
+    for matching, without in (([b"job"], False), ([b"host"], True), (None, False)):
+        tl = tagg.group_by_tags([SeriesMeta(tags=t) for t in tags], matching, without)
+        pad = np.ascontiguousarray(tl.pad_index, np.int32)
+        out = np.zeros((tl.num_groups, v.shape[1]), np.float32)
+        assert host_k3(v.ctypes.data, v.shape[1], pad.ctypes.data, pad.shape[0], pad.shape[1],
+                       tagg.OPS.index(op), out.ctypes.data) == 0
+        assert _bits_equal(out, tagg.grouped_reduce(torch.from_numpy(v), tl, op).numpy())
 
 
 class _HostStorage:
