@@ -79,6 +79,33 @@ Phases (any failure exits non-zero):
              segment resident, 0 misses, 0 errors; K1 and K2 launched. Then
              K1's and K2's times beside their bounds, their twins' times, and
              each query's host time end to end (median of 10).
+  database — one storage node in process at BASELINE config 3's scale: the
+             [query] block's 100,000 series x 720 points (the 64 unique
+             gauge streams of seed 3 from a block start, tiled; tags
+             __name__=m3_scan, job, host) written as the 8 shards' filesets
+             of one 2-hour block, then a Database (8 shards, commit log on,
+             residency on, the device index on) bootstrapped over them
+             (filesystem source, re-index, re-admission). 1,000 series x 360
+             points of live writes into the next block (write_tagged_batch):
+             a scan of those series over both blocks streams (buffered
+             overlay); the flush of that block admits at seal. Engine over M3Storage (the staged
+             path) runs sum by (job) (rate(m3_scan[1m])) and avg by (job)
+             (avg_over_time(m3_scan[1m])), each bit-identical to the same
+             query over BlockStorage on the same streams; scan_totals is
+             resident and bit-identical to chunked_scan_aggregate_packed over
+             the same streams, and warm repeats move 0 upload bytes. After
+             resident_clear a scan of the 1,000 live series streams with the
+             same bits, read-through re-admission brings every lane back, and
+             the next scans are resident. The streamed scans read that slice
+             only: each streamed series pays its prescan in Python, timed on
+             its own. Restart: close, a new Database over the directory,
+             bootstrap; every acknowledged live write reads back equal and
+             the sealed blocks are resident again. Kernel B-2 == its twin bit
+             for bit here and in [resident] (1M series), K3 on subnormal
+             inputs == its flushed twin. Prints the bootstrap seconds, each
+             query's end-to-end median, the scans' end-to-end times, B-2's
+             time beside its bound and its twin's, and the node's resident
+             and index stats.
 Prints the card as nvidia-smi reports it, a {"kernels": [...]} line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -127,6 +154,12 @@ SEED = 6
 FANOUT_QUERY = 'sum(rate(m3_scan{host=~"h1.*"}[1m]))'
 RESIDENT_SERIES, RESIDENT_CALLS, FETCH_KEYS = 1 << 20, 16, 100_000
 T0 = 1_600_000_000 * 10**9
+# [database]: BASELINE config 3's block through a storage node (8 shards,
+# the Database's default) plus live writes into the next block (a power of
+# ten of series). A staged query takes seconds end to end, so each is timed
+# over DB_QUERY_RUNS runs to keep the phase near 3 minutes
+DB_SERIES, DB_SHARDS, DB_LIVE_SERIES, DB_LIVE_POINTS, DB_QUERY_RUNS = 100_000, 8, 1_000, 360, 3
+BLOCK = 2 * 3600 * 10**9  # the Database's default block size
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
          ("specials", "c", 32)]
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -180,6 +213,18 @@ def check_no_unaligned_copies(path: str) -> None:
     log(f"[{path}] UNALIGNED_COPIES {fused.UNALIGNED_COPIES}")
     if fused.UNALIGNED_COPIES:
         raise AssertionError(f"{path}: a kernel input was copied to align it")
+
+
+def same_bits(a, b) -> bool:
+    """Two float tensors hold the same bits (NaN in the same places)."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    as_int = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0.0, a).view(as_int), torch.where(b.isnan(), 0.0, b).view(as_int))
 
 
 def compare_lanes(got, want) -> float:
@@ -442,7 +487,7 @@ def compare_scans(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
-def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> None:
+def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> dict:
     import torch
 
     from m3_tpu_torch.cache.block_cache import BlockKey
@@ -487,7 +532,7 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
 
     # the path, counted: B1 scan, R fetch and B3 scan from residency, with
     # the counts set to 0 just before and read just after
-    fused.LAUNCHES = chunked.LAUNCHES = fused.FIELDS_LAUNCHES = 0
+    fused.LAUNCHES = chunked.LAUNCHES = fused.FIELDS_LAUNCHES = scan.ASSEMBLY_LAUNCHES = 0
     out = resident_scan_totals(pool, keys, device_out=True)
     fetched, fetch_err = resident_fetch_arrays(pool, keys[:FETCH_KEYS])
     t0 = time.perf_counter()
@@ -500,7 +545,8 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
     total_count = int(out.total_count)
     torch.cuda.synchronize()
     launches = {"lane_aggregates": fused.LAUNCHES, "decode_records": chunked.LAUNCHES,
-                "lane_aggregates_fields": fused.FIELDS_LAUNCHES}
+                "lane_aggregates_fields": fused.FIELDS_LAUNCHES,
+                "resident_assembly": scan.ASSEMBLY_LAUNCHES}
     log(f"[resident] launches on the resident path (scan, fetch, fused scan): {launches}")
     for name, n in launches.items():
         if n < 1:
@@ -516,9 +562,10 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
     asm_ms = statistics.median(cuda_ms(lambda: scan.assemble_resident_packed(plan, s), 3))
     lanes_ms = statistics.median(cuda_ms(lambda: scan.assemble_resident_lanes(plan, s), 3))
     del packed
-    log(f"[resident] check 1: assemble_resident_packed == pack_lanes(order='c') on windows "
-        f"{tuple(ref.windows.shape)}, lanes and tile_flags "
+    log(f"[resident] check 1: assemble_resident_packed (kernel B-2) == pack_lanes(order='c') "
+        f"on windows {tuple(ref.windows.shape)}, lanes and tile_flags "
         f"{torch.bincount(ref.tile_flags, minlength=3).tolist()} exactly")
+    b2 = b2_check(plan, s, "resident")
 
     # check 2: the resident scan == [main]'s packed scan on the same lanes
     main_out = scan.chunked_scan_aggregate_packed(ref, s=s, c=c, k=K)
@@ -588,7 +635,8 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
     b3_bound = max(bytes_ms, ops_ms)
     peak = torch.cuda.max_memory_allocated()
     log(f"[resident] host plan_chunked over {s} keys {plan_s * 1e3:.1f} ms; device assembly "
-        f"(CUDA events, median of 3): packed 'c' {asm_ms:.3f} ms, per-field {lanes_ms:.3f} ms")
+        f"with the plan's uploads (B-2, CUDA events, median of 3): packed 'c' {asm_ms:.3f} ms, "
+        f"per-field {lanes_ms:.3f} ms")
     log(f"[resident] B3 (lane_aggregates_fields) [{n} lanes x {cw} words] warm median "
         f"{b3_ms:.3f} ms (20 launches, CUDA events; back-to-back {b3_b2b:.3f} ms); bound "
         f"{b3_bound:.3f} ms ({b3_bytes / 1e9:.4f} GB at 3.35 TB/s = {b3_bound / b3_ms:.1%} of "
@@ -613,6 +661,7 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> No
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     })
+    return b2
 
 
 def compare_records(got, want, what: str) -> None:
@@ -699,6 +748,58 @@ def per_launch_ms(fn, launches: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / launches
+
+
+def b2_check(plan, s_pad: int, tag: str) -> dict:
+    """Kernel B-2 (the resident lane assembly) against its plain torch twin
+    on the card, bit for bit, in all three outputs it gives (B1's packed
+    chunk-major lanes, R's series-major lanes, B3's per-field lanes). Then
+    its time on B1's layout (CUDA events, median of 20, and back to back)
+    with the plan's vectors already on the card, the twin's time, and the
+    bytes bound: the pool's stream words, each valid lane's side row and
+    the plan's vectors read once, the windows, planes and tile flags
+    written once."""
+    import torch
+
+    from m3_tpu_torch.parallel import scan
+
+    vecs = scan.plan_vectors(plan, s_pad)
+    for order in ("c", "s"):
+        got, _ = scan.assemble_resident_packed(plan, s_pad, order=order)
+        want, _ = scan.assemble_resident_packed_reference(plan, s_pad, order=order)
+        for f in ("windows", "lanes", "tile_flags"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"[{tag}] B-2 order {order!r}: {f} differs from its twin")
+        del got, want
+    got, _ = scan.assemble_resident_lanes(plan, s_pad)
+    want, _ = scan.assemble_resident_lanes_reference(plan, s_pad)
+    for f, x in want.items():
+        for a, b in zip(got[f] if isinstance(x, tuple) else (got[f],),
+                        x if isinstance(x, tuple) else (x,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{tag}] B-2 per-field lanes: {f} differs from its twin")
+    del got, want
+    tile = 32 * 128
+    run = lambda: scan._launch_assembly(plan, s_pad, "c", False, tile, vecs)
+    ms = statistics.median(cuda_ms(run, 20))
+    b2b = per_launch_ms(run)
+    windows, planes, flags, n = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan.assemble_resident_packed_reference(plan, s_pad, order="c")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    valid_lanes = int(plan.n_chunks.astype(np.int64).sum())
+    bytes_in = (int(((plan.total_bits.astype(np.int64) + 31) // 32).sum()) * 4
+                + valid_lanes * 40 + sum(v.numel() * 4 for v in vecs))
+    bytes_out = (windows.numel() + planes.numel() + flags.numel()) * 4
+    bound = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] B-2 (resident_assembly) == its twin bit for bit on B1's, R's and B3's "
+        f"layouts; [{n} lanes, cw {plan.window_words}] {ms:.3f} ms (median of 20, CUDA "
+        f"events; back-to-back {b2b:.3f} ms), bound {bound:.3f} ms ({(bytes_in + bytes_out) / 1e9:.4f} "
+        f"GB: {bytes_in / 1e9:.4f} in, {bytes_out / 1e9:.4f} out, at 3.35 TB/s = "
+        f"{bound / ms:.1%} of roofline); twin {plain_ms:.1f} ms")
+    return {"ms": ms, "b2b": b2b, "plain_ms": plain_ms, "bound_ms": bound, "lanes": n}
 
 
 def phase_temporal_sizes(dev) -> float:
@@ -819,14 +920,6 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     log(f"[query] BlockStorage's index store: {st}")
 
     # each query run again gives the same bits
-    def same_bits(a, b):
-        a, b = a.cpu(), b.cpu()
-        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
-            torch.where(a.isnan(), 0.0, a).view(torch.int64 if a.dtype == torch.float64
-                                                else torch.int32),
-            torch.where(b.isnan(), 0.0, b).view(torch.int64 if b.dtype == torch.float64
-                                                else torch.int32))
-
     for q, first in [(q, results[fn]) for fn, q in queries.items()] + [(FANOUT_QUERY, fanout)]:
         if not same_bits(eng.query_range(q, start, end, STEP).values, first.values):
             raise AssertionError(f"{q}: a second run differs from the first")
@@ -1290,6 +1383,343 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     }]
 
 
+def subnormal_values(n_series: int, steps: int, seed: int) -> np.ndarray:
+    """f32 values whose inputs, sums, means and squared deviations are
+    subnormal, with +-0 and NaN mixed in (K3's flush check)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((n_series, steps)) * 1e-37).astype(np.float32)
+    roll = rng.random(v.shape)
+    v[roll < 0.2] = np.float32(1e-40)
+    v[(roll >= 0.2) & (roll < 0.35)] = np.float32(-3e-40)
+    v[(roll >= 0.35) & (roll < 0.45)] = np.nan
+    v[(roll >= 0.45) & (roll < 0.55)] = -0.0
+    v[(roll >= 0.55) & (roll < 0.6)] = 0.0
+    return v
+
+
+def tiled_packed_scan(streams: list[bytes], n_series: int, k: int, dev):
+    """What ``streamed_scan_totals`` gives for ``n_series`` series, series j
+    holding ``streams[j % len(streams)]``, with the same padding: the unique
+    streams prescanned once and their lanes gathered on the host."""
+    from m3_tpu_torch.ops import fused
+    from m3_tpu_torch.ops.chunked import build_chunked, select_series
+    from m3_tpu_torch.parallel.scan import chunked_scan_aggregate_packed
+    from m3_tpu_torch.resident.scan import _MIN_LANES, _pow2
+
+    u = len(streams)
+    s_pad = _pow2(n_series, _MIN_LANES)
+    batch = select_series(build_chunked(list(streams) + [b""], k=k),
+                          np.concatenate([np.arange(n_series) % u, np.full(s_pad - n_series, u)]))
+    packed = fused.pack_lanes(batch, device=dev)
+    return chunked_scan_aggregate_packed(packed, s=s_pad, c=batch.num_chunks, k=k)
+
+
+def phase_database(dev, kernels: list, b2_resident: dict) -> None:
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from m3_tpu_torch.block.core import SeriesMeta, make_tags
+    from m3_tpu_torch.index.device import IndexDeviceOptions
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.ops import chunked, fused
+    from m3_tpu_torch.ops.sideplane import pack_side_rows
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.query import engine as E
+    from m3_tpu_torch.query import stats
+    from m3_tpu_torch.query.functions import aggregation as A
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+    from m3_tpu_torch.query.m3_storage import BlockStorage, M3Storage, matchers_to_index_query
+    from m3_tpu_torch.query.promql import Matcher
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.resident.scan import _M_STREAMED_BYTES
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+    from m3_tpu_torch.storage.fs import CHUNK_K, FilesetID, write_fileset
+    from m3_tpu_torch.utils.hash import shard_for
+    from m3_tpu_torch.utils.serialize import encode_tags
+    from m3_tpu_torch.utils.synthetic import synthetic_streams
+
+    s = DB_SERIES
+    b0 = T0 // BLOCK * BLOCK
+    b1 = b0 + BLOCK
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    base = tempfile.mkdtemp(prefix="chip_smoke_db-", dir=root)
+    try:
+        # 1. bulk: the block's filesets, written directly (72M points through
+        # write_batch in Python would take minutes); side rows computed once
+        # per unique stream. The index returns a shard's series in id order,
+        # shard after shard; the series at place j of that order holds
+        # stream j % N_UNIQUE, so the references below (BlockStorage, the
+        # packed scan) tile the unique streams in the order M3Storage reads
+        # the series instead of prescanning 100,000 streams
+        t0 = time.perf_counter()
+        streams = synthetic_streams(N_UNIQUE, N_POINTS, seed=3, start_nanos=b0)
+        side = [pack_side_rows(chunked.snapshot_stream(x, CHUNK_K), b0) for x in streams]
+        if any(r is None for r in side):
+            raise AssertionError("a unique stream's side rows overflow the packed layout")
+        tags = [make_tags({"__name__": "m3_scan", "job": f"job-{i % QUERY_JOBS}", "host": f"h{i}"})
+                for i in range(s)]
+        sids = [encode_tags(t) for t in tags]
+        want_order = sorted(range(s), key=lambda i: (shard_for(sids[i], DB_SHARDS), sids[i]))
+        stream_of = np.empty(s, np.int64)
+        stream_of[want_order] = np.arange(s) % N_UNIQUE
+        per_shard = [({}, {}) for _ in range(DB_SHARDS)]
+        for i, sid in enumerate(sids):
+            data, rows = per_shard[shard_for(sid, DB_SHARDS)]
+            data[sid] = streams[stream_of[i]]
+            rows[sid] = side[stream_of[i]]
+        for sh, (data, rows) in enumerate(per_shard):
+            write_fileset(base, FilesetID("m3", sh, b0, 0), data, BLOCK, CHUNK_K, side_rows=rows)
+        bulk_s = time.perf_counter() - t0
+
+        def open_db():
+            db = Database(base, num_shards=DB_SHARDS,
+                          resident_options=ResidentOptions(max_bytes=1 << 30),
+                          index_device_options=IndexDeviceOptions(), device=dev)
+            db.create_namespace("m3", NamespaceOptions())
+            return db
+
+        # bootstrap: filesystem source, the re-index, _readmit_resident
+        db = open_db()
+        t0 = time.perf_counter()
+        boot = db.bootstrap(now_nanos=b1 + BLOCK)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        rst = db.resident_stats()
+        if (boot["filesets"] != DB_SHARDS or boot["sources"]["m3"]["fulfilled"]["filesystem"]
+                != DB_SHARDS or rst["entries"] != s or rst["complete_blocks"] != DB_SHARDS):
+            raise AssertionError(f"[database] bootstrap: {boot}, resident {rst}")
+        log(f"[database] bulk: {s} series x {N_POINTS} pts ({N_UNIQUE} unique gauge streams, "
+            f"seed 3, one {BLOCK // 10**9} s block) as {DB_SHARDS} filesets in {bulk_s:.2f} s; "
+            f"bootstrap {boot_s:.2f} s: {boot['filesets']} filesets, sources "
+            f"{boot['sources']['m3']['fulfilled']}, {rst['entries']} lanes admitted "
+            f"({rst['bytes']} stream bytes, {rst['complete_blocks']} complete blocks)")
+
+        # 2. live writes into the next block: buffers and the commit log.
+        # The streamed scans read the live series only, h0 .. h{L-1}: a
+        # streamed series pays its host prescan in Python (PERF.md), so a
+        # streamed scan of the whole block would take minutes
+        m_all = [Matcher("__name__", "=", "m3_scan")]
+        digits = len(str(DB_LIVE_SERIES - 1))
+        if DB_LIVE_SERIES != 10 ** digits:
+            raise ValueError("DB_LIVE_SERIES must be a power of ten (the live slice's regexp)")
+        m_live = m_all + [Matcher("host", "=~", f"h[0-9]{{1,{digits}}}")]
+        st = M3Storage(db, "m3")
+        live = [(tags[i], b1 + j * STEP, float(round((i % 97) * 0.5 + j * 0.25, 2)), 1)
+                for i in range(DB_LIVE_SERIES) for j in range(DB_LIVE_POINTS)]
+        t0 = time.perf_counter()
+        errs = db.write_tagged_batch("m3", live)
+        live_s = time.perf_counter() - t0
+        if any(errs):
+            raise AssertionError(f"[database] live writes refused: {[e for e in errs if e][:3]}")
+        qs = stats.start("both blocks")
+        qs.record_routing = True
+        t0 = time.perf_counter()
+        both = st.scan_totals(m_live, b0, b1 + BLOCK)
+        both_s = time.perf_counter() - t0
+        stats.finish(qs, 0.0)
+        if both["path"] != "streamed" or not any(
+                r["reason"] == "buffered-overlay" for r in qs.routing):
+            raise AssertionError(f"[database] a scan over the buffered block: {both}, "
+                                 f"{qs.routing[:3]}")
+        if both["count"] != DB_LIVE_SERIES * (N_POINTS + DB_LIVE_POINTS):
+            raise AssertionError(f"[database] scan over both blocks counted {both['count']}")
+        t0 = time.perf_counter()
+        flushed = db.flush("m3", b1 + BLOCK)
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+        rst = db.resident_stats()
+        if len(flushed) != DB_SHARDS or rst["entries"] != s + DB_LIVE_SERIES:
+            raise AssertionError(f"[database] flush of the live block: {flushed}, {rst}")
+        log(f"[database] live: write_tagged_batch of {DB_LIVE_SERIES} series x {DB_LIVE_POINTS} "
+            f"pts into the next block {live_s:.2f} s; scan_totals of those series over both blocks "
+            f"routed streamed (buffered-overlay) {both_s:.2f} s, count {both['count']}; flush of that "
+            f"block {flush_s:.2f} s, {len(flushed)} filesets admitted at seal "
+            f"({rst['entries']} lanes resident)")
+
+        # 3. queries through Engine over M3Storage (the staged path), each
+        # held bit for bit to the same query over BlockStorage on the same
+        # streams in the same series order
+        docs = db.query_ids("m3", matchers_to_index_query(m_all), b0, b0 + BLOCK).docs
+        index_of = {sid: i for i, sid in enumerate(sids)}
+        order = [index_of[d.id] for d in docs]
+        if order != want_order:
+            raise AssertionError("[database] the index does not return every series once, "
+                                 "shard after shard in id order")
+        bstore = BlockStorage(streams, [tags[i] for i in order], k=K, device=dev)
+        eng = E.Engine(st, device=dev)
+        beng = E.Engine(bstore, device=dev)
+        start, end = b0, b0 + (N_POINTS - 1) * STEP
+        queries = {"rate": "sum by (job) (rate(m3_scan[1m]))",
+                   "avg_over_time": "avg by (job) (avg_over_time(m3_scan[1m]))"}
+        # the main path, counted: both queries and a resident scan, the
+        # counts set to 0 just before and read just after
+        chunked.LAUNCHES = fused.LAUNCHES = TF.LAUNCHES = A.LAUNCHES = scan.ASSEMBLY_LAUNCHES = 0
+        for k in IK.LAUNCHES:
+            IK.LAUNCHES[k] = 0
+        results = {fn: eng.query_range(q, start, end, STEP) for fn, q in queries.items()}
+        resident = st.scan_totals(m_all, b0, b0 + BLOCK)
+        torch.cuda.synchronize()
+        launches = {"resident_assembly": scan.ASSEMBLY_LAUNCHES, "decode_records": chunked.LAUNCHES,
+                    "lane_aggregates": fused.LAUNCHES, "temporal_fused": TF.LAUNCHES,
+                    "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
+                    "index_bitmap": IK.LAUNCHES["bitmap_from_terms"]
+                    + IK.LAUNCHES["bitmap_from_term_range"]}
+        log(f"[database] launches on the main path (2 queries, 1 scan): {launches}")
+        for name, n in launches.items():
+            if n < 1:
+                raise AssertionError(f"the [database] path did not launch {name}")
+        for fn, q in queries.items():
+            want = beng.query_range(q, start, end, STEP)
+            got = results[fn]
+            if ([m.tags for m in got.metas] != [m.tags for m in want.metas]
+                    or not same_bits(got.values, want.values)):
+                raise AssertionError(f"[database] {q} over M3Storage differs from BlockStorage")
+            if not same_bits(eng.query_range(q, start, end, STEP).values, got.values):
+                raise AssertionError(f"[database] {q}: a second run differs from the first")
+        log(f"[database] both queries over M3Storage == the same queries over BlockStorage bit "
+            f"for bit ([{len(results['rate'].metas)}, {results['rate'].values.shape[1]}]), and "
+            f"== a second run")
+        e2e = {}
+        for fn, q in queries.items():
+            times = []
+            for _ in range(DB_QUERY_RUNS):
+                t0 = time.perf_counter()
+                eng.query_range(q, start, end, STEP).values.cpu()
+                times.append(time.perf_counter() - t0)
+            e2e[fn] = statistics.median(times)
+
+        # scan_totals: resident == chunked_scan_aggregate_packed over the
+        # same streams in the same order and padding (the streamed twin)
+        if resident["path"] != "resident" or resident["series"] != s:
+            raise AssertionError(f"[database] scan_totals of the bulk block: {resident}")
+        want = tiled_packed_scan(streams, s, CHUNK_K, dev)
+        want_t = {"sum": float(want.total_sum), "count": int(want.total_count),
+                  "min": float(want.total_min), "max": float(want.total_max)}
+        if {k: resident[k] for k in want_t} != want_t:
+            raise AssertionError(f"[database] resident scan {resident} != packed scan {want_t}")
+        up = (db.resident_stats()["upload_bytes"], _M_STREAMED_BYTES.value)
+        res_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warm = st.scan_totals(m_all, b0, b0 + BLOCK)
+            res_s.append(time.perf_counter() - t0)
+            if warm != resident:
+                raise AssertionError(f"[database] warm scan {warm} != {resident}")
+        if (db.resident_stats()["upload_bytes"], _M_STREAMED_BYTES.value) != up:
+            raise AssertionError("[database] a warm resident scan moved upload bytes")
+        log(f"[database] scan_totals path resident == chunked_scan_aggregate_packed over the same "
+            f"streams bit for bit (count {resident['count']}, sum {resident['sum']!r}); 3 warm "
+            f"repeats moved 0 upload bytes")
+
+        # 4. eviction churn over the live slice: streamed with the same bits,
+        # read-through re-admission, resident again (and so is the block)
+        res_live = st.scan_totals(m_live, b0, b0 + BLOCK)
+        if res_live["path"] != "resident" or res_live["series"] != DB_LIVE_SERIES:
+            raise AssertionError(f"[database] scan_totals of the live slice: {res_live}")
+        readmitted = db.resident_stats()["readmissions"]
+        dropped = db.resident_clear()
+        t0 = time.perf_counter()
+        churn = st.scan_totals(m_live, b0, b0 + BLOCK)
+        streamed_s = time.perf_counter() - t0
+        back = st.scan_totals(m_live, b0, b0 + BLOCK)
+        n_readmit = db.resident_stats()["readmissions"] - readmitted
+        full = st.scan_totals(m_all, b0, b0 + BLOCK)
+        if (churn != {**res_live, "path": "streamed"} or back != res_live or full != resident
+                or n_readmit != s):
+            raise AssertionError(f"[database] churn: {churn}, then {back}, {n_readmit} re-admitted, "
+                                 f"the block {full}")
+        # the streamed path's host cost: each series' prescan in Python
+        live_streams = [streams[stream_of[i]] for i in range(DB_LIVE_SERIES)]
+        t0 = time.perf_counter()
+        chunked.build_chunked(live_streams, k=CHUNK_K)
+        prescan_s = time.perf_counter() - t0
+        log(f"[database] eviction churn: resident_clear dropped {dropped}; the next scan of the "
+            f"{DB_LIVE_SERIES} live series streamed with the same totals bit for bit, {n_readmit} "
+            f"lanes re-admitted read-through, the scan after it resident again, and so is the "
+            f"scan of the block; the prescan alone (build_chunked, Python) of those "
+            f"{DB_LIVE_SERIES} streams {prescan_s * 1e3:.1f} ms, "
+            f"{prescan_s / DB_LIVE_SERIES * 1e3:.3f} ms a series")
+
+        # 5. kernel checks at this shape: B-2 over the bulk block's plan, K3
+        # on subnormal inputs against its flushed twin
+        pool = db.resident_pool
+        plan_keys = [key for _, keys in st._resident_plan(docs, b0, b0 + BLOCK) for key in keys]
+        with pool.read_lease():
+            plan = pool.plan_chunked(plan_keys)
+        b2 = b2_check(plan, 1 << (s - 1).bit_length(), "database")
+        sub = torch.from_numpy(subnormal_values(2 * QUERY_JOBS * 50, N_POINTS, seed=7)).to(dev)
+        layout = A.group_by_tags([SeriesMeta(tags=tags[i]) for i in range(sub.shape[0])], [b"job"])
+        for op in A.OPS:
+            if not same_bits(A.grouped_reduce(sub, layout, op),
+                             A.grouped_reduce(sub.cpu(), layout, op)):
+                raise AssertionError(f"[database] K3 {op} on subnormal inputs differs from its twin")
+        log(f"[database] K3 on subnormal, +-0 and NaN inputs [{sub.shape[0]}, {sub.shape[1]}] "
+            f"-> {layout.num_groups} groups == its flushed twin bit for bit: {', '.join(A.OPS)}")
+
+        # 6. restart: every acknowledged live write reads back, the sealed
+        # blocks are resident again
+        db.close()
+        db = open_db()
+        t0 = time.perf_counter()
+        boot2 = db.bootstrap(now_nanos=b1 + BLOCK)
+        torch.cuda.synchronize()
+        boot2_s = time.perf_counter() - t0
+        want_t = np.asarray([b1 + j * STEP for j in range(DB_LIVE_POINTS)], np.int64)
+        for i in range(DB_LIVE_SERIES):
+            t, v, _u = db.read_arrays("m3", sids[i], b1, b1 + BLOCK)
+            want_v = np.asarray([round((i % 97) * 0.5 + j * 0.25, 2) for j in range(DB_LIVE_POINTS)])
+            if not (np.array_equal(t, want_t) and np.array_equal(v, want_v)):
+                raise AssertionError(f"[database] live series {i} did not read back after restart")
+        rst = db.resident_stats()
+        again = M3Storage(db, "m3").scan_totals(m_all, b0, b0 + BLOCK)
+        if rst["entries"] != s + DB_LIVE_SERIES or again != resident:
+            raise AssertionError(f"[database] after restart: {rst}, {again}")
+        log(f"[database] restart: bootstrap {boot2_s:.2f} s ({boot2['filesets']} filesets, "
+            f"{boot2['commitlog_entries']} commit-log entries replayed); all "
+            f"{DB_LIVE_SERIES * DB_LIVE_POINTS} acknowledged live writes read back equal; "
+            f"{rst['entries']} lanes resident, scan_totals resident and equal")
+        istats = db.index_stats()
+        log(f"[database] resident stats: { {k: rst[k] for k in ('entries', 'bytes', 'pages_used', 'side_pages_used', 'complete_blocks', 'admissions', 'readmissions', 'evictions', 'invalidations', 'upload_bytes')} }")
+        log(f"[database] index stats: { {k: v for k, v in istats.items() if k != 'namespaces'} }, "
+            f"namespace m3: {istats['namespaces']['m3']}")
+        for fn, q in queries.items():
+            log(f"[database] end to end {q} over M3Storage: {e2e[fn] * 1e3:.1f} ms (median of "
+                f"{DB_QUERY_RUNS}, host clock, ending in a host copy)")
+        log(f"[database] end to end scan_totals of m3_scan over {s} series: resident "
+            f"{statistics.median(res_s) * 1e3:.1f} ms (median of 3); streamed over the "
+            f"{DB_LIVE_SERIES} live series {streamed_s * 1e3:.1f} ms (one run, the re-admission "
+            f"of {n_readmit} lanes included), over both blocks {both_s * 1e3:.1f} ms (one run)")
+        log(f"[database] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        db.close()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check_no_unaligned_copies("database")
+    kernels.append({
+        "name": "resident_assembly",
+        "route": "cuda",
+        "source": "m3_tpu_torch/parallel/csrc/resident_assembly.cu",
+        "replaces": "m3_tpu/parallel/scan.py:505",
+        "launches": launches["resident_assembly"],
+        "max_abs_err": 0.0,
+        "ms": b2_resident["ms"],
+        "plain_ms": b2_resident["plain_ms"],
+        "bound_ms": b2_resident["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
+    log(f"[database] B-2 at [database]'s shape: {b2['ms']:.3f} ms (bound {b2['bound_ms']:.3f} ms, "
+        f"twin {b2['plain_ms']:.1f} ms); the kernels line carries [resident]'s 1M-series "
+        f"numbers: {b2_resident['ms']:.3f} ms (bound {b2_resident['bound_ms']:.3f} ms, twin "
+        f"{b2_resident['plain_ms']:.1f} ms)")
+    log("[database] library_ms for B-2: no single PyTorch call gathers M3TSZ windows and "
+        "unpacks side planes; null")
+
+
 def main() -> int:
     import argparse
 
@@ -1320,12 +1750,13 @@ def main() -> int:
     b3_worst = phase_parity_fields(dev)
     main_e2e_s, b1 = phase_main(dev, worst)
     kernels = [b1]
-    phase_resident(dev, kernels, b3_worst, main_e2e_s)
+    b2 = phase_resident(dev, kernels, b3_worst, main_e2e_s)
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
     phase_query(dev, kernels, temporal_err)
     phase_index(dev, kernels, args.seed)
+    phase_database(dev, kernels, b2)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

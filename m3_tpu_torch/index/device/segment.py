@@ -15,7 +15,9 @@ Routing contract: ``search_ast`` returns EXACTLY the doc-id array the host
 executor would produce, or None — the tier is evicted / was never
 admitted (its reason on ``status()``), or the AST holds a node the device
 does not model — and the executor runs the segment on the host path; each
-None is counted as a search miss in the store. General regexps keep their
+None is counted as a search miss in the store. Every search records its
+route (``index-device`` / ``index-host`` and the reason) in the running
+query's routing record (``query/stats.py``), as the reference's does. General regexps keep their
 term MATCHING on the host (an automaton cannot become a fixed-width
 compare) after the literal-prefix narrow, but the union of the matched
 terms' postings and all surrounding set algebra still run on the card.
@@ -53,6 +55,7 @@ from ..query import (
 )
 from ..segment import REGEXP_SPECIALS as _SPECIALS
 from ..segment import literal_prefix, prefix_upper
+from ...query import stats
 from . import kernels
 
 
@@ -261,22 +264,27 @@ class DeviceSegment:
         arrays = self._arrays
         if arrays is None:
             self.store.count_search(hit=False)
+            stats.add_routing(self.label, self.block_start, "index-host", self._state)
             return None
         try:
+            note = {"host_regexp": False}
             if prematched is not None and prematched[0] is arrays:
                 gis, classes = prematched[1], prematched[2]
             else:
                 gis, classes = self._match_leaves(arrays, query)
-            bitmap = self._eval(arrays, query, gis, classes)
+            bitmap = self._eval(arrays, query, gis, classes, note)
             out = kernels.bitmap_to_docids(bitmap)
         except _Unsupported:
             self.store.count_search(hit=False)
+            stats.add_routing(self.label, self.block_start, "index-host", "unsupported-node")
             return None
         except Exception:
             self.store.count_error()
             raise
         self.store.touch(self)
         self.store.count_search(hit=True)
+        stats.add_routing(self.label, self.block_start, "index-device",
+                          "regexp-host-fallback" if note["host_regexp"] else "")
         return out
 
     # -- phase 1: batch every exact-match leaf into ONE search launch --
@@ -303,12 +311,12 @@ class DeviceSegment:
 
     # -- phase 2: bitmap algebra over the resolved leaves --
 
-    def _eval(self, arrays: DeviceArrays, q: Query, gis: dict, classes: dict):
+    def _eval(self, arrays: DeviceArrays, q: Query, gis: dict, classes: dict, note: dict):
         nw = arrays.n_words
         if isinstance(q, TermQuery):
             return self._leaf_bitmap(arrays, gis[id(q)])
         if isinstance(q, RegexpQuery):
-            return self._regexp_bitmap(arrays, q, gis, classes)
+            return self._regexp_bitmap(arrays, q, gis, classes, note)
         if isinstance(q, FieldQuery):
             _, _, ds, de = arrays.fields.get(q.field, (0, 0, 0, 0))
             return kernels.bitmap_from_term_range(arrays.post_data, ds, de, nw)
@@ -320,21 +328,21 @@ class DeviceSegment:
             pos = [s for s in q.queries if not isinstance(s, NegationQuery)]
             negs = [s for s in q.queries if isinstance(s, NegationQuery)]
             if pos:
-                acc = self._eval(arrays, pos[0], gis, classes)
+                acc = self._eval(arrays, pos[0], gis, classes, note)
                 for s in pos[1:]:
-                    acc = acc & self._eval(arrays, s, gis, classes)
+                    acc = acc & self._eval(arrays, s, gis, classes, note)
             else:
                 acc = arrays.all_words
             for s in negs:
-                acc = acc & ~self._eval(arrays, s.query, gis, classes)
+                acc = acc & ~self._eval(arrays, s.query, gis, classes, note)
             return acc
         if isinstance(q, DisjunctionQuery):
             acc = kernels.zero_bitmap(nw, arrays.device)
             for s in q.queries:
-                acc = acc | self._eval(arrays, s, gis, classes)
+                acc = acc | self._eval(arrays, s, gis, classes, note)
             return acc
         if isinstance(q, NegationQuery):
-            return arrays.all_words & ~self._eval(arrays, q.query, gis, classes)
+            return arrays.all_words & ~self._eval(arrays, q.query, gis, classes, note)
         raise _Unsupported(type(q).__name__)
 
     def _leaf_bitmap(self, arrays: DeviceArrays, leaf_gis: np.ndarray):
@@ -349,7 +357,7 @@ class DeviceSegment:
         )
 
     def _regexp_bitmap(self, arrays: DeviceArrays, q: RegexpQuery, gis: dict,
-                       classes: dict):
+                       classes: dict, note: dict):
         kind, _val = classes[id(q)]
         if kind in ("literal", "alternation"):
             return self._leaf_bitmap(arrays, gis[id(q)])
@@ -366,7 +374,9 @@ class DeviceSegment:
             de = int(arrays.host_post_idx[hi - 1, 1]) if hi > lo else 0
             return kernels.bitmap_from_term_range(arrays.post_data, ds, de, arrays.n_words)
         # general pattern: the automaton walk stays on the host over the
-        # narrowed candidate range; the postings union runs on the card
+        # narrowed candidate range (routing reason regexp-host-fallback);
+        # the postings union runs on the card
+        note["host_regexp"] = True
         rx = re.compile(b"^(?:" + q.pattern + b")$")
         matched = [
             gi for gi in range(lo, hi) if rx.match(self._host_term(arrays, gi))

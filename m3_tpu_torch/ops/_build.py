@@ -34,8 +34,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # library -> (source, nvcc flags, {entry: argtypes}). The flags are part of
 # each kernel's contract with the reference's f32 arithmetic (see the note at
-# the top of each source): -fmad=false everywhere; -ftz=true only for the
-# lane decode, whose reference flushes f32 subnormals as XLA does.
+# the top of each source): -fmad=false everywhere; -ftz=true for the lane
+# decode and the grouped reductions, whose reference flushes f32 subnormals
+# as XLA does.
 SOURCES = {
     "lane_aggregates": (
         PKG / "ops" / "csrc" / "lane_aggregates.cu",
@@ -83,10 +84,21 @@ SOURCES = {
     ),
     "grouped_reduce": (
         PKG / "query" / "functions" / "csrc" / "grouped_reduce.cu",
-        _COMMON,
+        _COMMON + ("-ftz=true",),
         {
             # values, cols, pad_index, groups, m, op, out, stream
             "m3_grouped_reduce": [_P, _I64, _P, _I64, _I64, _I, _P, _P],
+        },
+    ),
+    "resident_assembly": (
+        PKG / "parallel" / "csrc" / "resident_assembly.cu",
+        _COMMON,
+        {
+            # words, side, page_rows, side_rows, n_chunks, total_bits, block_hi,
+            # block_lo, s, c, lp, sl, w, spc, cw, order, lane_major, npad,
+            # tile_lanes, windows, planes, tile_flags, stream
+            "m3_resident_assembly": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                                     _I, _I, _I, _I, _I64, _I64, _P, _P, _P, _P],
         },
     ),
 }

@@ -1,7 +1,7 @@
 """Scan-and-aggregate over chunk-lanes: the port's main path.
 
 Port of ``m3_tpu/parallel/scan.py``'s chunked paths, on one device (the
-sharded variants wait for ROADMAP §A.4):
+sharded variants wait for ROADMAP §A8):
 
 - ``chunked_scan_aggregate_packed``: kernel B1 (``ops/fused.lane_aggregates``)
   folds each packed chunk-lane into six aggregates; plain torch reduces
@@ -11,16 +11,20 @@ sharded variants wait for ROADMAP §A.4):
   with kernel B3 (``ops/fused.lane_aggregates_fields``).
 - the resident lane assembly: device gathers over the resident pool's
   pages and side planes build either layout (``assemble_resident_packed``,
-  ``assemble_resident_lanes``).
+  ``assemble_resident_lanes``). For a pool on the card they launch kernel
+  B-2 (``csrc/resident_assembly.cu``); for a pool on the CPU they run its
+  plain torch twin (``_resident_gather``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import device_guard
 from ..ops import decode as D
 from ..ops import fused
 from ..ops import precise as pr
@@ -213,6 +217,12 @@ def chunked_device_args(batch, device="cuda") -> dict:
 # lanes per block of the assembly (a multiple of every tile size)
 _GATHER_BLOCK_LANES = 1 << 21
 
+# Launches of B-2, counted by _launch_assembly where it launches.
+ASSEMBLY_LAUNCHES = 0
+
+# lanes of a block of B-2 in the per-field layout (no tiles there)
+_FIELD_BLOCK_LANES = 4096
+
 
 def pad_chunked_plan(plan, s_pad: int):
     """Zero-pad a ResidentChunkedPlan's host vectors to ``s_pad`` series:
@@ -304,11 +314,86 @@ def _u32_plane(name: str, planes, rel, nbits, first):
     return D.wrap_i32(x).to(torch.int32)
 
 
+def plan_vectors(plan, s_pad: int) -> list:
+    """The padded plan's six vectors as int32 tensors on the pool's device,
+    B-2's inputs beside the two buffers: page_rows [S, LP], side_rows
+    [S, SL], n_chunks, total_bits, block_hi, block_lo [S]."""
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(plan.words.device)
+    pr_, sr, nc, tb, bh, bl = pad_chunked_plan(plan, s_pad)
+    return [put(x) for x in (pr_, sr, nc, tb.astype(np.int32), bh, bl)]
+
+
+def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes: int,
+                     vecs: list | None = None):
+    """B-2 on the card: (windows int32 [CW, npad] word-major or [n, CW]
+    lane-major, planes int32 [NLANE, npad] in PACKED_LANE_PLANES order, tile
+    flags int32 [npad // tile_lanes] or None, n). ``vecs``: plan_vectors
+    of the same plan and s_pad, when the caller has them. Raises if the
+    build or the launch fails."""
+    global ASSEMBLY_LAUNCHES
+    from ..ops._build import load_library
+
+    dev = plan.words.device
+    vecs = plan_vectors(plan, s_pad) if vecs is None else vecs
+    words = plan.words.contiguous()
+    side = plan.side.contiguous()
+    c, cw = plan.num_chunks, plan.window_words
+    n = s_pad * c
+    npad = n if lane_major else -(-n // tile_lanes) * tile_lanes
+    windows = torch.empty((npad, cw) if lane_major else (cw, npad), dtype=torch.int32, device=dev)
+    planes = torch.empty((fused.NLANE, npad), dtype=torch.int32, device=dev)
+    tile_flags = (None if lane_major else
+                  torch.empty(npad // tile_lanes, dtype=torch.int32, device=dev))
+    lib = load_library("resident_assembly")
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_resident_assembly(
+            ptr(words), ptr(side), *[ptr(v) for v in vecs],
+            s_pad, c, vecs[0].shape[1], vecs[1].shape[1], plan.page_words,
+            plan.side_page_chunks, cw,
+            0 if order == "c" else 1, int(lane_major), npad, tile_lanes,
+            ptr(windows), ptr(planes), ptr(tile_flags), ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"resident_assembly kernel launch failed: CUDA error {rc}")
+    ASSEMBLY_LAUNCHES += 1
+    return windows, planes, tile_flags, n
+
+
+def _lane_fields(windows, planes) -> dict:
+    """B-2's per-field output as ``assemble_resident_lanes`` returns it:
+    row views of the [NLANE, n] planes, bool ``first``/``is_float``."""
+    out = {"windows": windows}
+    for p, name in enumerate(fused.PACKED_LANE_PLANES):
+        if name.endswith(("_hi", "_lo")):
+            pair = out.setdefault(name[:-3], [None, None])
+            pair[0 if name.endswith("_hi") else 1] = planes[p]
+        elif name in ("first", "is_float"):
+            out[name] = planes[p] != 0
+        else:
+            out[name] = planes[p]
+    for f in ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val"):
+        out[f] = tuple(out[f])
+    return out
+
+
 def assemble_resident_lanes(plan, s_pad: int | None = None) -> tuple[dict, int]:
     """A ResidentChunkedPlan -> (per-field lane inputs on the pool's device,
     padded series count): series-major lanes (lane = series * C + chunk) in
     ``ops/chunked.lane_kwargs``' names and the types ``chunked_device_args``
-    gives, B3's input. ``s_pad`` pads the series axis with empty series."""
+    gives, B3's input. ``s_pad`` pads the series axis with empty series. A
+    pool on the card launches B-2; one on the CPU runs the twin."""
+    s = plan.page_rows.shape[0]
+    s_pad = s if s_pad is None else max(s_pad, s)
+    if plan.words.device.type == "cuda":
+        windows, planes, _, _ = _launch_assembly(plan, s_pad, "s", True, _FIELD_BLOCK_LANES)
+        return _lane_fields(windows, planes), s_pad
+    return assemble_resident_lanes_reference(plan, s_pad)
+
+
+def assemble_resident_lanes_reference(plan, s_pad: int | None = None) -> tuple[dict, int]:
+    """Plain torch twin of B-2's per-field layout, on the pool's device."""
     s = plan.page_rows.shape[0]
     s_pad = s if s_pad is None else max(s_pad, s)
     pd = _PlanOnDevice(plan, s_pad)
@@ -354,7 +439,23 @@ def assemble_resident_packed(plan, s_pad: int | None = None, order: str = "c",
     order. Windows, state planes and tile flags are bit-identical to
     ``fused.pack_lanes`` of the same streams: lane j of "c" is (series
     j % S, chunk j // S), tile-padding lanes are zero and count as fast,
-    first chunks are never fast."""
+    first chunks are never fast. A pool on the card launches B-2; one on the
+    CPU runs the twin."""
+    if order not in ("c", "s"):
+        raise ValueError(f"order must be 'c' or 's', got {order!r}")
+    s = plan.page_rows.shape[0]
+    s_pad = s if s_pad is None else max(s_pad, s)
+    if plan.words.device.type == "cuda":
+        windows, planes, tile_flags, n = _launch_assembly(plan, s_pad, order, False, rows * 128)
+        return fused.PackedLanes(windows=windows, lanes=planes, tile_flags=tile_flags, n=n,
+                                 order=order), s_pad
+    return assemble_resident_packed_reference(plan, s_pad, order, rows)
+
+
+def assemble_resident_packed_reference(plan, s_pad: int | None = None, order: str = "c",
+                                       rows: int = fused.ROWS_DEFAULT
+                                       ) -> tuple[fused.PackedLanes, int]:
+    """Plain torch twin of B-2's packed layout, on the pool's device."""
     if order not in ("c", "s"):
         raise ValueError(f"order must be 'c' or 's', got {order!r}")
     s = plan.page_rows.shape[0]
@@ -401,6 +502,6 @@ def resident_chunked_scan(plan, s_pad: int) -> ScanAggregates:
     """The assemble-from-residency + packed-decode body: device gathers over
     the pool build the chunk-major PackedLanes, kernel B1 folds them, the
     reductions follow (m3_tpu/parallel/scan.py resident_chunked_local_fn;
-    the sharded variant waits for ROADMAP §A.4)."""
+    the sharded variant waits for ROADMAP §A8)."""
     packed, s_pad = assemble_resident_packed(plan, s_pad, order="c")
     return chunked_scan_aggregate_packed(packed, s=s_pad, c=plan.num_chunks, k=plan.chunk_k)

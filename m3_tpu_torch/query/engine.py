@@ -5,20 +5,26 @@ evaluates to a dense [S, T] tensor on the engine's device (a [1, T] row
 for scalars), so each transform is one vectorized call:
 
     parse (promql.py) → _fetch: the storage's fetch_grid decodes and
-    consolidates the matched series onto the step grid → temporal functions
-    (temporal_fused, kernel B2) → grouped aggregations (aggregation.py).
+    consolidates the matched series onto the step grid; a storage without
+    fetch_grid (``M3Storage``), or one whose fetch_grid returns None, runs
+    the staged path instead: ``storage.fetch`` gives each matched series'
+    raw samples and ``consolidate`` puts them on the grid on the host →
+    temporal functions (temporal_fused, kernel B2) → grouped aggregations
+    (aggregation.py, kernel K3).
 
 Ported so far: number literals, plain vector selectors, unary minus, the
 15 fused temporal functions and ``present_over_time`` over plain range
 selectors, and the sum/min/max/avg/count/stddev/stdvar aggregations. The
-rest raises ``NotImplementedError`` naming its ROADMAP.md item (§A.1 for
-the functions and operators still to port, §A.4 for the scheduler, cost
-limits, tenants and stats). ``consolidate_row`` / ``consolidate`` are the
-host rule the storage's err-row stitch and the tests use.
+rest raises ``NotImplementedError`` naming its ROADMAP.md item (§A5: the
+functions and operators still to port, the scheduler, cost limits, tenants
+and EXPLAIN). ``consolidate_row`` / ``consolidate`` are the host rule of the
+staged path and of the storage's err-row stitch. ``scan_totals`` is the
+storage's scan-and-aggregate as an engine surface.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Protocol
 
@@ -27,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..block.core import Bounds, SeriesMeta, Tags
+from . import stats
 from .functions import aggregation as A
 from .functions import temporal_fused as TF
 from .promql import (
@@ -46,7 +53,7 @@ from .promql import (
 NANOS = 1_000_000_000
 DEFAULT_LOOKBACK = 5 * 60 * NANOS
 
-_TODO_FUNCTIONS = "ROADMAP.md §A.1 (non-fused temporal functions, linear.py, binary.py)"
+_TODO_FUNCTIONS = "ROADMAP.md §A5 (non-fused temporal functions, linear.py, binary.py)"
 
 
 @dataclass
@@ -61,7 +68,15 @@ class Result:
 
 class Storage(Protocol):
     """The storage seam: matched series decoded and consolidated onto a
-    step grid."""
+    step grid (``fetch_grid``, optional: None runs the staged path), or
+    their raw samples (``fetch``)."""
+
+    def fetch(
+        self, matchers: list[Matcher], start_nanos: int, end_nanos: int,
+    ) -> list[tuple[Tags, np.ndarray, np.ndarray]]:
+        """→ [(tags, times i64, values f64)] for the series matching
+        ``matchers`` with samples in ``[start, end)``."""
+        ...
 
     def fetch_grid(
         self, matchers: list[Matcher], start_nanos: int, end_nanos: int,
@@ -119,12 +134,56 @@ class Engine:
     def query_range(
         self, query: str, start_nanos: int, end_nanos: int, step_nanos: int
     ) -> Result:
-        ast = parse(query)
-        steps = int((end_nanos - start_nanos) // step_nanos) + 1
-        return self._eval(ast, Bounds(start_nanos, step_nanos, steps))
+        qs = stats.start(query)
+        t_start = time.perf_counter()
+        err: str | None = None
+        try:
+            with stats.stage("parse"):
+                ast = parse(query)
+            steps = int((end_nanos - start_nanos) // step_nanos) + 1
+            return self._eval(ast, Bounds(start_nanos, step_nanos, steps))
+        except Exception as exc:
+            err = f"{type(exc).__name__}: {exc}"
+            raise
+        finally:
+            if qs is not None:
+                stats.finish(qs, time.perf_counter() - t_start, error=err)
 
     def query_instant(self, query: str, time_nanos: int) -> Result:
         return self.query_range(query, time_nanos, time_nanos, NANOS)
+
+    def scan_totals(self, query: str, start_nanos: int, end_nanos: int) -> dict:
+        """Raw-sample scan as an engine surface: ``query`` must be a plain
+        vector selector (e.g. ``metric{job="x"}``); the totals are
+        whole-block reductions over the matched series' compressed
+        streams, not PromQL semantics (no step grid, no lookback). Routing
+        is the storage's: decode-from-residency when every matched block
+        is resident, streamed upload and decode otherwise; the result's
+        ``path`` says which."""
+        storage_scan = getattr(self.storage, "scan_totals", None)
+        if storage_scan is None:
+            raise ValueError("storage does not support scan_totals")
+        qs = stats.start(f"scan_totals({query})")
+        t_start = time.perf_counter()
+        err: str | None = None
+        try:
+            with stats.stage("parse"):
+                ast = parse(query)
+            if not isinstance(ast, VectorSelector):
+                raise ValueError("scan_totals: query must be a vector selector")
+            if ast.at_nanos is not None or ast.offset_nanos:
+                raise ValueError("scan_totals: @/offset modifiers unsupported")
+            matchers = list(ast.matchers)
+            if ast.name:
+                matchers.append(Matcher("__name__", "=", ast.name))
+            with stats.stage("fetch"):
+                return storage_scan(matchers, start_nanos, end_nanos)
+        except Exception as exc:
+            err = f"{type(exc).__name__}: {exc}"
+            raise
+        finally:
+            if qs is not None:
+                stats.finish(qs, time.perf_counter() - t_start, error=err)
 
     # --- evaluation ---
 
@@ -137,15 +196,22 @@ class Engine:
         if sel.name:
             matchers.append(Matcher("__name__", "=", sel.name))
         b = Bounds(start, bounds.step_nanos, bounds.steps + extra_steps)
-        fetched = self.storage.fetch_grid(
-            matchers, start - self.lookback, end, b.timestamps(), self.lookback
-        )
-        if fetched is None:
-            raise RuntimeError(
-                f"storage cannot serve [{start - self.lookback}, {end}) as a step grid"
-            )
-        metas, values, _ = fetched
-        return Result(values.to(self.device), list(metas))
+        grid_fetch = getattr(self.storage, "fetch_grid", None)
+        if grid_fetch is not None:
+            with stats.stage("fetch"):
+                fetched = grid_fetch(
+                    matchers, start - self.lookback, end, b.timestamps(), self.lookback
+                )
+            if fetched is not None:
+                metas, values, datapoints = fetched
+                stats.add(series=len(metas), datapoints=datapoints)
+                return Result(values.to(self.device), list(metas))
+        # the staged path: raw samples, consolidated on the host
+        with stats.stage("fetch"):
+            raw = self.storage.fetch(matchers, start - self.lookback, end)
+        stats.add(series=len(raw), datapoints=sum(len(t) for _, t, _ in raw))
+        r = consolidate(raw, b, self.lookback)
+        return Result(r.values.to(self.device), r.metas)
 
     def _eval(self, e: Expr, bounds: Bounds) -> Result:
         if isinstance(e, NumberLiteral):

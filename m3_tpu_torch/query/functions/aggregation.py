@@ -5,12 +5,12 @@ Port of ``m3_tpu/query/functions/aggregation.py``: ``GroupLayout`` and
 query). For a CUDA tensor the seven grouped ops run on kernel K3
 (``csrc/grouped_reduce.cu``): one thread per (group, column) folds the
 group's members in ascending row order, so the result is the same in every
-run. For a CPU tensor they run the plain PyTorch twin, ``index_add_`` /
-``index_reduce_`` over the series axis, which on the CPU adds in the same
-order; K3, the twin and the reference on the CPU agree bit for bit. (On a
-CUDA tensor those two calls are atomics whose f32 sums depend on the order
-of arrival.) Values are reduced in float32, as the reference's jnp code
-reduces them (JAX runs without x64).
+run. For a CPU tensor they run the plain PyTorch twin, the same fold
+vectorized over (group, column); K3, the twin and the reference on the CPU
+agree bit for bit. Values are reduced in float32, as the reference's jnp
+code reduces them (JAX runs without x64), and f32 subnormals flush to zero
+of the same sign, inputs and results alike, as XLA flushes them on the CPU
+and the TPU.
 
 NaN semantics (M3's aggregation/function.go):
   sum/min/max: NaN iff every value in the bucket is NaN
@@ -37,6 +37,8 @@ OPS = ("sum", "count", "avg", "min", "max", "stdvar", "stddev")
 
 # Launches of K3, counted by grouped_reduce where it launches.
 LAUNCHES = 0
+
+_FLT_MIN = float(np.finfo(np.float32).tiny)
 
 
 @dataclass
@@ -120,66 +122,64 @@ def grouped_reduce(values, layout: GroupLayout, op: str):
     return out
 
 
+def _ftz(x):
+    """Flush f32 subnormals to a zero of the same sign (XLA's FTZ/DAZ)."""
+    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+
+
 def grouped_reduce_reference(values, layout: GroupLayout, op: str):
-    """Plain PyTorch twin of K3."""
-    values = values.to(torch.float32)
-    if op in ("min", "max"):
-        return _grouped_extreme(values, layout, op)
-    if op == "stddev":
-        # the correctly rounded root, as K3's __fsqrt_rn and XLA's sqrt
-        # give it: torch.sqrt of f32 on the CPU is off by an ulp on some
-        # inputs; the f64 root rounded to f32 is exact
-        return torch.sqrt(grouped_reduce_reference(values, layout, "stdvar").double()).float()
-    s, c, gids, g, valid = _seg(values, layout)
+    """Plain PyTorch twin of K3: the same left fold over each group's
+    members in ascending row order, vectorized over (group, column), with
+    every input and every arithmetic result flushed to zero when subnormal.
+    Holding K3's order also keeps it bit-identical to the reference's XLA
+    segment ops on the CPU, which add in row order and flush subnormals."""
+    if op not in OPS:
+        raise ValueError(f"unknown grouped op {op!r}")
+    values = _ftz(values.to(torch.float32))
+    pad = torch.from_numpy(np.asarray(layout.pad_index, np.int64)).to(values.device)
+    g, m = pad.shape
+    shape = (g, values.shape[1])
+    zero = torch.zeros(shape, dtype=torch.float32, device=values.device)
+    s, c, ss = zero, zero, zero
+    ext = torch.full(shape, torch.inf if op == "min" else -torch.inf, device=values.device)
+    # a group's members end at its first -1
+    members = [(pad[:, j] >= 0)[:, None] for j in range(m)]
+    rows = [values[pad[:, j].clamp(min=0)] for j in range(m)]
+    for live, x in zip(members, rows):
+        nan = torch.isnan(x)
+        c = torch.where(live, c + (~nan).to(torch.float32), c)
+        if op == "min":
+            y = torch.where(nan, torch.inf, x)
+            take = (y < ext) | ((y == 0) & (ext == 0) & torch.signbit(y))
+            ext = torch.where(live & take, y, ext)
+        elif op == "max":
+            y = torch.where(nan, -torch.inf, x)
+            take = (y > ext) | ((y == 0) & (ext == 0) & ~torch.signbit(y))
+            ext = torch.where(live & take, y, ext)
+        else:
+            s = torch.where(live, _ftz(s + torch.where(nan, 0.0, x)), s)
+    has = c > 0
     if op == "count":
         return c
+    if op in ("min", "max"):
+        return torch.where(has, ext, torch.nan)
     if op == "sum":
-        return torch.where(c > 0, s, torch.nan)
-    mean = torch.where(c > 0, s / torch.clamp(c, min=1), torch.nan)
+        return torch.where(has, s, torch.nan)
+    mean = torch.where(has, _ftz(s / torch.clamp(c, min=1)), torch.nan)
     if op == "avg":
         return mean
-    if op != "stdvar":
-        raise ValueError(f"unknown grouped op {op!r}")
     # two-pass population variance exactly as varianceFn (function.go:124-143)
-    diff = values - mean[gids]
-    sq = torch.where(valid, diff * diff, 0.0)
-    ss = _seg_sum(sq, gids, g)
-    return torch.where(c > 0, ss / torch.clamp(c, min=1), torch.nan)
-
-
-def _gids(values, layout: GroupLayout):
-    return torch.from_numpy(np.asarray(layout.group_ids, np.int64)).to(values.device)
-
-
-def _seg_sum(x, gids, g):
-    return torch.zeros((g,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, gids, x)
-
-
-def _seg(values, layout: GroupLayout):
-    gids = _gids(values, layout)
-    g = layout.num_groups
-    valid = ~torch.isnan(values)
-    x = torch.where(valid, values, 0.0)
-    s = _seg_sum(x, gids, g)
-    c = _seg_sum(valid.to(values.dtype), gids, g)
-    return s, c, gids, g, valid
-
-
-def _grouped_extreme(values, layout: GroupLayout, op: str):
-    gids = _gids(values, layout)
-    g = layout.num_groups
-    valid = ~torch.isnan(values)
-    fill = torch.inf if op == "min" else -torch.inf
-    x = torch.where(valid, values, fill)
-    m = torch.full((g,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
-    m.index_reduce_(0, gids, x, "amin" if op == "min" else "amax", include_self=True)
-    # index_reduce_ keeps whichever zero comes first; the reference's min
-    # (max) is -0 (+0) when a member is -0 (+0)
-    sign = torch.signbit(x) if op == "min" else ~torch.signbit(x)
-    has_zero = _seg_sum(((x == 0) & sign).to(torch.float32), gids, g) > 0
-    m = torch.where((m == 0) & has_zero, -0.0 if op == "min" else 0.0, m)
-    c = _seg_sum(valid.to(torch.float32), gids, g)
-    return torch.where(c > 0, m, torch.nan)
+    for live, x in zip(members, rows):
+        d = _ftz(x - mean)
+        sq = _ftz(d * d)
+        ss = torch.where(live, _ftz(ss + torch.where(torch.isnan(x), 0.0, sq)), ss)
+    var = torch.where(has, _ftz(ss / torch.clamp(c, min=1)), torch.nan)
+    if op == "stdvar":
+        return var
+    # stddev: the correctly rounded root, as K3's __fsqrt_rn and XLA's sqrt
+    # give it (torch's f32 sqrt on the CPU is off by an ulp on some inputs;
+    # the f64 root rounded to f32 is exact)
+    return torch.sqrt(var.double()).float()
 
 
 def grouped_sum(values, layout: GroupLayout):

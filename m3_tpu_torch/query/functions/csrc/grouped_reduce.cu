@@ -20,8 +20,15 @@
 // - stdvar: the two-pass population variance, mean = sum / max(count, 1),
 //   then the fold of (x - mean) * (x - mean) over the non-NaN members over
 //   max(count, 1); stddev its correctly rounded square root.
+// - f32 subnormals flush to a zero of the same sign, every input and every
+//   arithmetic result, as XLA flushes them on the CPU and the TPU: min/max's
+//   candidates explicitly (a compare and a select do not flush under
+//   -ftz=true, and min/max keep the selected input), the sums' operands and
+//   results by the card's -ftz=true arithmetic, and explicitly in the host
+//   build (ftz_op).
 // Build with -fmad=false, so that (x - mean) * (x - mean) and its sum stay
-// separate f32 operations, and without fast math (IEEE division and sqrt).
+// separate f32 operations, with -ftz=true, and without fast math (IEEE
+// division and sqrt).
 //
 // Design. One thread per (group, column); a block is 128 consecutive
 // columns of one group (grid.x groups, grid.y column blocks), so a warp
@@ -37,6 +44,7 @@
 // Without __CUDACC__ the same fold compiles as host C++ (m3_grouped_reduce_host),
 // so the CPU tests hold this source against the twin.
 
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -63,6 +71,21 @@ struct Acc {
 
 M3_HD bool is_nan(float x) { return x != x; }
 
+// A subnormal to the zero of its sign (NaN and the rest unchanged).
+M3_HD float ftz(float x) { return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x; }
+
+// An arithmetic operand or result flushed: the card's add, multiply and
+// divide flush both themselves under -ftz=true (an explicit flush there
+// costs registers and lengthens each fold's chain of dependent adds); the
+// host build flushes them here.
+M3_HD float ftz_op(float x) {
+#ifdef __CUDA_ARCH__
+  return x;
+#else
+  return ftz(x);
+#endif
+}
+
 M3_HD bool sign_bit(float x) {
   uint32_t u;
   memcpy(&u, &x, sizeof u);
@@ -79,27 +102,28 @@ M3_HD void init(Acc& a, int op) {
 // Pass 1 (sum, count, min, max) or pass 2 (the squared deviations), one
 // member at a time, in order.
 M3_HD void fold(Acc& a, float x, int op, int pass) {
+  x = ftz_op(x);
   const bool nan = is_nan(x);
   if (pass == 2) {
-    const float d = x - a.mean;
-    a.ss += nan ? 0.0f : d * d;
+    const float d = ftz_op(x - a.mean);
+    a.ss = ftz_op(a.ss + (nan ? 0.0f : ftz_op(d * d)));
     return;
   }
   a.c += nan ? 0.0f : 1.0f;
   if (op == kMin) {
-    const float y = nan ? INFINITY : x;
+    const float y = nan ? INFINITY : ftz(x);
     if (y < a.m || (y == 0.0f && a.m == 0.0f && sign_bit(y))) a.m = y;
   } else if (op == kMax) {
-    const float y = nan ? -INFINITY : x;
+    const float y = nan ? -INFINITY : ftz(x);
     if (y > a.m || (y == 0.0f && a.m == 0.0f && !sign_bit(y))) a.m = y;
   } else {
-    a.s += nan ? 0.0f : x;
+    a.s = ftz_op(a.s + (nan ? 0.0f : x));
   }
 }
 
 M3_HD float finish_pass1(Acc& a, int op) {
   // for stdvar: the mean of pass 2 (NaN where count is 0, unused then)
-  a.mean = a.c > 0.0f ? a.s / fmaxf(a.c, 1.0f) : NAN;
+  a.mean = a.c > 0.0f ? ftz_op(a.s / fmaxf(a.c, 1.0f)) : NAN;
   switch (op) {
     case kSum: return a.c > 0.0f ? a.s : NAN;
     case kCount: return a.c;
@@ -110,7 +134,7 @@ M3_HD float finish_pass1(Acc& a, int op) {
 
 M3_HD float finish_pass2(const Acc& a, int op) {
   if (!(a.c > 0.0f)) return NAN;
-  const float var = a.ss / fmaxf(a.c, 1.0f);
+  const float var = ftz_op(a.ss / fmaxf(a.c, 1.0f));
 #ifdef __CUDA_ARCH__
   return op == kStddev ? __fsqrt_rn(var) : var;
 #else

@@ -22,12 +22,17 @@ meanwhile); under an active lease it writes a ``clone()``, so the lease
 holder's snapshot stays bit-stable, and the clone is published after.
 ``inplace_admissions`` / ``copy_admissions`` count which path ran.
 Eviction is LRU under the byte budget, plus explicit invalidation.
+Read-through re-admission (``admit_block(readmission=True)``, driven by
+``query/m3_storage.M3Storage``) fills free space only and keeps the
+reference's markers: filesets that can never complete (a lane over the
+page-span limit) and filesets whose last re-admission the budget refused
+(``budget_deferred``), so a streamed query skips a re-read that is bound
+to fail.
 
 Left out: born-resident admission from the device encoder
-(``admit_block_device``, with the write-path slice, ROADMAP §A.4), the
-storage layer's read-through re-admission and its markers (with the
-``Database`` wiring, ROADMAP §A.4), and the native batch prescan (the
-port prescans with ``ops/chunked.snapshot_stream``).
+(``admit_block_device``, with the write-path slice, ROADMAP §A6), and the
+native batch prescan (the port prescans with
+``ops/chunked.snapshot_stream``).
 """
 
 from __future__ import annotations
@@ -176,6 +181,14 @@ class ResidentPool:
         # (namespace, shard, block_start, volume) groups whose every
         # non-empty stream is resident
         self._complete: set[tuple] = set()
+        # groups whose admission rejected a lane for page span: they can
+        # never become complete at this max_lane_pages (a volume bump is a
+        # new group and is retried)
+        self._span_incomplete: set[tuple] = set()
+        # groups a read-through re-admission rejected for budget -> (data,
+        # side) free-list sizes at that failure: a retry is bound to fail
+        # until either free list grows past its mark
+        self._budget_deferred: dict[tuple, tuple[int, int]] = {}
         # bumps on _reset_locked so an in-flight admission knows its pages
         # were reclaimed
         self._generation = 0
@@ -195,10 +208,15 @@ class ResidentPool:
         self.evictions = 0
         self.invalidations = 0
         self.upload_bytes = 0
+        self.readmissions = 0
         self.inplace_admissions = 0
         self.copy_admissions = 0
         self.side_pack_overflows = 0
         self.rebalance_evictions = 0
+        # born-resident admission waits for ROADMAP §A6; these stay 0 and
+        # keep stats() keyed as the reference's
+        self.device_admissions = 0
+        self.ingest_side_stage_bytes = 0
         reg = registry or METRICS
         self._m_admissions = reg.counter("resident_admissions_total",
                                          "blocks admitted to the resident pool")
@@ -208,6 +226,10 @@ class ResidentPool:
                                         "LRU/budget evictions from the pool")
         self._m_invalidations = reg.counter("resident_invalidations_total",
                                             "entries dropped by invalidation hooks")
+        self._m_readmissions = reg.counter(
+            "resident_readmissions_total",
+            "entries re-admitted by read-through after a streamed fallback",
+        )
         self._m_upload = reg.counter(
             "resident_upload_bytes_total",
             "host->device block bytes uploaded at admission (warm resident "
@@ -288,16 +310,24 @@ class ResidentPool:
     # ---------- admission ----------
 
     def admit_block(self, namespace: str, shard_id: int, block_start: int, volume: int,
-                    items: list, chunk_k: int = CHUNK_K) -> AdmitResult:
+                    items: list, chunk_k: int = CHUNK_K,
+                    readmission: bool = False) -> AdmitResult:
         """Admit one sealed block's streams in one batched upload.
 
         ``items``: ``[(series_id, stream_bytes, num_points_bound)]`` or
         ``[(series_id, stream_bytes, num_points_bound, side_snaps)]``;
-        empty streams are skipped. Without ``side_snaps`` (snapshot dicts of
-        ``ops/chunked.snapshot_stream``) the chunk prescan runs here. A lane
+        empty streams are skipped. ``side_snaps`` are snapshot dicts of
+        ``ops/chunked.snapshot_stream`` or their packed rows (uint32
+        [n_chunks, 10], as a v3 fileset side file stores them); without
+        them the chunk prescan runs here. A lane
         whose snapshots overflow the packed layout is admitted without side
         planes (counted). Items that pass the same snapshot list share one
         packing.
+
+        ``readmission`` (read-through, after a streamed fallback): lanes
+        already resident at their key are touched instead of re-uploaded,
+        the new ones fill free space only (never evicting), and a budget
+        refusal marks the group ``budget_deferred``.
 
         Three phases, so the table lock is held only for bookkeeping:
         1. under the table lock: allocate data and side pages (evicting LRU
@@ -333,6 +363,13 @@ class ResidentPool:
                 continue
             # keyed by the identity of the item's own list, alive in `norm`
             packed = packed_rows.get(id(snaps))
+            if packed is None and isinstance(snaps, np.ndarray):
+                # rows already packed (a v3 fileset side file): the same
+                # rows pack_side_rows gives for their snapshots
+                offs = (snaps[:, 8] >> 11).astype(np.int64)
+                spans = np.diff(np.append(offs, len(stream) * 8))
+                packed = (snaps, len(snaps), int(spans.max()) if len(snaps) else 0, 0)
+                packed_rows[id(snaps)] = packed
             if packed is None:
                 rows = pack_side_rows(snaps, block_start) if snaps else None
                 if snaps and rows is None:
@@ -353,11 +390,21 @@ class ResidentPool:
             self._m_side_overflow.inc(side_overflows)
         rejected_budget = 0
         admitted = 0
+        already_resident = 0
         batch_entries: list[tuple] = []
         with self._upload_lock:
             with self._lock:
                 for key, stream, n_pages, n_side, rows, n_chunks, max_span in plan:
-                    alloc = self._alloc_locked(n_pages, n_side)
+                    if readmission and key in self._od:
+                        # one evicted shard-mate must not re-upload the whole
+                        # fileset: touch the lane and count it as complete
+                        self._od.move_to_end(key)
+                        already_resident += 1
+                        continue
+                    # re-admissions fill free space only: evicting published
+                    # entries for them would ping-pong a working set larger
+                    # than the pool
+                    alloc = self._alloc_locked(n_pages, n_side, evict_ok=not readmission)
                     if alloc is None:
                         rejected_budget += 1
                         continue
@@ -420,14 +467,25 @@ class ResidentPool:
                         self._free.extend(entry.pages)
                         self._free_side.extend(entry.side_pages)
                 complete = (
-                    admitted > 0 and rejected_span == 0 and rejected_budget == 0
-                    and published == len(plan)
+                    admitted + already_resident > 0 and rejected_span == 0
+                    and rejected_budget == 0 and published + already_resident == len(plan)
                 )
+                group = (namespace, shard_id, block_start, volume)
                 if complete:
-                    self._complete.add((namespace, shard_id, block_start, volume))
+                    self._complete.add(group)
+                if rejected_span:
+                    self._span_incomplete.add(group)
+                if readmission:
+                    if rejected_budget:
+                        self._budget_deferred[group] = (len(self._free), len(self._free_side))
+                    else:
+                        self._budget_deferred.pop(group, None)
                 self.admissions += admitted
                 self.rejections += rejected_span + rejected_budget
                 self._m_admissions.inc(admitted)
+                if readmission and admitted:
+                    self.readmissions += admitted
+                    self._m_readmissions.inc(admitted)
                 if rejected_span + rejected_budget:
                     self._m_rejections.inc(rejected_span + rejected_budget)
                 self._publish_locked()
@@ -435,9 +493,9 @@ class ResidentPool:
 
     def admit_block_device(self, *args, **kwargs) -> AdmitResult:
         """Born-resident admission of pages encoded on the device: waits for
-        the write-path slice (ROADMAP §A.4, device encode at seal)."""
+        the write-path slice (ROADMAP §A6, device encode at seal)."""
         raise NotImplementedError(
-            "admit_block_device waits for the port's write path (ROADMAP §A.4)"
+            "admit_block_device waits for the port's write path (ROADMAP §A6)"
         )
 
     @staticmethod
@@ -530,12 +588,12 @@ class ResidentPool:
             self.copy_admissions += 1
             self._m_copy.inc()
 
-    def _alloc_locked(self, n_pages: int, n_side: int):
+    def _alloc_locked(self, n_pages: int, n_side: int, evict_ok: bool = True):
         """Pop pages from both free lists, LRU-evicting until they fit (the
-        reserved zero pages are never on the free lists). Returns (pages,
-        side_pages) or None."""
+        reserved zero pages are never on the free lists); ``evict_ok=False``
+        takes free pages only. Returns (pages, side_pages) or None."""
         while len(self._free) < n_pages or len(self._free_side) < n_side:
-            if not self._evict_one_locked():
+            if not evict_ok or not self._evict_one_locked():
                 return None
         return (
             [self._free.pop() for _ in range(n_pages)],
@@ -566,6 +624,30 @@ class ResidentPool:
     def is_complete(self, namespace: str, shard_id: int, block_start: int, volume: int) -> bool:
         with self._lock:
             return (namespace, shard_id, block_start, volume) in self._complete
+
+    def has_free_capacity(self) -> bool:
+        """Free pages exist in both planes: re-admissions never evict, so a
+        full pool makes one pointless and callers skip the fileset re-read."""
+        with self._lock:
+            return bool(self._free) and bool(self._free_side)
+
+    def never_completable(self, namespace: str, shard_id: int, block_start: int,
+                          volume: int) -> bool:
+        """A past admission of this fileset rejected a lane for page span:
+        re-admitting it can never make it complete."""
+        with self._lock:
+            return (namespace, shard_id, block_start, volume) in self._span_incomplete
+
+    def budget_deferred(self, namespace: str, shard_id: int, block_start: int,
+                        volume: int) -> bool:
+        """A past re-admission of this fileset was refused for budget and
+        neither free list (data or side plane) has grown since: a retry
+        would re-read the fileset for another refusal. Any eviction or
+        invalidation that frees pages past the mark lets the next one try."""
+        with self._lock:
+            rec = self._budget_deferred.get((namespace, shard_id, block_start, volume))
+            return (rec is not None and len(self._free) <= rec[0]
+                    and len(self._free_side) <= rec[1])
 
     def __contains__(self, key: BlockKey) -> bool:
         with self._lock:
@@ -736,6 +818,8 @@ class ResidentPool:
             self._by_series.clear()
             self._by_block.clear()
             self._complete.clear()
+            self._span_incomplete.clear()
+            self._budget_deferred.clear()
             self.invalidations += n
             self._m_invalidations.inc(n)
             self._publish_locked()
@@ -806,6 +890,8 @@ class ResidentPool:
         self._by_series.clear()
         self._by_block.clear()
         self._complete.clear()
+        self._span_incomplete.clear()
+        self._budget_deferred.clear()
         self._free = list(range(self.options.num_pages - 1, 0, -1))
         self._free_side = list(range(self.options.num_side_pages - 1, 0, -1))
         self._resident_bytes = 0
@@ -824,11 +910,12 @@ class ResidentPool:
             del self._pending[key]
 
     def _drop_complete_locked(self, namespace, shard_id, block_start, below_volume) -> None:
-        self._complete -= {
-            g for g in self._complete
-            if g[:3] == (namespace, shard_id, block_start)
-            and (below_volume is None or g[3] < below_volume)
-        }
+        match = lambda g: (g[:3] == (namespace, shard_id, block_start)
+                           and (below_volume is None or g[3] < below_volume))
+        self._complete -= {g for g in self._complete if match(g)}
+        self._span_incomplete -= {g for g in self._span_incomplete if match(g)}
+        for g in [g for g in self._budget_deferred if match(g)]:
+            del self._budget_deferred[g]
 
     def _drop_locked(self, keys) -> int:
         if not keys:
@@ -897,10 +984,13 @@ class ResidentPool:
                 "evictions": self.evictions,
                 "invalidations": self.invalidations,
                 "upload_bytes": self.upload_bytes,
+                "readmissions": self.readmissions,
                 "inplace_admissions": self.inplace_admissions,
                 "copy_admissions": self.copy_admissions,
                 "side_pack_overflows": self.side_pack_overflows,
                 "rebalance_evictions": self.rebalance_evictions,
+                "device_admissions": self.device_admissions,
+                "ingest_side_stage_bytes": self.ingest_side_stage_bytes,
                 "epoch": self.epoch,
                 "shard_heat": self.heat.dump(),
             }

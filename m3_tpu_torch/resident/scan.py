@@ -39,12 +39,12 @@ def resident_scan_totals(pool, keys: list, mesh=None, device_out: bool = False):
     ``len(keys)`` and copied to the host, or None when a key is not
     resident or has no side planes (the caller streams instead).
     ``device_out``: return the padded aggregates on the device instead.
-    ``mesh`` (a sharded scan) waits for ROADMAP §A.4 "Streaming and mesh"."""
+    ``mesh`` (a sharded scan) waits for ROADMAP §A8 "Streaming and mesh"."""
     from ..parallel.scan import resident_chunked_scan
 
     if mesh is not None:
         raise NotImplementedError(
-            "a sharded resident scan waits for the port's mesh (ROADMAP §A.4, Streaming and mesh)"
+            "a sharded resident scan waits for the port's mesh (ROADMAP §A8, Streaming and mesh)"
         )
     with pool.read_lease():
         plan = pool.plan_chunked(keys)

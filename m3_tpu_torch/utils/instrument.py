@@ -4,7 +4,7 @@ A copy of the ``Counter``/``Gauge``/``Registry``/``DEFAULT`` subset of
 ``m3_tpu/utils/instrument.py`` (the resident pool's accounting needs it:
 ``resident_upload_bytes_total`` is the zero-transfer contract of warm
 resident scans). Histograms, the text expositions and the kernel profilers
-wait for the observability slice (ROADMAP §A.4).
+wait for the observability slice (ROADMAP §A9).
 """
 
 from __future__ import annotations

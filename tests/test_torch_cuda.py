@@ -520,3 +520,144 @@ def test_cuda_grouped_reduce_matches_twin_and_repeats(groups):
         torch.cuda.synchronize()
         assert _bits_identical(got, again), op
         assert _bits_identical(got.cpu(), A.grouped_reduce(x, layout, op)), op
+
+
+def _resident_plan_cuda(n_series=300, seed=2, page_words=16):
+    """A pool on the card with lanes of 1 to 4 chunks (k=8, two chunks a
+    side page), float and int series over two blocks, and its plan. Pages
+    of 16 and of 6 words are two page sizes for B-2's one word-by-word
+    window walk: its windows cross page boundaries at different offsets."""
+    from m3_tpu_torch.cache.block_cache import BlockKey
+    from m3_tpu_torch.codec.m3tsz import Encoder
+    from m3_tpu_torch.resident import ResidentOptions, ResidentPool
+
+    rng = np.random.default_rng(seed)
+    pool = ResidentPool(ResidentOptions(max_bytes=1 << 22, page_words=page_words,
+                                        side_bytes=1 << 22, side_page_chunks=2), device="cuda")
+    keys = []
+    for i in range(n_series):
+        n = int(rng.integers(1, 30))
+        vals = (rng.standard_normal(n) * 100).round(1 if i % 2 else 0)
+        bs = T0 if i % 3 else T0 + 7200 * 10**9
+        enc = Encoder(bs)
+        t = bs
+        for v in vals:
+            t += int(rng.integers(1, 20)) * 10**9
+            enc.encode(t, float(v))
+        sid = b"s%04d" % i
+        assert pool.admit_block("ns", i % 2, bs, 0, [(sid, enc.stream(), n)], chunk_k=8).admitted
+        keys.append(BlockKey("ns", i % 2, sid, bs, 0))
+    return pool.plan_chunked(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,rows,s_pad,page_words", [
+    ("c", 1, 300, 16), ("c", 32, 512, 16), ("s", 1, 300, 16), ("s", 2, 333, 16),
+    ("c", 1, 300, 6)])
+def test_cuda_resident_assembly_matches_twin_packed(order, rows, s_pad, page_words):
+    """Kernel B-2 == its twin bit for bit on B1's and R's layout: windows,
+    planes and tile flags, with lanes past each series' n_chunks, padding
+    series and padding tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    plan = _resident_plan_cuda(page_words=page_words)
+    assert len(set(plan.n_chunks.tolist())) > 1
+    before = scan.ASSEMBLY_LAUNCHES
+    got, _ = scan.assemble_resident_packed(plan, s_pad, order=order, rows=rows)
+    assert scan.ASSEMBLY_LAUNCHES == before + 1
+    want, _ = scan.assemble_resident_packed_reference(plan, s_pad, order=order, rows=rows)
+    assert got.n == want.n and got.order == want.order
+    for f in ("windows", "lanes", "tile_flags"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad", [300, 512])
+def test_cuda_resident_assembly_matches_twin_fields(s_pad):
+    """Kernel B-2 == its twin bit for bit on B3's per-field layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    plan = _resident_plan_cuda(seed=5)
+    got, _ = scan.assemble_resident_lanes(plan, s_pad)
+    want, _ = scan.assemble_resident_lanes_reference(plan, s_pad)
+    assert set(got) == set(want)
+    for f, x in want.items():
+        pairs = zip(got[f], x) if isinstance(x, tuple) else [(got[f], x)]
+        for a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_reduce_flushes_subnormals_like_twin():
+    """K3 on subnormal, +-0 and NaN inputs (whose sums, means and squared
+    deviations are subnormal too) == the twin that flushes them, bit for
+    bit, all seven ops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.block.core import SeriesMeta
+    from m3_tpu_torch.query.functions import aggregation as A
+
+    rng = np.random.default_rng(12)
+    v = (rng.standard_normal((2000, 200)) * 1e-37).astype(np.float32)
+    roll = rng.random(v.shape)
+    v[roll < 0.2] = np.float32(1e-40)
+    v[(roll >= 0.2) & (roll < 0.35)] = np.float32(-3e-40)
+    v[(roll >= 0.35) & (roll < 0.45)] = np.nan
+    v[(roll >= 0.45) & (roll < 0.55)] = -0.0
+    metas = [SeriesMeta(tags=((b"g", b"%d" % (i % 7)), (b"i", b"%d" % i))) for i in range(2000)]
+    layout = A.group_by_tags(metas, [b"g"])
+    x = torch.from_numpy(v)
+    for op in A.OPS:
+        got = A.grouped_reduce(x.cuda(), layout, op).cpu()
+        want = A.grouped_reduce(x, layout, op)
+        assert _bits_identical(got, want), op
+        nz = got[(got != 0) & ~got.isnan()]
+        assert not (nz.abs() < np.finfo(np.float32).tiny).any(), op
+
+
+@pytest.mark.cuda
+def test_cuda_readmission_device_fault_raises(tmp_path, monkeypatch):
+    """A device fault during read-through re-admission (here a real CUDA
+    out-of-memory in the pool's upload) is counted and raised out of the
+    query: the port does not answer from the streamed result as the
+    reference does (ROADMAP §C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query import m3_storage as m3s
+    from m3_tpu_torch.query.promql import Matcher
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.resident import pool as pool_mod
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+
+    db = Database(str(tmp_path), num_shards=2, commitlog_enabled=False,
+                  resident_options=ResidentOptions(max_bytes=1 << 22), device="cuda")
+    db.create_namespace("ns", NamespaceOptions())
+    for i in range(8):
+        tags = ((b"__name__", b"g"), (b"s", b"%03d" % i))
+        for j in range(40):
+            db.write_tagged("ns", tags, T0 + j * 10**10, float(i * j))
+    db.flush("ns", T0 + 4 * 3600 * 10**9)
+    st = m3s.M3Storage(db, "ns")
+    m = [Matcher("__name__", "=", "g")]
+    span = (T0, T0 + 3600 * 10**9)
+    assert st.scan_totals(m, *span)["path"] == "resident"
+    db.resident_clear()
+    scatter = pool_mod._scatter
+
+    def oom(buf, idx, staged, inplace):
+        torch.empty(1 << 50, dtype=torch.int32, device=buf.device)  # more than the card holds
+        return scatter(buf, idx, staged, inplace)
+
+    monkeypatch.setattr(pool_mod, "_scatter", oom)
+    before = m3s._M_READMIT_FAILURES.value
+    with pytest.raises(torch.OutOfMemoryError):
+        st.scan_totals(m, *span)
+    assert m3s._M_READMIT_FAILURES.value == before + 1
+    monkeypatch.setattr(pool_mod, "_scatter", scatter)
+    assert st.scan_totals(m, *span)["path"] == "streamed"  # re-admits this time
+    assert st.scan_totals(m, *span)["path"] == "resident"
+    db.close()
