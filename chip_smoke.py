@@ -66,8 +66,12 @@ Phases (any failure exits non-zero):
              over 11,111 series, one group), is held to an f64 sum as
              above; each query run twice is bit-identical; K3 (the grouped
              reductions) equals its twin on a CPU copy bit for bit for all
-             seven ops, timed beside index_add_ at 10 groups and at one
-             group of all 100,000 series (a plain sum over the block).
+             seven ops, and its sum is timed with pad_index already on the
+             card, beside index_add_ and its bound (the larger of the bytes
+             and the fold's chain of dependent adds at the SM clock), at 10
+             groups, at one group of all 100,000 series (a plain sum over
+             the block) and at the fan-out query's [11,111, 720] into one
+             group, with the column-block width it picked.
   index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
              x 10 cpu fields = 1,000,000 series, each with __name__ and
              TSBS's 10 host tags, values drawn from --seed over TSBS's value
@@ -104,8 +108,8 @@ Phases (any failure exits non-zero):
              for bit here and in [resident] (1M series), K3 on subnormal
              inputs == its flushed twin. Prints the bootstrap seconds, each
              query's end-to-end median, the scans' end-to-end times, B-2's
-             time beside its bound and its twin's, and the node's resident
-             and index stats.
+             time beside its bound, its twin's and the series its direct
+             route took, and the node's resident and index stats.
 Prints the card as nvidia-smi reports it, a {"kernels": [...]} line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -123,6 +127,7 @@ import numpy as np
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+CHAIN_CYCLES = 4  # latency of a dependent f32 add on Hopper: K3's row-order fold is a chain of them
 PARITY_SERIES, MAIN_SERIES, N_POINTS, K, N_UNIQUE = 4096, 1 << 20, 720, 24, 64
 QUERY_SERIES, QUERY_JOBS, STEP = 100_000, 10, 10 * 10**9
 INDEX_HOSTS, INDEX_SECOND_BLOCK_HOSTS, HOUR = 100_000, 10_000, 3600 * 10**9
@@ -783,7 +788,10 @@ def b2_check(plan, s_pad: int, tag: str) -> dict:
     run = lambda: scan._launch_assembly(plan, s_pad, "c", False, tile, vecs)
     ms = statistics.median(cuda_ms(run, 20))
     b2b = per_launch_ms(run)
+    direct = scan.ASSEMBLY_DIRECT_SERIES
     windows, planes, flags, n = run()
+    direct = scan.ASSEMBLY_DIRECT_SERIES - direct
+    with_chunks = int((plan.n_chunks > 0).sum())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scan.assemble_resident_packed_reference(plan, s_pad, order="c")
@@ -798,8 +806,10 @@ def b2_check(plan, s_pad: int, tag: str) -> dict:
         f"layouts; [{n} lanes, cw {plan.window_words}] {ms:.3f} ms (median of 20, CUDA "
         f"events; back-to-back {b2b:.3f} ms), bound {bound:.3f} ms ({(bytes_in + bytes_out) / 1e9:.4f} "
         f"GB: {bytes_in / 1e9:.4f} in, {bytes_out / 1e9:.4f} out, at 3.35 TB/s = "
-        f"{bound / ms:.1%} of roofline); twin {plain_ms:.1f} ms")
-    return {"ms": ms, "b2b": b2b, "plain_ms": plain_ms, "bound_ms": bound, "lanes": n}
+        f"{bound / ms:.1%} of roofline); direct-route series {direct} of {with_chunks}; twin "
+        f"{plain_ms:.1f} ms")
+    return {"ms": ms, "b2b": b2b, "plain_ms": plain_ms, "bound_ms": bound, "lanes": n,
+            "direct": direct}
 
 
 def phase_temporal_sizes(dev) -> float:
@@ -1014,8 +1024,6 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     layout = A.group_by_tags(metas, [b"job"])
     group_s = time.perf_counter() - t0
     agg_x = out_rate[:, window - 1:].contiguous()
-    agg_ms = statistics.median(cuda_ms(lambda: A.grouped_sum(agg_x, layout), 20))
-    agg_b2b = per_launch_ms(lambda: A.grouped_sum(agg_x, layout))
     # K3 == its twin on a CPU copy of the same values, all seven ops
     agg_cpu = agg_x.cpu()
     for op in A.OPS:
@@ -1027,27 +1035,16 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     A.grouped_reduce_reference(agg_x, layout, "sum")
     torch.cuda.synchronize()
     k3_plain = (time.perf_counter() - t0) * 1e3
-    gids = torch.from_numpy(layout.group_ids.astype(np.int64)).to(dev)
-    filled = agg_x.nan_to_num(0.0)
-    index_add = lambda: torch.zeros((layout.num_groups, filled.shape[1]), device=dev).index_add_(
-        0, gids, filled)
-    k3_lib = statistics.median(cuda_ms(index_add, 20))
-    a_rows, a_cols = agg_x.shape
-    k3_bytes = (a_rows * a_cols + layout.num_groups * a_cols + layout.pad_index.size) * 4
-    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_ops_ms = 2 * a_rows * a_cols / F32_FLOP_PER_S * 1e3  # the sum's and the count's adds
-    k3_bound = max(k3_bytes_ms, k3_ops_ms)
-    # the one-group shape of a plain sum(...) over every series of the block:
-    # each of the [cols] threads folds all [rows] members in order
-    layout1 = A.group_by_tags(metas)
-    if not same_bits(A.grouped_sum(agg_x, layout1), A.grouped_sum(agg_cpu, layout1)):
-        raise AssertionError("K3 sum into one group differs from its twin on the CPU")
-    k3_one = statistics.median(cuda_ms(lambda: A.grouped_sum(agg_x, layout1), 20))
-    gids1 = torch.zeros(a_rows, dtype=torch.int64, device=dev)
-    k3_one_lib = statistics.median(cuda_ms(
-        lambda: torch.zeros((1, a_cols), device=dev).index_add_(0, gids1, filled), 20))
-    k3_one_bound = (a_rows * a_cols + a_cols + a_rows) * 4 / HBM_BYTES_PER_S * 1e3
-    del agg_cpu, filled, gids1
+    # K3's three shapes: the query's 10 groups, one group of every series
+    # of the block (a plain sum(...)), and the fan-out query's one group
+    clock_hz = sm_clock_hz()
+    k3 = {"10 groups": k3_times(agg_x, layout, dev, clock_hz)}
+    k3["one group"] = k3_times(agg_x, A.group_by_tags(metas), dev, clock_hz)
+    hit_rows = torch.from_numpy(np.flatnonzero(hit)).to(dev)
+    k3["fan-out"] = k3_times(agg_x[hit_rows].contiguous(),
+                             A.group_by_tags([metas[i] for i in np.flatnonzero(hit)]), dev,
+                             clock_hz)
+    del agg_cpu, hit_rows
 
     e2e = {}
     for fn, q in queries.items():
@@ -1130,14 +1127,18 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     log(f"[query] B2 library yardstick: F.avg_pool1d over the zero-filled, left-padded matrix "
         f"{lib_ms:.3f} ms (back-to-back {lib_b2b:.3f} ms); it computes only the NaN-free avg_over_time (no NaN gate, no "
         f"valid count); none exists for rate (null)")
-    log(f"[query] aggregation: group_by_tags (host) {group_s * 1e3:.1f} ms, grouped_sum (K3) "
-        f"[{rows}, {cols - window + 1}] -> [{QUERY_JOBS}, ...] {agg_ms:.3f} ms (median of 20; "
-        f"back-to-back {agg_b2b:.3f} ms); bound {k3_bound:.3f} ms ({k3_bytes / 1e9:.4f} GB at "
-        f"3.35 TB/s = {k3_bound / agg_ms:.1%} of roofline; f32 ops {k3_ops_ms:.4f} ms); twin "
-        f"{k3_plain:.1f} ms; index_add_ (the same sum, atomics) {k3_lib:.3f} ms")
-    log(f"[query] aggregation into one group (a plain sum over all {a_rows} series): grouped_sum "
-        f"(K3) [{a_rows}, {a_cols}] -> [1, {a_cols}] {k3_one:.3f} ms (median of 20, == twin bit for "
-        f"bit); bound {k3_one_bound:.3f} ms; index_add_ (the same sum, atomics) {k3_one_lib:.3f} ms")
+    log(f"[query] aggregation: group_by_tags (host) {group_s * 1e3:.1f} ms; K3's twin (sum, 10 "
+        f"groups) {k3_plain:.1f} ms")
+    for what, k in k3.items():
+        log(f"[query] K3 (grouped_reduce) sum {k['shape']} -> {what} ({k['groups']} x "
+            f"{k['members']} members at most): WC {k['wc']}, {k['ms']:.3f} ms (pad_index on the "
+            f"card; median of 20, CUDA events; back-to-back {k['b2b']:.3f} ms), with the wrapper's "
+            f"pad_index copy {k['wrapper_ms']:.3f} ms; bound {k['bound_ms']:.3f} ms = max(bytes "
+            f"{k['bytes_ms']:.3f} ms: {k['bytes'] / 1e9:.4f} GB at 3.35 TB/s, chain "
+            f"{k['chain_ms']:.3f} ms: {k['members']} dependent adds x {CHAIN_CYCLES} cycles at "
+            f"{clock_hz / 1e6:.0f} MHz) = {k['bound_ms'] / k['ms']:.1%} of it; index_add_ (the "
+            f"same sum, atomics) {k['lib_ms']:.3f} ms: K3 "
+            f"{'faster' if k['ms'] < k['lib_ms'] else 'NOT faster'}; == twin bit for bit")
     for fn, q in queries.items():
         log(f"[query] end to end {q}: {e2e[fn] * 1e3:.3f} ms (median of 10, host clock, "
             f"ending in a host copy)")
@@ -1178,12 +1179,54 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
         "replaces": "m3_tpu/query/functions/aggregation.py:95",
         "launches": launches["grouped_reduce"],
         "max_abs_err": 0,
-        "ms": agg_ms,
+        "ms": k3["10 groups"]["ms"],
         "plain_ms": k3_plain,
-        "bound_ms": k3_bound,
-        "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
-        "library_ms": k3_lib,
+        "bound_ms": k3["10 groups"]["bound_ms"],
+        "bound_by": k3["10 groups"]["bound_by"],
+        "library_ms": k3["10 groups"]["lib_ms"],
     }]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def k3_times(x, layout, dev, clock_hz: float) -> dict:
+    """K3's grouped sum of f32 [rows, cols] into the layout's groups, held
+    to its twin on a CPU copy, then timed with pad_index already on the card
+    (and through the wrapper, which copies it), beside index_add_ of the
+    same sum and the bound: the larger of the bytes (values read once, the
+    outputs and pad_index once) and the fold's chain, the largest group's
+    members as dependent adds at CHAIN_CYCLES each at the SM clock."""
+    import torch
+
+    from m3_tpu_torch.ops._build import load_library
+    from m3_tpu_torch.query.functions import aggregation as A
+
+    pad = torch.from_numpy(np.ascontiguousarray(layout.pad_index, np.int32)).to(dev)
+    run = lambda: A.launch_grouped_reduce(x, pad, "sum")
+    if not same_bits(run(), A.grouped_sum(x.cpu(), layout)):
+        raise AssertionError(f"K3 sum into {layout.num_groups} groups differs from its twin")
+    ms = statistics.median(cuda_ms(run, 20))
+    b2b = per_launch_ms(run)
+    wrapper_ms = statistics.median(cuda_ms(lambda: A.grouped_sum(x, layout), 20))
+    gids = torch.from_numpy(layout.group_ids.astype(np.int64)).to(dev)
+    filled = x.nan_to_num(0.0)
+    g, (rows, cols) = layout.num_groups, x.shape
+    lib_ms = statistics.median(cuda_ms(
+        lambda: torch.zeros((g, cols), device=dev).index_add_(0, gids, filled), 20))
+    nbytes = (rows * cols + g * cols + pad.numel()) * 4
+    members = int((layout.pad_index >= 0).sum(axis=1).max())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = members * CHAIN_CYCLES / clock_hz * 1e3
+    return {"shape": f"[{rows}, {cols}]", "groups": g, "members": members,
+            "wc": load_library("grouped_reduce").m3_grouped_reduce_width(g, cols), "ms": ms,
+            "b2b": b2b, "wrapper_ms": wrapper_ms, "lib_ms": lib_ms, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "chain_ms": chain_ms, "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations"}
 
 
 def tsbs_host_tags(n_hosts: int, seed: int) -> list:

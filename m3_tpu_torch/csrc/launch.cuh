@@ -1,7 +1,9 @@
 // Launch helpers shared by the port's CUDA sources (ops/csrc/lane_aggregates.cu,
-// query/functions/csrc/temporal_fused.cu): the shared memory a block may
-// use, the size of a persistent grid, and cp.async copies into shared
-// memory. Only kSmemMax is seen by the host C++ builds of those sources.
+// query/functions/csrc/temporal_fused.cu, query/functions/csrc/grouped_reduce.cu,
+// parallel/csrc/resident_assembly.cu): the shared memory a block may use,
+// the size of a persistent grid (and a kernel's shared memory limit), and
+// cp.async copies into shared memory. Only kSmemMax is seen by the host C++
+// builds of those sources.
 
 #pragma once
 

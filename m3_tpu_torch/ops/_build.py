@@ -86,8 +86,10 @@ SOURCES = {
         PKG / "query" / "functions" / "csrc" / "grouped_reduce.cu",
         _COMMON + ("-ftz=true",),
         {
-            # values, cols, pad_index, groups, m, op, out, stream
-            "m3_grouped_reduce": [_P, _I64, _P, _I64, _I64, _I, _P, _P],
+            # values, rows, cols, pad_index, groups, m, op, wc, out, stream
+            "m3_grouped_reduce": [_P, _I64, _I64, _P, _I64, _I64, _I, _I, _P, _P],
+            # groups, cols -> the column-block width the entry picks
+            "m3_grouped_reduce_width": [_I64, _I64],
         },
     ),
     "resident_assembly": (
@@ -96,9 +98,11 @@ SOURCES = {
         {
             # words, side, page_rows, side_rows, n_chunks, total_bits, block_hi,
             # block_lo, s, c, lp, sl, w, spc, cw, order, lane_major, npad,
-            # tile_lanes, windows, planes, tile_flags, stream
+            # tile_lanes, slot_words, windows, planes, tile_flags, stream
             "m3_resident_assembly": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
-                                     _I, _I, _I, _I, _I64, _I64, _P, _P, _P, _P],
+                                     _I, _I, _I, _I, _I64, _I64, _I, _P, _P, _P, _P],
+            # c, cw -> the most stream words a staged series may take
+            "m3_resident_assembly_slot_words": [_I64, _I],
         },
     ),
 }
@@ -106,6 +110,16 @@ SOURCES = {
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # nvcc's output (ptxas register/spill report) per library
+
+
+def launch_error(kernel: str, rc: int, **tensors) -> RuntimeError:
+    """The error a wrapper raises when its kernel's launch failed: the CUDA
+    error code and each launch tensor's shape, stride, dtype and data
+    pointer, so that one log line shows what the kernel was given."""
+    given = "; ".join(
+        f"{name} shape {tuple(t.shape)} stride {tuple(t.stride())} {t.dtype} at 0x{t.data_ptr():x}"
+        for name, t in tensors.items() if t is not None)
+    return RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}; {given}")
 
 
 def nvcc_path() -> str:

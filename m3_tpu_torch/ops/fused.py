@@ -242,7 +242,7 @@ def lane_aggregates(windows, lanes, tile_flags, n: int, k: int) -> LaneAggregate
 
 def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
     global LAUNCHES
-    from ._build import load_library
+    from ._build import launch_error, load_library
 
     lib = load_library("lane_aggregates")
     check_launch_shape(lib, "lane_aggregates", windows.shape[0])
@@ -265,7 +265,8 @@ def _launch(windows, lanes, tile_flags, n, k) -> LaneAggregates:
             ptr(out_f), ptr(out_cnt), ptr(out_err), ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"lane_aggregates kernel launch failed: CUDA error {rc}")
+        raise launch_error("lane_aggregates", rc, windows=windows, lanes=lanes,
+                           tile_flags=tile_flags, out_f=out_f, out_cnt=out_cnt, out_err=out_err)
     LAUNCHES += 1
     return LaneAggregates(
         sum=out_f[0, :n], count=out_cnt[:n], min=out_f[1, :n], max=out_f[2, :n],

@@ -220,6 +220,10 @@ _GATHER_BLOCK_LANES = 1 << 21
 # Launches of B-2, counted by _launch_assembly where it launches.
 ASSEMBLY_LAUNCHES = 0
 
+# Series B-2 sent by its direct route (a stream longer than the slot a block
+# gives a series), counted beside ASSEMBLY_LAUNCHES.
+ASSEMBLY_DIRECT_SERIES = 0
+
 # lanes of a block of B-2 in the per-field layout (no tiles there)
 _FIELD_BLOCK_LANES = 4096
 
@@ -323,15 +327,34 @@ def plan_vectors(plan, s_pad: int) -> list:
     return [put(x) for x in (pr_, sr, nc, tb.astype(np.int32), bh, bl)]
 
 
+def assembly_slot(plan, cap: int) -> tuple[int, int]:
+    """(slot words, direct series) of a B-2 launch over ``plan``: a series'
+    span is the stream words its windows lie in, ceil(total_bits / 32) + CW
+    (within its page row); the slot is the plan's longest span, at most
+    ``cap`` (what a block's shared memory holds beside the side rows, 0 when
+    nothing fits), and a series with chunks whose span exceeds the slot
+    takes B-2's direct route."""
+    row = plan.page_rows.shape[1] * plan.page_words
+    top = min((max(int(plan.total_bits.max(initial=0)), 0) + 31) // 32 + plan.window_words, row)
+    slot = min(top, cap)
+    if slot == top:  # every span fits: one reduction over the plan, not an array pass
+        return slot, 0
+    tb = np.maximum(plan.total_bits.astype(np.int64), 0)
+    span = np.minimum((tb + 31) // 32 + plan.window_words, row)[plan.n_chunks > 0]
+    return slot, int((span > slot).sum())
+
+
 def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes: int,
-                     vecs: list | None = None):
+                     vecs: list | None = None, slot: int | None = None):
     """B-2 on the card: (windows int32 [CW, npad] word-major or [n, CW]
     lane-major, planes int32 [NLANE, npad] in PACKED_LANE_PLANES order, tile
     flags int32 [npad // tile_lanes] or None, n). ``vecs``: plan_vectors
-    of the same plan and s_pad, when the caller has them. Raises if the
-    build or the launch fails."""
-    global ASSEMBLY_LAUNCHES
-    from ..ops._build import load_library
+    of the same plan and s_pad, when the caller has them. ``slot`` caps the
+    stream words a staged series may take below assembly_slot's choice
+    (tests send series down the direct route with it). Raises if the build
+    or the launch fails."""
+    global ASSEMBLY_LAUNCHES, ASSEMBLY_DIRECT_SERIES
+    from ..ops._build import launch_error, load_library
 
     dev = plan.words.device
     vecs = plan_vectors(plan, s_pad) if vecs is None else vecs
@@ -345,6 +368,8 @@ def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes:
     tile_flags = (None if lane_major else
                   torch.empty(npad // tile_lanes, dtype=torch.int32, device=dev))
     lib = load_library("resident_assembly")
+    cap = lib.m3_resident_assembly_slot_words(c, cw)
+    slot, direct = assembly_slot(plan, cap if slot is None else min(slot, cap))
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
     with device_guard(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -352,12 +377,16 @@ def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes:
             ptr(words), ptr(side), *[ptr(v) for v in vecs],
             s_pad, c, vecs[0].shape[1], vecs[1].shape[1], plan.page_words,
             plan.side_page_chunks, cw,
-            0 if order == "c" else 1, int(lane_major), npad, tile_lanes,
+            0 if order == "c" else 1, int(lane_major), npad, tile_lanes, slot,
             ptr(windows), ptr(planes), ptr(tile_flags), ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"resident_assembly kernel launch failed: CUDA error {rc}")
+        names = ("page_rows", "side_rows", "n_chunks", "total_bits", "block_hi", "block_lo")
+        raise launch_error("resident_assembly", rc, words=words, side=side,
+                           **dict(zip(names, vecs)), windows=windows, planes=planes,
+                           tile_flags=tile_flags)
     ASSEMBLY_LAUNCHES += 1
+    ASSEMBLY_DIRECT_SERIES += direct
     return windows, planes, tile_flags, n
 
 

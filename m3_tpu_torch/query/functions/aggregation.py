@@ -3,10 +3,11 @@
 Port of ``m3_tpu/query/functions/aggregation.py``: ``GroupLayout`` and
 ``group_by_tags`` are plain copies (grouping happens on the host once per
 query). For a CUDA tensor the seven grouped ops run on kernel K3
-(``csrc/grouped_reduce.cu``): one thread per (group, column) folds the
-group's members in ascending row order, so the result is the same in every
-run. For a CPU tensor they run the plain PyTorch twin, the same fold
-vectorized over (group, column); K3, the twin and the reference on the CPU
+(``csrc/grouped_reduce.cu``): one lane per (group, column) folds the
+group's members in ascending row order from a ring of member slices in
+shared memory, so the result is the same in every run. For a CPU tensor
+they run the plain PyTorch twin, the same fold vectorized over (group,
+column); K3, the twin and the reference on the CPU
 agree bit for bit. Values are reduced in float32, as the reference's jnp
 code reduces them (JAX runs without x64), and f32 subnormals flush to zero
 of the same sign, inputs and results alike, as XLA flushes them on the CPU
@@ -30,7 +31,7 @@ import torch
 
 from ... import device_guard
 from ...block.core import SeriesMeta, Tags
-from ...ops._build import load_library
+from ...ops._build import launch_error, load_library
 
 # K3's op ids (enum Op of csrc/grouped_reduce.cu)
 OPS = ("sum", "count", "avg", "min", "max", "stdvar", "stddev")
@@ -104,20 +105,33 @@ def grouped_reduce(values, layout: GroupLayout, op: str):
     if values.dim() != 2 or values.shape[0] != len(layout.group_ids):
         raise ValueError(f"want a [S, T] matrix of the layout's {len(layout.group_ids)} series, "
                          f"got shape {tuple(values.shape)}")
-    global LAUNCHES
     v = values.contiguous()
     pad = torch.from_numpy(np.ascontiguousarray(layout.pad_index, np.int32)).to(v.device)
+    return launch_grouped_reduce(v, pad, op)
+
+
+def launch_grouped_reduce(values, pad, op: str, wc: int = 0):
+    """K3 on a contiguous f32 [S, T] CUDA tensor and the layout's pad_index
+    already on the card (int32 [G, M]): f32 [G, T]. ``wc`` forces the column
+    block's width (8, 16 or 32); 0 lets the kernel pick it by shape."""
+    global LAUNCHES
+    if (values.dtype != torch.float32 or not values.is_contiguous() or values.dim() != 2
+            or pad.dtype != torch.int32 or not pad.is_contiguous() or pad.dim() != 2
+            or pad.device != values.device or values.device.type != "cuda"):
+        raise ValueError("want contiguous f32 [S, T] values and int32 [G, M] pad_index on one "
+                         f"card, got {values.dtype} {tuple(values.shape)} on {values.device} and "
+                         f"{pad.dtype} {tuple(pad.shape)} on {pad.device}")
     g, m = pad.shape
-    out = torch.empty((g, v.shape[1]), dtype=torch.float32, device=v.device)
-    if g == 0 or v.shape[1] == 0:
+    out = torch.empty((g, values.shape[1]), dtype=torch.float32, device=values.device)
+    if g == 0 or values.shape[1] == 0:
         return out
     lib = load_library("grouped_reduce")
-    with device_guard(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = lib.m3_grouped_reduce(v.data_ptr(), v.shape[1], pad.data_ptr(), g, m,
-                                   OPS.index(op), out.data_ptr(), stream)
+    with device_guard(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.m3_grouped_reduce(values.data_ptr(), values.shape[0], values.shape[1],
+                                   pad.data_ptr(), g, m, OPS.index(op), wc, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
+        raise launch_error("grouped_reduce", rc, values=values, pad_index=pad, out=out)
     LAUNCHES += 1
     return out
 

@@ -522,11 +522,12 @@ def test_cuda_grouped_reduce_matches_twin_and_repeats(groups):
         assert _bits_identical(got.cpu(), A.grouped_reduce(x, layout, op)), op
 
 
-def _resident_plan_cuda(n_series=300, seed=2, page_words=16):
+def _resident_plan_cuda(n_series=300, seed=2, page_words=16, fast=False):
     """A pool on the card with lanes of 1 to 4 chunks (k=8, two chunks a
     side page), float and int series over two blocks, and its plan. Pages
-    of 16 and of 6 words are two page sizes for B-2's one word-by-word
-    window walk: its windows cross page boundaries at different offsets."""
+    of 512 (the pool's default), 16 and 6 words put page boundaries at
+    different places in the windows. fast: whole chunks, the first half of
+    the series int and the rest float, so that tiles get every flag."""
     from m3_tpu_torch.cache.block_cache import BlockKey
     from m3_tpu_torch.codec.m3tsz import Encoder
     from m3_tpu_torch.resident import ResidentOptions, ResidentPool
@@ -536,8 +537,13 @@ def _resident_plan_cuda(n_series=300, seed=2, page_words=16):
                                         side_bytes=1 << 22, side_page_chunks=2), device="cuda")
     keys = []
     for i in range(n_series):
-        n = int(rng.integers(1, 30))
-        vals = (rng.standard_normal(n) * 100).round(1 if i % 2 else 0)
+        if fast:
+            n = 8 * int(rng.integers(2, 5))
+            vals = rng.standard_normal(n) * 100
+            vals = vals.round(0) if i < n_series // 2 else vals + np.pi
+        else:
+            n = int(rng.integers(1, 30))
+            vals = (rng.standard_normal(n) * 100).round(1 if i % 2 else 0)
         bs = T0 if i % 3 else T0 + 7200 * 10**9
         enc = Encoder(bs)
         t = bs
@@ -548,6 +554,82 @@ def _resident_plan_cuda(n_series=300, seed=2, page_words=16):
         assert pool.admit_block("ns", i % 2, bs, 0, [(sid, enc.stream(), n)], chunk_k=8).admitted
         keys.append(BlockKey("ns", i % 2, sid, bs, 0))
     return pool.plan_chunked(keys)
+
+
+def _cuda_slot(plan, route):
+    """B-2's slot for a route (the card twin of the CPU tests' _b2_slot)."""
+    from m3_tpu_torch.parallel import scan
+
+    if route == "direct":
+        return 0
+    span = (plan.total_bits.astype(np.int64) + 31) // 32 + plan.window_words
+    slot, direct = scan.assembly_slot(plan, int(np.median(span)))
+    assert 0 < direct < len(span)
+    return slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,rows,s_pad,page_words,route", [
+    ("c", 1, 300, 512, "split"), ("s", 1, 300, 512, "split"), ("c", 1, 333, 16, "split"),
+    ("s", 2, 333, 6, "split"), ("c", 32, 512, 6, "direct"), ("s", 1, 300, 512, "direct")])
+def test_cuda_resident_assembly_routes_match_twin_packed(order, rows, s_pad, page_words, route):
+    """Kernel B-2 with its slot forced: one launch taking the staged and
+    the direct route (the longer half of the series direct), or every
+    series direct; windows, planes and tile flags == the twin bit for bit,
+    and the direct series counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    plan = _resident_plan_cuda(page_words=page_words)
+    slot = _cuda_slot(plan, route)
+    before = scan.ASSEMBLY_DIRECT_SERIES
+    windows, planes, flags, n = scan._launch_assembly(plan, s_pad, order, False, rows * 128,
+                                                      slot=slot)
+    assert scan.ASSEMBLY_DIRECT_SERIES - before == scan.assembly_slot(plan, slot)[1] > 0
+    want, _ = scan.assemble_resident_packed_reference(plan, s_pad, order=order, rows=rows)
+    assert n == want.n
+    assert torch.equal(windows, want.windows)
+    assert torch.equal(planes, want.lanes)
+    assert torch.equal(flags, want.tile_flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_pad,route", [(300, "split"), (512, "direct")])
+def test_cuda_resident_assembly_routes_match_twin_fields(s_pad, route):
+    """Kernel B-2's per-field layout with its slot forced, == the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    plan = _resident_plan_cuda(seed=5)
+    windows, planes, _, _ = scan._launch_assembly(plan, s_pad, "s", True, 4096,
+                                                  slot=_cuda_slot(plan, route))
+    got = scan._lane_fields(windows, planes)
+    want, _ = scan.assemble_resident_lanes_reference(plan, s_pad)
+    assert set(got) == set(want)
+    for f, x in want.items():
+        pairs = zip(got[f], x) if isinstance(x, tuple) else [(got[f], x)]
+        for a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_cuda_resident_assembly_tile_flags_every_kind():
+    """Tiles of 128 lanes made up by four series blocks each, int-fast,
+    float-fast and general: B-2's per-tile AND (atomicAnd from many blocks)
+    == the twin's flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    plan = _resident_plan_cuda(n_series=256, page_words=512, fast=True)
+    for s_pad in (256, 300):
+        got, _ = scan.assemble_resident_packed(plan, s_pad, order="c", rows=1)
+        want, _ = scan.assemble_resident_packed_reference(plan, s_pad, order="c", rows=1)
+        for f in ("windows", "lanes", "tile_flags"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert set(got.tile_flags.tolist()) == {0, 1, 2}
 
 
 @pytest.mark.cuda
@@ -589,6 +671,81 @@ def test_cuda_resident_assembly_matches_twin_fields(s_pad):
         pairs = zip(got[f], x) if isinstance(x, tuple) else [(got[f], x)]
         for a, b in pairs:
             assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 1000])
+def test_cuda_grouped_reduce_forced_widths_match_twin(groups):
+    """K3 at each column-block width (8, 16, 32, forced through the C
+    entry) and at the width it picks: [20000, 723] values (T odd: rows
+    unaligned, so the ring takes 4-byte copies, and the last column block
+    ragged) into one group of 20,000 members, far longer than the ring, or
+    1,000 groups of 20. Every op == the twin on the CPU bit for bit, and two
+    runs are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.block.core import SeriesMeta
+    from m3_tpu_torch.query.functions import aggregation as A
+
+    s, t = 20000, 723
+    v = _grouped_input(s, t, 7)
+    metas = [SeriesMeta(tags=((b"g", b"%d" % (i % groups)), (b"i", b"%d" % i))) for i in range(s)]
+    layout = A.group_by_tags(metas, [b"g"])
+    x = torch.from_numpy(v)
+    xc = x.cuda()
+    pad = torch.from_numpy(np.ascontiguousarray(layout.pad_index, np.int32)).cuda()
+    for op in A.OPS:
+        want = A.grouped_reduce(x, layout, op)
+        for wc in (8, 16, 32, 0):
+            got = A.launch_grouped_reduce(xc, pad, op, wc)
+            again = A.launch_grouped_reduce(xc, pad, op, wc)
+            torch.cuda.synchronize()
+            assert _bits_identical(got, again), (op, wc)
+            assert _bits_identical(got.cpu(), want), (op, wc)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_errors_name_the_tensors(monkeypatch):
+    """A launch the C entry refuses raises out of K3's and B-2's wrappers
+    with each launch tensor's shape, stride, dtype and pointer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.query.functions import aggregation as A
+
+    x = torch.zeros((40, 24), device="cuda")
+    pad = torch.arange(40, dtype=torch.int32, device="cuda")[None, :]
+    with pytest.raises(RuntimeError, match=r"grouped_reduce kernel launch failed: CUDA error "
+                       r"\d+; values shape \(40, 24\) stride \(24, 1\) torch.float32 at 0x"):
+        A.launch_grouped_reduce(x, pad, "sum", wc=12)  # not a width the kernel has
+    plan = _resident_plan_cuda(n_series=40)
+    monkeypatch.setattr(scan, "assembly_slot", lambda plan, cap: (cap + 2, 0))  # past the cap
+    with pytest.raises(RuntimeError, match=r"resident_assembly kernel launch failed: CUDA error "
+                       r"\d+; words shape .* torch.int32 at 0x.*; page_rows shape"):
+        scan.assemble_resident_packed(plan, 40)
+    torch.cuda.synchronize()  # the refused launches left no fault behind
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_reduce_picks_width_by_shape():
+    """The widest column block whose blocks reach the card's SMs, else 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.ops._build import load_library
+
+    lib = load_library("grouped_reduce")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def pick(groups, cols):
+        for wc in (32, 16):
+            if groups * -(-cols // wc) >= sms:
+                return wc
+        return 8
+
+    shapes = [(1, 720), (10, 720), (sms, 32), (sms // 2 + 1, 32), (sms // 4 + 1, 32), (1, 11)]
+    assert {pick(g, t) for g, t in shapes} == {8, 16, 32}
+    for g, t in shapes:
+        assert lib.m3_grouped_reduce_width(g, t) == pick(g, t), (g, t)
 
 
 @pytest.mark.cuda

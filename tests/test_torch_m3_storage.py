@@ -576,25 +576,35 @@ def host_b2(tmp_path_factory):
          "-o", str(out), str(_build.SOURCES["resident_assembly"][0])],
         check=True, capture_output=True, text=True,
     )
-    fn = ctypes.CDLL(str(out)).m3_resident_assembly_host
+    lib = ctypes.CDLL(str(out))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [P] * 8 + [I64, I64, I, I, I, I, I, I, I, I64, I64, P, P, P]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.m3_resident_assembly_host.argtypes = [P] * 8 + [I64, I64, I, I, I, I, I, I, I, I64, I64, I,
+                                                         P, P, P]
+    lib.m3_resident_assembly_host.restype = ctypes.c_int
+    lib.m3_resident_assembly_slot_words.argtypes = [I64, I]
+    lib.m3_resident_assembly_slot_words.restype = ctypes.c_int
+    return lib
 
 
-def _resident_plan(n_series=37, seed=2, page_words=16):
+def _resident_plan(n_series=37, seed=2, page_words=16, fast=False):
     """A pool with lanes of 1 to 4 chunks (k=8, 2 chunks a side page), some
     float, some int, spread over two blocks, and its plan over every key.
-    page_words 16 takes B-2's 16-byte window reads, 6 its word-by-word
-    walk."""
+    Pages of 512 words (the pool's default), 16 and 6 put page boundaries
+    at different places in the windows. fast: whole chunks, the first half
+    of the series int, the rest float, so that the chunks after the first
+    are int-fast or float-fast and tiles of 128 lanes get every flag."""
     rng = np.random.default_rng(seed)
     pool = ResidentPool(ResidentOptions(max_bytes=1 << 20, page_words=page_words,
                                         side_bytes=1 << 20, side_page_chunks=2), device="cpu")
     keys = []
     for i in range(n_series):
-        n = int(rng.integers(1, 30))
-        vals = (rng.standard_normal(n) * 100).round(1 if i % 2 else 0)
+        if fast:
+            n = 8 * int(rng.integers(2, 5))
+            vals = rng.standard_normal(n) * 100
+            vals = vals.round(0) if i < n_series // 2 else vals + np.pi
+        else:
+            n = int(rng.integers(1, 30))
+            vals = (rng.standard_normal(n) * 100).round(1 if i % 2 else 0)
         bs = T0 if i % 3 else T0 + BSZ
         enc = Encoder(bs)
         t = bs
@@ -609,7 +619,26 @@ def _resident_plan(n_series=37, seed=2, page_words=16):
     return plan
 
 
-def _host_assembly(fn, plan, s_pad, order, lane_major, tile_lanes):
+def _b2_slot(lib, plan, route):
+    """The slot words of a B-2 launch and the series it sends direct:
+    "staged" is the wrapper's choice (the longest span: every series
+    staged), "split" the median span (the longer series take the direct
+    route in the same launch), "direct" 0 (every series, side rows too)."""
+    cap = lib.m3_resident_assembly_slot_words(plan.num_chunks, plan.window_words)
+    if route == "staged":
+        slot, direct = tscan.assembly_slot(plan, cap)
+        assert direct == 0
+        return slot
+    if route == "direct":
+        return 0
+    span = (plan.total_bits.astype(np.int64) + 31) // 32 + plan.window_words
+    slot, direct = tscan.assembly_slot(plan, int(np.median(span)))
+    assert 0 < direct < len(span)
+    return slot
+
+
+def _host_assembly(lib, plan, s_pad, order, lane_major, tile_lanes, route="staged"):
+    slot = _b2_slot(lib, plan, route)
     pr, sr, nc, tb, bh, bl = tscan.pad_chunked_plan(plan, s_pad)
     vecs = [np.ascontiguousarray(x).view(np.int32) for x in (pr, sr, nc, tb.astype(np.int32), bh, bl)]
     words = np.ascontiguousarray(plan.words.numpy())
@@ -621,35 +650,62 @@ def _host_assembly(fn, plan, s_pad, order, lane_major, tile_lanes):
     planes = np.zeros((fused.NLANE, npad), np.int32)
     flags = np.zeros(max(npad // tile_lanes, 1), np.int32)
     ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
-    assert fn(ptr(words), ptr(side), *[ptr(v) for v in vecs], s_pad, c, pr.shape[1], sr.shape[1],
-              plan.page_words, plan.side_page_chunks, cw, 0 if order == "c" else 1, int(lane_major),
-              npad, tile_lanes, ptr(windows), ptr(planes),
-              ctypes.c_void_p(None) if lane_major else ptr(flags)) == 0
+    # outputs start as garbage: every word must be written
+    windows[:] = planes[:] = flags[:] = 0x5A5A5A5A
+    assert lib.m3_resident_assembly_host(
+        ptr(words), ptr(side), *[ptr(v) for v in vecs], s_pad, c, pr.shape[1], sr.shape[1],
+        plan.page_words, plan.side_page_chunks, cw, 0 if order == "c" else 1, int(lane_major),
+        npad, tile_lanes, slot, ptr(windows), ptr(planes),
+        ctypes.c_void_p(None) if lane_major else ptr(flags)) == 0
     return windows, planes, flags[: npad // tile_lanes]
 
 
-@pytest.mark.parametrize("order,rows,s_pad,page_words", [
-    ("c", 1, 37, 16), ("c", 1, 64, 16), ("s", 1, 40, 16), ("c", 32, 64, 16), ("s", 2, 37, 16),
-    ("c", 1, 40, 6), ("s", 1, 37, 6)])
-def test_b2_source_host_build_matches_twin_packed(host_b2, order, rows, s_pad, page_words):
+def _b2_case(order, rows, s_pad, page_words, route="staged", series=37):
+    extra = ("" if route == "staged" else f"-{route}") + ("" if series == 37 else f"-fast{series}")
+    return pytest.param(order, rows, s_pad, page_words, route, series,
+                        id="-".join(map(str, (order, rows, s_pad, page_words))) + extra)
+
+
+@pytest.mark.parametrize("order,rows,s_pad,page_words,route,series", [
+    _b2_case("c", 1, 37, 16), _b2_case("c", 1, 64, 16), _b2_case("s", 1, 40, 16),
+    _b2_case("c", 32, 64, 16), _b2_case("s", 2, 37, 16), _b2_case("c", 1, 40, 6),
+    _b2_case("s", 1, 37, 6),
+    # the pool's default page size; series blocks of 32 that share tiles,
+    # s_pad not a multiple of 32; one launch taking both routes; every
+    # series on the direct route
+    _b2_case("c", 1, 37, 512), _b2_case("s", 1, 40, 512), _b2_case("c", 1, 100, 512),
+    _b2_case("c", 1, 100, 512, "split"), _b2_case("s", 1, 37, 512, "split"),
+    _b2_case("c", 1, 37, 16, "split"), _b2_case("s", 2, 100, 16, "split"),
+    _b2_case("c", 1, 40, 6, "split"), _b2_case("c", 32, 64, 6, "split"),
+    _b2_case("c", 1, 37, 512, "direct"), _b2_case("s", 1, 40, 6, "direct"),
+    # int-fast, float-fast and general tiles, each made up by four blocks
+    _b2_case("c", 1, 256, 512, "staged", 256), _b2_case("c", 1, 300, 16, "split", 256),
+    _b2_case("c", 1, 256, 6, "direct", 256)])
+def test_b2_source_host_build_matches_twin_packed(host_b2, order, rows, s_pad, page_words, route,
+                                                  series):
     """B1's and R's layout: windows, planes and tile flags bit for bit,
     with lanes past each series' n_chunks, padding series and padding
-    tiles."""
-    plan = _resident_plan(page_words=page_words)
+    tiles, on B-2's staged route, its direct route, or both in one launch."""
+    plan = _resident_plan(n_series=series, page_words=page_words, fast=series != 37)
     want, _ = tscan.assemble_resident_packed(plan, s_pad, order=order, rows=rows)
-    windows, planes, flags = _host_assembly(host_b2, plan, s_pad, order, False, rows * 128)
+    windows, planes, flags = _host_assembly(host_b2, plan, s_pad, order, False, rows * 128, route)
     np.testing.assert_array_equal(windows, want.windows.numpy())
     np.testing.assert_array_equal(planes, want.lanes.numpy())
     np.testing.assert_array_equal(flags, want.tile_flags.numpy())
     assert want.n == s_pad * plan.num_chunks
+    if series != 37:
+        assert set(flags.tolist()) == {0, 1, 2}
 
 
-@pytest.mark.parametrize("s_pad", [37, 48])
-def test_b2_source_host_build_matches_twin_fields(host_b2, s_pad):
+@pytest.mark.parametrize("s_pad,page_words,route", [
+    pytest.param(37, 16, "staged", id="37"), pytest.param(48, 16, "staged", id="48"),
+    pytest.param(37, 512, "staged", id="37-512"), pytest.param(100, 512, "split", id="100-512-split"),
+    pytest.param(37, 6, "split", id="37-6-split"), pytest.param(48, 16, "direct", id="48-16-direct")])
+def test_b2_source_host_build_matches_twin_fields(host_b2, s_pad, page_words, route):
     """B3's per-field layout: lane-major windows and each field."""
-    plan = _resident_plan(seed=5)
+    plan = _resident_plan(seed=5, page_words=page_words)
     want, _ = tscan.assemble_resident_lanes(plan, s_pad)
-    windows, planes, _ = _host_assembly(host_b2, plan, s_pad, "s", True, 4096)
+    windows, planes, _ = _host_assembly(host_b2, plan, s_pad, "s", True, 4096, route)
     np.testing.assert_array_equal(windows, want["windows"].numpy())
     got = tscan._lane_fields(torch.from_numpy(windows), torch.from_numpy(planes))
     assert set(got) == set(want)
@@ -724,18 +780,24 @@ def host_k3(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     fn = ctypes.CDLL(str(out)).m3_grouped_reduce_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P, I64, P, I64, I64, I, I, P]  # ..., op, column-block width (0: by shape), out
+    fn.restype = I
     return fn
 
 
-@pytest.mark.parametrize("op", tagg.OPS)
-def test_k3_source_host_build_flushes_like_twin(host_k3, op):
-    v = _subnormal_values()
+@pytest.mark.parametrize("op,wc", [pytest.param(op, 0, id=op) for op in tagg.OPS]
+                         + [pytest.param(op, wc, id=f"{op}-wc{wc}")
+                            for wc in (8, 16, 32) for op in tagg.OPS])
+def test_k3_source_host_build_flushes_like_twin(host_k3, op, wc):
+    """The flush on K3's host build == the twin's bit for bit; with a nonzero wc,
+    at each forced column-block width on [1100, 723] values (T odd: rows
+    unaligned, the last column block ragged; one group of 1,100 members,
+    longer than the ring, and two of 550)."""
+    v = _subnormal_values() if wc == 0 else _subnormal_values(n_series=1100, steps=723)
     for _, tl in _layouts(v.shape[0]):
         pad = np.ascontiguousarray(tl.pad_index, np.int32)
         out = np.zeros((tl.num_groups, v.shape[1]), np.float32)
         assert host_k3(v.ctypes.data, v.shape[1], pad.ctypes.data, pad.shape[0], pad.shape[1],
-                       tagg.OPS.index(op), out.ctypes.data) == 0
+                       tagg.OPS.index(op), wc, out.ctypes.data) == 0
         assert _bits_equal(out, tagg.grouped_reduce(torch.from_numpy(v), tl, op).numpy())

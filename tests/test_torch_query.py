@@ -236,24 +236,63 @@ def host_k3(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     fn = ctypes.CDLL(str(out)).m3_grouped_reduce_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P, I64, P, I64, I64, I, I, P]  # ..., op, column-block width (0: by shape), out
+    fn.restype = I
     return fn
 
 
+def _k3_wide_values(n_series=1100, steps=723, seed=17):
+    """Values for K3's forced widths: T = 723 (odd, so rows are not 16-byte
+    aligned and the last column block is ragged at every width), with +0,
+    -0 and NaN in every group, an all-NaN column and a column of zeros."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0, 40, (n_series, steps)).astype(np.float32)
+    roll = rng.random(v.shape)
+    v[roll < 0.1] = 0.0
+    v[(roll >= 0.1) & (roll < 0.2)] = -0.0
+    v[(roll >= 0.2) & (roll < 0.3)] = np.nan
+    v[:, 5] = np.nan
+    v[:, 700] = np.where(rng.random(n_series) < 0.5, 0.0, -0.0)
+    return v
+
+
 @pytest.mark.parametrize("op", tagg.OPS)
-@pytest.mark.parametrize("values", ["signed_zeros", "agg"])
+@pytest.mark.parametrize("values", ["signed_zeros", "agg", "t723_wc8", "t723_wc16", "t723_wc32"])
 def test_k3_source_host_build_matches_twin(host_k3, op, values):
-    v = _signed_zero_values() if values == "signed_zeros" else _agg_values()
-    tags = _tags()
-    for matching, without in (([b"job"], False), ([b"host"], True), (None, False)):
+    """K3's host build == its twin bit for bit. The t723 cases force each
+    column-block width on [1100, 723] values: one group of 1,100 members is
+    longer than the ring at every width (1,024 members at WC 8 and 16, 512
+    at 32), and five groups of 220 end inside a batch."""
+    if values.startswith("t723"):
+        v = _k3_wide_values()
+        tags = _tags(v.shape[0])
+        wc = int(values.split("wc")[1])
+        groupings = (([b"job"], False), (None, False))
+    else:
+        v = _signed_zero_values() if values == "signed_zeros" else _agg_values()
+        tags = _tags()
+        wc = 0
+        groupings = (([b"job"], False), ([b"host"], True), (None, False))
+    for matching, without in groupings:
         tl = tagg.group_by_tags([SeriesMeta(tags=t) for t in tags], matching, without)
         pad = np.ascontiguousarray(tl.pad_index, np.int32)
         out = np.zeros((tl.num_groups, v.shape[1]), np.float32)
         assert host_k3(v.ctypes.data, v.shape[1], pad.ctypes.data, pad.shape[0], pad.shape[1],
-                       tagg.OPS.index(op), out.ctypes.data) == 0
+                       tagg.OPS.index(op), wc, out.ctypes.data) == 0
         assert _bits_equal(out, tagg.grouped_reduce(torch.from_numpy(v), tl, op).numpy())
+
+
+def test_launch_error_names_each_tensor():
+    """A wrapper's launch error carries each launch tensor's shape, stride,
+    dtype and data pointer (tensors passed as None are left out)."""
+    a = torch.zeros((3, 4), dtype=torch.int32)[:, 1:]
+    b = torch.zeros(5)
+    e = _build.launch_error("k", 700, windows=a, flags=None, out=b)
+    assert isinstance(e, RuntimeError)
+    assert str(e) == (f"k kernel launch failed: CUDA error 700; windows shape (3, 3) stride (4, 1) "
+                      f"torch.int32 at 0x{a.data_ptr():x}; out shape (5,) stride (1,) "
+                      f"torch.float32 at 0x{b.data_ptr():x}")
 
 
 class _HostStorage:
