@@ -80,9 +80,14 @@ Phases (any failure exits non-zero):
              Six TSBS query shapes as matchers through NamespaceIndex.query
              over both blocks (prematch batching K1 across the two resident
              segments): doc ids == the host executor's exactly; every
-             segment resident, 0 misses, 0 errors; K1 and K2 launched. Then
-             K1's and K2's times beside their bounds, their twins' times, and
-             each query's host time end to end (median of 10).
+             segment resident, 0 misses, 0 errors; K1 and K2 launched, K2 at
+             most once per segment and query. Then the launch floor (an empty
+             kernel through the same route), K1 at query 2's batched shape
+             (and match_rows around it: one pinned upload, one read back) and
+             K2 over one span of 1M postings and over one term, single-launch
+             and back to back, beside their bounds, the floor and their twins
+             (K2 also against a second run), and each query's host time end
+             to end (median of 10).
   database — one storage node in process at BASELINE config 3's scale: the
              [query] block's 100,000 series x 720 points (the 64 unique
              gauge streams of seed 3 from a block start, tiled; tags
@@ -918,8 +923,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     torch.cuda.synchronize()
     launches = {"decode_records": chunked.LAUNCHES, "temporal_fused": TF.LAUNCHES,
                 "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
-                "index_bitmap": IK.LAUNCHES["bitmap_from_terms"]
-                + IK.LAUNCHES["bitmap_from_term_range"]}
+                "index_bitmap": IK.LAUNCHES["bitmap_from_spans"]}
     log(f"[query] launches on the main path (3 queries): {launches}")
     for name, n in launches.items():
         if n < 1:
@@ -1229,6 +1233,28 @@ def k3_times(x, layout, dev, clock_hz: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= chain_ms else "operations"}
 
 
+def device_us(fn, calls: int = 20) -> dict:
+    """The profiler's device time a call of ``fn``, by device event (kernel,
+    memset, copy), in microseconds: what the card spends, without the
+    host's share of a single launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def fmt_us(by: dict) -> str:
+    return ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.2f} us" for k, v in by.items())
+
+
 def tsbs_host_tags(n_hosts: int, seed: int) -> list:
     """Each host's 10 TSBS devops tags, (name, value) bytes pairs sorted by
     name, drawn with numpy from ``seed`` over TSBS's value sets."""
@@ -1254,7 +1280,7 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     from m3_tpu_torch.index.device import DeviceIndexStore
     from m3_tpu_torch.index.device import batch as index_batch
     from m3_tpu_torch.index.device import kernels as IK
-    from m3_tpu_torch.index.device.segment import collect_leaves
+    from m3_tpu_torch.index.device.segment import collect_leaves, match_rows
     from m3_tpu_torch.index.ns_index import NamespaceIndex
     from m3_tpu_torch.query.m3_storage import matchers_to_index_query
     from m3_tpu_torch.query.promql import Matcher
@@ -1306,10 +1332,13 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     results = {name: ix.query(q, *span) for name, q in asts.items()}
     torch.cuda.synchronize()
     launches = dict(IK.LAUNCHES)
-    log(f"[index] launches on the index path (6 queries over 2 resident segments): {launches}")
-    if launches["match_terms"] < 1 or launches["bitmap_from_terms"] + launches[
-            "bitmap_from_term_range"] < 1:
+    log(f"[index] launches on the index path (6 queries over 2 resident segments): {launches}; "
+        f"K2 {launches['bitmap_from_spans']} launches, at most one per segment and query "
+        f"({len(asts) * len(segs)})")
+    if launches["match_terms"] < 1 or launches["bitmap_from_spans"] < 1:
         raise AssertionError("the index path did not launch K1 and K2")
+    if launches["bitmap_from_spans"] > len(asts) * len(segs):
+        raise AssertionError("K2 launched more than once per segment and query")
     for name, q in asts.items():
         got = results[name].docs.ids()
         if got != ix.query(q, *span, force_host=True).docs.ids():
@@ -1346,18 +1375,34 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     k1_plain = (time.perf_counter() - t0) * 1e3
     if not torch.equal(k1_out, k1_twin):
         raise AssertionError("K1 differs from its twin")
+    lo_np, hi_np = np.asarray(lo, np.int32), np.asarray(hi, np.int32)
+    if not np.array_equal(match_rows(keys, lens, lo_np, hi_np, vals, k_max, dev),
+                          k1_twin.cpu().numpy()):
+        raise AssertionError("match_rows differs from K1's twin")
+    rows_times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        match_rows(keys, lens, lo_np, hi_np, vals, k_max, dev)
+        rows_times.append((time.perf_counter() - t0) * 1e3)
     rows, n_keys = len(vals), int(keys.shape[0])
     # bytes: each row's key, length, bounds and result once, and the
-    # log2(n) probed keys (k words + a length) of its search
+    # log2(n) probed keys (k words + a length) of its search (the work a
+    # search needs, whichever way it cuts the range)
     k1_bytes = rows * (k_max + 4) * 4 + rows * max(n_keys.bit_length(), 1) * (k_max + 1) * 4
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
 
+    # the launch floor: an empty kernel through the same route
+    floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
+    floor_b2b = per_launch_ms(lambda: IK.launch_floor(dev))
+
     # K2 at the path's largest leaf (cpu_.*: every posting of __name__ in
-    # block 0), and its term-list form on query 1's __name__ term
+    # block 0, one span), and a term list of one term (query 1's __name__)
     a0 = arrays[0]
     name_start, _, ds, de = a0.fields[b"__name__"]
-    k2r = lambda: IK.bitmap_from_term_range(a0.post_data, ds, de, a0.n_words)
+    range_spans = np.asarray([[0, ds, de]], np.int64)
+    k2r = lambda: IK.bitmap_from_spans(a0.post_data, range_spans, 1, a0.n_words)
     k2r_out = k2r()
+    k2r_again = k2r()
     k2r_ms = statistics.median(cuda_ms(k2r, 20))
     k2r_b2b = per_launch_ms(k2r)
     torch.cuda.synchronize()
@@ -1367,26 +1412,37 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     k2_plain = (time.perf_counter() - t0) * 1e3
     gi = name_start + segs[0].terms(b"__name__").index(b"cpu_usage_user")
     cnt = int(a0.host_post_idx[gi, 1] - a0.host_post_idx[gi, 0])
-    gis = torch.tensor([gi], dtype=torch.int32, device=dev)
-    k2t = lambda: IK.bitmap_from_terms(a0.post_idx, a0.post_data, gis, a0.n_words, cnt)
+    term_spans = np.column_stack([np.zeros(1, np.int64), IK.term_spans(a0.host_post_idx, [gi])])
+    k2t = lambda: IK.bitmap_from_spans(a0.post_data, term_spans, 1, a0.n_words)
     k2t_out = k2t()
     k2t_ms = statistics.median(cuda_ms(k2t, 20))
+    k2t_b2b = per_launch_ms(k2t)
+    gis = torch.tensor([gi], dtype=torch.int32, device=dev)
     k2t_twin = IK.bitmap_from_terms_reference(a0.post_idx, a0.post_data, gis, a0.n_words)
-    if not (torch.equal(k2r_out, k2r_twin) and torch.equal(k2t_out, k2t_twin)):
-        raise AssertionError("K2 differs from its twin")
+    if not (torch.equal(k2r_out[0], k2r_twin) and torch.equal(k2r_out, k2r_again)
+            and torch.equal(k2t_out[0], k2t_twin)):
+        raise AssertionError("K2 differs from its twin, or between two runs")
     k2_bytes = (de - ds) * 4 + a0.n_words * 4
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2t_bound = (cnt * 4 + a0.n_words * 4 + 12) / HBM_BYTES_PER_S * 1e3
-    log(f"[index] K1 (match_terms) {rows} rows over {n_keys} keys x {k_max} words: "
-        f"{k1_ms:.4f} ms (median of 20, CUDA events; back-to-back {k1_b2b:.4f} ms); bound "
-        f"{k1_bound:.6f} ms ({k1_bytes} bytes at 3.35 TB/s: the launch's latency is the cost); "
-        f"twin {k1_plain:.2f} ms")
-    log(f"[index] K2 (bitmap_from_term_range) {de - ds} postings -> {a0.n_words} words: "
+    log(f"[index] launch floor (empty kernel, same route): {floor_ms:.4f} ms (median of 20 "
+        f"single launches, CUDA events; back-to-back {floor_b2b:.4f} ms)")
+    log(f"[index] K1 (match_terms, warp per row, 33-way) {rows} rows over {n_keys} keys x "
+        f"{k_max} words: {k1_ms:.4f} ms (median of 20, CUDA events; back-to-back "
+        f"{k1_b2b:.4f} ms); bound {k1_bound:.6f} ms ({k1_bytes} bytes at 3.35 TB/s), launch "
+        f"floor {floor_ms:.4f} ms; twin {k1_plain:.2f} ms; match_rows (one pinned upload, K1, "
+        f"one read back) {statistics.median(rows_times):.4f} ms (median of 20, host clock)")
+    log(f"[index] K2 (bitmap_from_spans, range form) {de - ds} postings -> {a0.n_words} words: "
         f"{k2r_ms:.4f} ms (back-to-back {k2r_b2b:.4f} ms); bound {k2_bound:.6f} ms "
-        f"({k2_bytes / 1e6:.3f} MB at 3.35 TB/s = {k2_bound / k2r_ms:.1%} of roofline); twin "
-        f"{k2_plain:.2f} ms")
-    log(f"[index] K2 (bitmap_from_terms) one term of {cnt} postings: {k2t_ms:.4f} ms; bound "
-        f"{k2t_bound:.6f} ms")
+        f"({k2_bytes / 1e6:.3f} MB at 3.35 TB/s = {k2_bound / k2r_ms:.1%} of roofline), launch "
+        f"floor {floor_ms:.4f} ms; twin {k2_plain:.2f} ms")
+    log(f"[index] K2 (bitmap_from_spans, term-list form) one term of {cnt} postings: "
+        f"{k2t_ms:.4f} ms (back-to-back {k2t_b2b:.4f} ms); bound {k2t_bound:.6f} ms, launch "
+        f"floor {floor_ms:.4f} ms")
+    log(f"[index] device time a call (torch.profiler, 20 calls): launch floor "
+        f"{fmt_us(device_us(lambda: IK.launch_floor(dev)))}; K1 "
+        f"{fmt_us(device_us(lambda: IK.match_terms(*k1_args)))}; K2 range form "
+        f"{fmt_us(device_us(k2r))}; K2 term-list form {fmt_us(device_us(k2t))}")
     log("[index] library_ms: no single PyTorch call computes a multi-word lower-bound search "
         "(torch.searchsorted takes one scalar key a row) or a packed doc bitmap; null")
 
@@ -1411,18 +1467,20 @@ def phase_index(dev, kernels: list, seed: int) -> None:
         "bound_ms": k1_bound,
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": floor_ms,
     }, {
         "name": "index_bitmap",
         "route": "cuda",
         "source": "m3_tpu_torch/index/device/csrc/index_kernels.cu",
         "replaces": "m3_tpu/index/device/kernels.py:269",
-        "launches": launches["bitmap_from_terms"] + launches["bitmap_from_term_range"],
+        "launches": launches["bitmap_from_spans"],
         "max_abs_err": 0,
         "ms": k2r_ms,
         "plain_ms": k2_plain,
         "bound_ms": k2_bound,
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": floor_ms,
     }]
 
 
@@ -1610,8 +1668,7 @@ def phase_database(dev, kernels: list, b2_resident: dict) -> None:
         launches = {"resident_assembly": scan.ASSEMBLY_LAUNCHES, "decode_records": chunked.LAUNCHES,
                     "lane_aggregates": fused.LAUNCHES, "temporal_fused": TF.LAUNCHES,
                     "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
-                    "index_bitmap": IK.LAUNCHES["bitmap_from_terms"]
-                    + IK.LAUNCHES["bitmap_from_term_range"]}
+                    "index_bitmap": IK.LAUNCHES["bitmap_from_spans"]}
         log(f"[database] launches on the main path (2 queries, 1 scan): {launches}")
         for name, n in launches.items():
             if n < 1:

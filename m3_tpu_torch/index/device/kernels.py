@@ -4,13 +4,15 @@ Port of ``m3_tpu/index/device/kernels.py``. A sealed segment's device tier
 (segment.py builds the arrays, store.py owns their budget) answers a query
 with two kernels, both in ``csrc/index_kernels.cu``:
 
-- K1 ``match_terms``: one lower-bound binary search over the sorted
-  fixed-width term-key matrix for B query rows at once (the batched FST
-  lookup); per-row [lo, hi) bounds let one launch mix fields and segments.
-- K2 ``bitmap_from_terms`` / ``bitmap_from_term_range``: the OR of the
-  postings of the selected terms as a packed doc bitmap, one bit a doc
-  (bit j of word w is doc 32w + j), set with atomicOr from those terms'
-  postings only.
+- K1 ``match_terms``: one lower-bound search (a warp a row, 33 ways a
+  round) over the sorted fixed-width term-key matrix for B query rows at
+  once (the batched FST lookup); per-row [lo, hi) bounds let one launch mix
+  fields and segments.
+- K2 ``bitmap_from_spans``: the OR of listed postings spans as packed doc
+  bitmap rows, one bit a doc (bit j of word w is doc 32w + j), set with
+  atomicOr from those postings only; one launch serves every leaf of a
+  query on a segment, a row a leaf. A term list is its terms' ``post_idx``
+  rows (``term_spans``), a field or prefix range one run.
 
 The bitwise AND/OR/ANDNOT over bitmaps are torch ops (segment.py). A
 wrapper launches its kernel for a CUDA tensor and runs its plain PyTorch
@@ -36,13 +38,13 @@ import numpy as np
 import torch
 
 from ... import device_guard
-from ...ops._build import load_library
+from ...ops._build import launch_error, load_library
 
 # Launches of K1 and K2, counted by the wrappers where they launch.
-LAUNCHES = {"match_terms": 0, "bitmap_from_terms": 0, "bitmap_from_term_range": 0}
+LAUNCHES = {"match_terms": 0, "bitmap_from_spans": 0}
 
-# postings a thread of K2's term-list launch takes, about (sizes its grid)
-_K2_THREADS, _K2_PER_THREAD, _K2_MAX_CHUNKS = 256, 8, 1024
+# K2's threads a block
+_K2_THREADS = 256
 
 # ---------- host-side key building / compare (shared definition) ----------
 
@@ -200,58 +202,72 @@ def _key_lt(ak, al, bk, bl):
     return torch.where(neq.any(dim=1), aw < bw, al < bl)
 
 
-# ---------- K2: postings union into a packed bitmap ----------
+# ---------- K2: postings union into packed bitmaps ----------
 
 
-def k2_chunks(max_postings: int) -> int:
-    """Blocks that stride over each listed term's postings in K2's
-    term-list launch, from the longest listed term."""
-    per_block = _K2_THREADS * _K2_PER_THREAD
-    return int(min(max(-(-int(max_postings) // per_block), 1), _K2_MAX_CHUNKS))
+def term_spans(host_post_idx: np.ndarray, gis) -> np.ndarray:
+    """The postings spans (int64 [m, 2]: start, end) of a list of global
+    term indices (-1 entries, and indices past the dictionary, skipped)."""
+    gis = np.asarray(gis, np.int64)
+    hit = gis[(gis >= 0) & (gis < len(host_post_idx))]
+    return np.asarray(host_post_idx, np.int64)[hit].reshape(-1, 2)
 
 
-def bitmap_from_terms(post_idx, post_data, gis, n_words: int, max_postings: int) -> torch.Tensor:
-    """OR of the postings lists of the listed global term indices (``gis``
-    int32[B], -1 entries skipped, duplicates harmless) as a packed
-    int32[n_words] doc bitmap on the postings' device. ``post_idx``
-    int32[n_terms, 2] holds each term's [start, end) into ``post_data``;
-    ``max_postings`` is the longest listed term's count (host-known)."""
+def bitmap_from_spans(post_data, spans, n_rows: int, n_words: int) -> torch.Tensor:
+    """Packed doc bitmaps int32[n_rows, n_words] on the postings' device:
+    row r is the OR of the postings ``post_data[start:end)`` of every span
+    (``spans`` host int64 [m, 3]: row, start, end) of row r; empty spans
+    and duplicates are harmless. One launch: the entry lays the spans out
+    and hands them to the kernel in one copy into scratch allocated past
+    the words."""
+    spans = np.ascontiguousarray(spans, np.int64).reshape(-1, 3)
+    if n_rows * n_words > 0x7FFFFFFF:
+        raise ValueError("bitmap_from_spans: the bitmap rows exceed 2**31 words")
     if post_data.device.type == "cpu":
-        return bitmap_from_terms_reference(post_idx, post_data, gis, n_words)
-    _check_cuda(post_idx, post_data, gis)
-    words = torch.empty(n_words, dtype=torch.int32, device=post_data.device)
-    lib = load_library("index_kernels")
-    with device_guard(post_data.device):
-        stream = torch.cuda.current_stream(post_data.device).cuda_stream
-        rc = lib.m3_index_bitmap_terms(
-            post_idx.data_ptr(), post_data.data_ptr(), post_idx.shape[0], gis.data_ptr(),
-            gis.numel(), k2_chunks(max_postings), words.data_ptr(), n_words, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"index bitmap_from_terms kernel launch failed: CUDA error {rc}")
-    LAUNCHES["bitmap_from_terms"] += 1
-    return words
-
-
-def bitmap_from_term_range(post_data, start: int, end: int, n_words: int) -> torch.Tensor:
-    """OR of the postings run ``post_data[start:end)`` as a packed
-    int32[n_words] doc bitmap: the postings of the terms [lo, hi) of one
-    field, ``start = post_idx[lo][0]``, ``end = post_idx[hi - 1][1]``
-    (terms append field by field, so the run is contiguous)."""
-    if post_data.device.type == "cpu":
-        return bitmap_from_term_range_reference(post_data, start, end, n_words)
+        if len(spans) and (spans[:, 0].min() < 0 or spans[:, 0].max() >= n_rows
+                           or spans[:, 1].min() < 0 or spans[:, 2].max() > len(post_data)):
+            raise ValueError(_OUTSIDE)
+        return bitmap_from_spans_reference(post_data, spans, n_rows, n_words)
     _check_cuda(post_data)
-    words = torch.empty(n_words, dtype=torch.int32, device=post_data.device)
+    # the rows, then room for the laid-out spans (4m + 1 int64) from the
+    # next 16-byte boundary
+    extra = -(-(8 * (4 * len(spans) + 1) + 16) // (4 * max(n_words, 1)))
+    words = torch.empty((n_rows + extra, n_words or 1), dtype=torch.int32,
+                        device=post_data.device)
+    base = words.data_ptr()
+    scratch = -(-(base + 4 * n_rows * n_words) // 16) * 16
     lib = load_library("index_kernels")
     with device_guard(post_data.device):
         stream = torch.cuda.current_stream(post_data.device).cuda_stream
-        rc = lib.m3_index_bitmap_range(
-            post_data.data_ptr(), int(start), int(end), words.data_ptr(), n_words, stream
+        rc = lib.m3_index_bitmap_spans(
+            post_data.data_ptr(), len(post_data), spans.ctypes.data, len(spans),
+            (post_data.data_ptr() >> 2) & 3, _K2_THREADS, scratch, base, n_rows, n_words, stream,
         )
+    if rc == -2:
+        raise ValueError(_OUTSIDE)
+    words = words[:n_rows, :n_words]
+    if rc == -1:  # no span holds a posting: zeroed, nothing launched
+        return words
     if rc != 0:
-        raise RuntimeError(f"index bitmap_from_term_range kernel launch failed: CUDA error {rc}")
-    LAUNCHES["bitmap_from_term_range"] += 1
+        raise launch_error("index bitmap_from_spans", rc, post_data=post_data, words=words)
+    LAUNCHES["bitmap_from_spans"] += 1
     return words
+
+
+_OUTSIDE = "bitmap_from_spans: a span lies outside its rows or the postings"
+
+
+def bitmap_from_spans_reference(post_data, spans, n_rows: int, n_words: int) -> torch.Tensor:
+    """Plain PyTorch twin of K2: each row packed from its spans' postings."""
+    spans = np.asarray(spans, np.int64).reshape(-1, 3)
+    out = torch.zeros((n_rows, n_words), dtype=torch.int32, device=post_data.device)
+    for r in range(n_rows):
+        mine = spans[spans[:, 0] == r]
+        pos = [np.arange(a, b) for a, b in mine[:, 1:] if b > a]
+        if pos:
+            idx = torch.from_numpy(np.concatenate(pos)).to(post_data.device)
+            out[r] = _pack_docs(post_data[idx], n_words)
+    return out
 
 
 def bitmap_from_terms_reference(post_idx, post_data, gis, n_words: int) -> torch.Tensor:
@@ -288,3 +304,17 @@ def _check_cuda(*tensors) -> None:
     for t in tensors:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("index kernels take contiguous int32 tensors on one device")
+
+
+def launch_floor(device="cuda") -> None:
+    """Launch the empty kernel ``m3_launch_floor`` through K1's and K2's
+    route: what a launch costs the card, timed beside them (not counted in
+    ``LAUNCHES``; nothing on the query path calls it)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib = load_library("index_kernels")
+    with device_guard(device):
+        rc = lib.m3_launch_floor(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch_floor kernel launch failed: CUDA error {rc}")

@@ -3,12 +3,13 @@
 Port of ``m3_tpu/index/device/segment.py``. ``DeviceSegment`` wraps a host
 sealed segment (SealedSegment or DiskSegment) and — while its device tier
 is resident — answers WHOLE query ASTs on the card: one K1 launch
-(batched binary-search term match over the packed term-key matrix) for
-every exact leaf, one K2 launch (postings union into a packed doc bitmap)
-per leaf, and bitwise AND/OR/ANDNOT for conjunction/disjunction/negation
-as torch ops on int32 words (the roaring-bitmap algebra of the reference's
-m3ninx executor). The wrapper also implements the full SealedSegment
-surface by delegation, so every host consumer (aggregate queries, segment
+(batched term search over the packed term-key matrix) for every exact
+leaf, one K2 launch (postings union into packed doc bitmaps) for every
+leaf's postings spans at once, a bitmap row a leaf, and bitwise
+AND/OR/ANDNOT for conjunction/disjunction/negation as torch ops on int32
+words (the roaring-bitmap algebra of the reference's m3ninx executor).
+The wrapper also implements the full SealedSegment surface by
+delegation, so every host consumer (aggregate queries, segment
 merge/persist, the host executor) runs on it unchanged.
 
 Routing contract: ``search_ast`` returns EXACTLY the doc-id array the host
@@ -180,13 +181,18 @@ def collect_leaves(query: Query):
 def match_rows(keys, lens, lo, hi, values, k_words: int, device) -> np.ndarray:
     """One K1 launch over query rows ``values`` with per-row bounds
     (numpy int32 ``lo``/``hi``); rows whose value is wider than the keys
-    are unmatchable. Returns the host int32 result (one device read)."""
+    are unmatchable. The bounds, lengths and key words go up as one int32
+    buffer in one copy (from pinned memory on a card); returns the host
+    int32 result (one device read)."""
     q_keys, q_lens = kernels.build_query_keys(values, k_words)
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
-
-    out = kernels.match_terms(keys, lens, up(lo), up(hi), up(q_keys), up(q_lens))
+    rows = len(values)
+    device = torch.device(device)
+    host = torch.empty(rows * (3 + k_words), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    np.concatenate([lo, hi, q_lens, q_keys.view(np.int32).ravel()], out=host.numpy())
+    buf = host.to(device, non_blocking=True)
+    out = kernels.match_terms(keys, lens, buf[:rows], buf[rows : 2 * rows],
+                              buf[3 * rows :].view(rows, k_words), buf[2 * rows : 3 * rows])
     return out.cpu().numpy()
 
 
@@ -309,70 +315,104 @@ class DeviceSegment:
             out[id(leaf)] = gis[start : start + n]
         return out, classes
 
-    # -- phase 2: bitmap algebra over the resolved leaves --
+    # -- phase 2: every leaf's postings in ONE K2 launch, then the algebra --
 
     def _eval(self, arrays: DeviceArrays, q: Query, gis: dict, classes: dict, note: dict):
-        nw = arrays.n_words
+        """The AST's bitmap in three passes: (1) every K2 leaf's postings
+        spans on the host, a bitmap row a leaf (an unsupported node raises
+        and a host regexp walk is noted here, before any launch); (2) one
+        K2 launch over all the spans; (3) the bitmap algebra over the
+        rows."""
+        leaf_spans: list[np.ndarray] = []  # row r: int64 [m, 2] (start, end)
+        tree = self._plan(arrays, q, gis, classes, note, leaf_spans)
+        rows = None
+        if leaf_spans:
+            spans = np.concatenate([
+                np.column_stack([np.full(len(sp), r, np.int64), sp])
+                for r, sp in enumerate(leaf_spans)
+            ])
+            rows = kernels.bitmap_from_spans(arrays.post_data, spans, len(leaf_spans),
+                                             arrays.n_words)
+        return self._combine(arrays, tree, rows)
+
+    def _plan(self, arrays: DeviceArrays, q: Query, gis: dict, classes: dict, note: dict,
+              leaf_spans: list):
+        """Pass 1: ``q`` as a tree of ("row", r) leaves — r a bitmap row of
+        K2, its spans appended to ``leaf_spans`` — and ("all",), ("zero",),
+        ("and", pos, negs), ("or", subs), ("not", sub) nodes."""
+
+        def row(spans):
+            leaf_spans.append(np.asarray(spans, np.int64).reshape(-1, 2))
+            return ("row", len(leaf_spans) - 1)
+
+        def sub(x):
+            return self._plan(arrays, x, gis, classes, note, leaf_spans)
+
         if isinstance(q, TermQuery):
-            return self._leaf_bitmap(arrays, gis[id(q)])
+            return row(kernels.term_spans(arrays.host_post_idx, gis[id(q)]))
         if isinstance(q, RegexpQuery):
-            return self._regexp_bitmap(arrays, q, gis, classes, note)
+            return row(self._regexp_spans(arrays, q, gis, classes, note))
         if isinstance(q, FieldQuery):
             _, _, ds, de = arrays.fields.get(q.field, (0, 0, 0, 0))
-            return kernels.bitmap_from_term_range(arrays.post_data, ds, de, nw)
+            return row([(ds, de)])
         if isinstance(q, AllQuery):
-            return arrays.all_words
+            return ("all",)
         if isinstance(q, ConjunctionQuery):
             if not q.queries:
-                return kernels.zero_bitmap(nw, arrays.device)
-            pos = [s for s in q.queries if not isinstance(s, NegationQuery)]
-            negs = [s for s in q.queries if isinstance(s, NegationQuery)]
-            if pos:
-                acc = self._eval(arrays, pos[0], gis, classes, note)
-                for s in pos[1:]:
-                    acc = acc & self._eval(arrays, s, gis, classes, note)
-            else:
-                acc = arrays.all_words
-            for s in negs:
-                acc = acc & ~self._eval(arrays, s.query, gis, classes, note)
-            return acc
+                return ("zero",)
+            pos = [sub(s) for s in q.queries if not isinstance(s, NegationQuery)]
+            negs = [sub(s.query) for s in q.queries if isinstance(s, NegationQuery)]
+            return ("and", pos, negs)
         if isinstance(q, DisjunctionQuery):
-            acc = kernels.zero_bitmap(nw, arrays.device)
-            for s in q.queries:
-                acc = acc | self._eval(arrays, s, gis, classes, note)
-            return acc
+            return ("or", [sub(s) for s in q.queries])
         if isinstance(q, NegationQuery):
-            return arrays.all_words & ~self._eval(arrays, q.query, gis, classes, note)
+            return ("not", sub(q.query))
         raise _Unsupported(type(q).__name__)
 
-    def _leaf_bitmap(self, arrays: DeviceArrays, leaf_gis: np.ndarray):
-        """K2 over a list of global term indices (-1 skipped)."""
-        leaf_gis = np.asarray(leaf_gis, np.int32)
-        hit = leaf_gis[leaf_gis >= 0]
-        counts = arrays.host_post_idx[hit, 1] - arrays.host_post_idx[hit, 0]
-        gis = torch.from_numpy(np.ascontiguousarray(leaf_gis)).to(arrays.device)
-        return kernels.bitmap_from_terms(
-            arrays.post_idx, arrays.post_data, gis, arrays.n_words,
-            int(counts.max()) if counts.size else 0,
-        )
+    def _combine(self, arrays: DeviceArrays, node, rows):
+        """Pass 3: the bitmap of a pass-1 tree over K2's rows."""
+        kind = node[0]
+        if kind == "row":
+            return rows[node[1]]
+        if kind == "all":
+            return arrays.all_words
+        if kind == "zero":
+            return kernels.zero_bitmap(arrays.n_words, arrays.device)
+        if kind == "and":
+            _, pos, negs = node
+            acc = self._combine(arrays, pos[0], rows) if pos else arrays.all_words
+            for s in pos[1:]:
+                acc = acc & self._combine(arrays, s, rows)
+            for s in negs:
+                acc = acc & ~self._combine(arrays, s, rows)
+            return acc
+        if kind == "or":
+            acc = kernels.zero_bitmap(arrays.n_words, arrays.device)
+            for s in node[1]:
+                acc = acc | self._combine(arrays, s, rows)
+            return acc
+        return arrays.all_words & ~self._combine(arrays, node[1], rows)  # "not"
 
-    def _regexp_bitmap(self, arrays: DeviceArrays, q: RegexpQuery, gis: dict,
-                       classes: dict, note: dict):
+    def _regexp_spans(self, arrays: DeviceArrays, q: RegexpQuery, gis: dict,
+                      classes: dict, note: dict):
+        """The postings spans of a regexp leaf: its K1 matches, the narrowed
+        range of a prefix, or the host walk's matches of a general
+        pattern."""
         kind, _val = classes[id(q)]
         if kind in ("literal", "alternation"):
-            return self._leaf_bitmap(arrays, gis[id(q)])
+            return kernels.term_spans(arrays.host_post_idx, gis[id(q)])
         start, count, _, _ = arrays.fields.get(q.field, (0, 0, 0, 0))
         if not count:
-            return kernels.zero_bitmap(arrays.n_words, arrays.device)
+            return []
         lo, hi = self._prefix_range(arrays, q.pattern, start, count)
         if kind == "prefix" and not arrays.dot_safe:
             kind = "general"  # a \n-bearing term breaks range == match
         if kind == "prefix":
             # the narrowed range IS the match: every term in it carries
             # the literal prefix and `.*` accepts any suffix
-            ds = int(arrays.host_post_idx[lo, 0]) if hi > lo else 0
-            de = int(arrays.host_post_idx[hi - 1, 1]) if hi > lo else 0
-            return kernels.bitmap_from_term_range(arrays.post_data, ds, de, arrays.n_words)
+            if hi <= lo:
+                return []
+            return [(int(arrays.host_post_idx[lo, 0]), int(arrays.host_post_idx[hi - 1, 1]))]
         # general pattern: the automaton walk stays on the host over the
         # narrowed candidate range (routing reason regexp-host-fallback);
         # the postings union runs on the card
@@ -381,7 +421,7 @@ class DeviceSegment:
         matched = [
             gi for gi in range(lo, hi) if rx.match(self._host_term(arrays, gi))
         ]
-        return self._leaf_bitmap(arrays, np.asarray(matched, np.int32))
+        return kernels.term_spans(arrays.host_post_idx, matched)
 
     def _prefix_range(self, arrays: DeviceArrays, pattern: bytes,
                       start: int, count: int) -> tuple[int, int]:

@@ -76,10 +76,11 @@ SOURCES = {
         {
             # keys, lens, n_terms, k_words, lo, hi, q_keys, q_lens, rows, out, stream
             "m3_index_match_terms": [_P, _P, _I64, _I, _P, _P, _P, _P, _I64, _P, _P],
-            # post_idx, post_data, n_terms, gis, n_gis, chunks, words, n_words, stream
-            "m3_index_bitmap_terms": [_P, _P, _I64, _P, _I64, _I, _P, _I64, _P],
-            # post_data, start, end, words, n_words, stream
-            "m3_index_bitmap_range": [_P, _I64, _I64, _P, _I64, _P],
+            # post_data, n_post, spans (host), n_spans, shift, threads, scratch,
+            # words, n_rows, n_words, stream
+            "m3_index_bitmap_spans": [_P, _I64, _P, _I64, _I, _I, _P, _P, _I64, _I64, _P],
+            # stream: an empty kernel (the launch floor)
+            "m3_launch_floor": [_P],
         },
     ),
     "grouped_reduce": (

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
 the lane-aggregate kernel (B1), the records decode (kernel R), the fused
-temporal kernel (B2), the per-field lane-aggregate kernel (B3), and the
-resident scan that feeds B1, R and B3 from device residency.
+temporal kernel (B2), the per-field lane-aggregate kernel (B3), the
+resident scan that feeds B1, R and B3 from device residency, the index
+kernels K1 and K2 with the index's device tier, and the grouped
+reductions K3.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -376,11 +378,70 @@ def _postings(n_terms, n_docs, seed, long_term=0):
     return torch.from_numpy(post_idx), torch.from_numpy(data), offs
 
 
+def _sorted_terms(n, seed):
+    """``n`` distinct sorted terms of 0-9 bytes (NUL extensions among them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    terms = {b"", b"b", b"b\x00", b"b\x00\x00"}
+    while len(terms) < n:
+        m = n - len(terms)
+        raw = rng.integers(0, 4, (m, 9)).astype(np.uint8) + 96
+        terms |= {bytes(r[:l]) for r, l in zip(raw, rng.integers(1, 10, m))}
+    return sorted(terms)[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [1, 2, 32, 33, 34, 1089, 1090, 110_000])
+def test_cuda_index_match_terms_key_counts(n_keys):
+    """K1's warp search == its twin at every range-length class: whole and
+    partial ranges, lo == hi, a query below and above every key, q_len < 0,
+    keys padded with zero words to a wider k_max; two runs alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from m3_tpu_torch.index.device import kernels as K
+
+    terms = _sorted_terms(n_keys, n_keys)
+    k = K.key_width_words(max(len(t) for t in terms)) + 2  # padded to a wider k_max
+    rng = np.random.default_rng(n_keys)
+    sample = terms if n_keys <= 2000 else [terms[i] for i in rng.integers(0, n_keys, 1500)]
+    values = list(sample) + [t + b"a" for t in sample[:300]] + [b"", b"\xff" * 5, b"x" * 4 * k + b"x"]
+    lo = np.asarray([rng.integers(0, n_keys + 1) if i % 3 == 0 else 0
+                     for i in range(len(values))], np.int32)
+    hi = np.asarray([rng.integers(a, n_keys + 1) if i % 3 == 1 else n_keys
+                     for i, a in enumerate(lo)], np.int32)
+    hi[-2] = lo[-2]  # lo == hi
+    keys, lens = K.build_term_keys(terms, k)
+    qk, ql = K.build_query_keys(values, k)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+    args = (t(keys), t(lens), t(lo), t(hi), t(qk), t(ql))
+    got = K.match_terms(*(a.cuda() for a in args))
+    again = K.match_terms(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    want = K.match_terms_reference(*args)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert bool((want >= 0).any()) and int(want[-1]) == -1
+
+
+def _span_rows(*rows):
+    import numpy as np
+
+    out = [(r, a, b) for r, sp in enumerate(rows) for a, b in sp]
+    return np.asarray(out, np.int64).reshape(-1, 3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_docs", [1, 33, 4096, 1_000_003])
 def test_cuda_index_bitmaps_match_twin(n_docs):
-    """K2's term-list and range forms == their twins word for word; the
-    longest term (600,000 postings at 1M docs) takes several blocks."""
+    """K2's span list == each form's twin word for word, both forms in one
+    launch: a term list (-1 gis, duplicates; the longest term has 600,000
+    postings at 1M docs; 128 spans, every term twice) and a range, with post_data at every offset from a 16-byte
+    boundary; two runs give identical words."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import numpy as np
@@ -390,31 +451,39 @@ def test_cuda_index_bitmaps_match_twin(n_docs):
     n_terms = 64
     post_idx, data, offs = _postings(n_terms, n_docs, n_docs % 97, long_term=600_000)
     n_words = -(-n_docs // 32)
-    counts = np.diff(offs)
     rng = np.random.default_rng(5)
-    pi, pd = post_idx.cuda(), data.cuda()
     for trial in range(8):
         gis = rng.integers(-1, n_terms, rng.integers(0, 20)).astype(np.int32)
         if trial == 0:
             gis = np.asarray([n_terms // 2, -1, n_terms // 2, 3], np.int32)
-        longest = int(counts[gis[gis >= 0]].max()) if (gis >= 0).any() else 0
-        before = K.LAUNCHES["bitmap_from_terms"]
-        got = K.bitmap_from_terms(pi, pd, torch.from_numpy(gis).cuda(), n_words, longest)
-        assert K.LAUNCHES["bitmap_from_terms"] == before + 1
-        want = K.bitmap_from_terms_reference(post_idx, data, torch.from_numpy(gis), n_words)
-        assert torch.equal(got.cpu(), want)
+        if trial == 7:  # every term twice: 128 spans
+            gis = np.tile(np.arange(n_terms, dtype=np.int32), 2)
         lo, hi = sorted(rng.integers(0, n_terms + 1, 2).tolist())
         start, end = (int(offs[lo]), int(offs[hi])) if hi > lo else (0, 0)
-        got = K.bitmap_from_term_range(pd, start, end, n_words)
-        want = K.bitmap_from_term_range_reference(data, start, end, n_words)
-        assert torch.equal(got.cpu(), want)
+        spans = _span_rows(K.term_spans(post_idx.numpy(), gis), [(start, end)])
+        off = trial % 4  # a view of post_data at every offset from a 16-byte boundary
+        pd = torch.cat([torch.zeros(off, dtype=torch.int32), data]).cuda()[off:]
+        assert (pd.data_ptr() >> 2) & 3 == off
+        before = K.LAUNCHES["bitmap_from_spans"]
+        got = K.bitmap_from_spans(pd, spans, 2, n_words)
+        again = K.bitmap_from_spans(pd, spans, 2, n_words)
+        live = bool((spans[:, 2] > spans[:, 1]).any())  # no posting: no launch
+        assert K.LAUNCHES["bitmap_from_spans"] == before + (2 if live else 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want_t = K.bitmap_from_terms_reference(post_idx, data, torch.from_numpy(gis), n_words)
+        want_r = K.bitmap_from_term_range_reference(data, start, end, n_words)
+        assert torch.equal(got.cpu(), torch.stack([want_t, want_r]))
+        assert torch.equal(got.cpu(), K.bitmap_from_spans_reference(data, spans, 2, n_words))
+    with pytest.raises(ValueError, match="outside"):  # past the postings: refused, no launch
+        K.bitmap_from_spans(data.cuda(), [[0, 0, len(data) + 1]], 2, n_words)
 
 
 @pytest.mark.cuda
 def test_cuda_index_k2_launch_error_raises(monkeypatch):
-    """A launch the card refuses (a grid.y past its limit) raises out of
-    the wrapper and out of a query through the device segment, counted as
-    an error; nothing answers from the host."""
+    """A launch the card refuses (more threads a block than it takes)
+    raises out of the wrapper and out of a query through the device
+    segment, counted as an error; nothing answers from the host."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.index.device import DeviceIndexStore, IndexDeviceOptions
@@ -423,10 +492,10 @@ def test_cuda_index_k2_launch_error_raises(monkeypatch):
     from m3_tpu_torch.index.query import term
 
     post_idx, data, _ = _postings(8, 1000, 1)
-    monkeypatch.setattr(K, "k2_chunks", lambda n: 70000)
-    gis = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    monkeypatch.setattr(K, "_K2_THREADS", 2048)
+    spans = _span_rows(K.term_spans(post_idx.numpy(), [1, 2]))
     with pytest.raises(RuntimeError, match="CUDA error"):
-        K.bitmap_from_terms(post_idx.cuda(), data.cuda(), gis, 32, 10)
+        K.bitmap_from_spans(data.cuda(), spans, 1, 32)
     store = DeviceIndexStore(IndexDeviceOptions(max_bytes=1 << 24), device="cuda")
     ix = NamespaceIndex(3600 * 10**9, device_store=store)
     ix.write_batch([(b"s%d" % i, ((b"dc", b"dc%d" % (i % 3)),), T0) for i in range(100)])
@@ -435,6 +504,20 @@ def test_cuda_index_k2_launch_error_raises(monkeypatch):
         ix.query(term(b"dc", b"dc1"), T0 - 1, T0 + 1)
     assert store.stats()["errors"] == 1 and store.stats()["search_hits"] == 0
     torch.cuda.synchronize()  # the refused launch left no fault behind
+
+
+@pytest.mark.cuda
+def test_cuda_launch_floor_runs():
+    """The empty kernel of the launch floor launches and leaves no fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import kernels as K
+
+    before = dict(K.LAUNCHES)
+    for _ in range(3):
+        K.launch_floor("cuda")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before  # not a kernel of the query path
 
 
 @pytest.mark.cuda
@@ -464,15 +547,20 @@ def test_cuda_index_device_segments_match_host():
                regexp(b"dc", b".*[13]"), conj(regexp(b"name", b"m_.*"), neg(term(b"dc", b"dc2"))),
                disj(term(b"host", b"h5"), FieldQuery(b"dc")), neg(regexp(b"host", b"h2.*")),
                term(b"nope", b"x")]
-    before = dict(K.LAUNCHES)
-    for q in queries:
+    for i, q in enumerate(queries):
+        before = dict(K.LAUNCHES)
         dev = ix.query(q, T0 - hour, T0 + 3 * hour).docs.ids()
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         host = ix.query(q, T0 - hour, T0 + 3 * hour, force_host=True).docs.ids()
         assert dev == host, q
+        # K2: one launch per resident segment and query (none for the last,
+        # whose one leaf matches no term); K1: at most one, batched over
+        # both segments, for a query with exact leaves
+        assert launched["bitmap_from_spans"] == (2 if i < len(queries) - 1 else 0), (q, launched)
+        assert launched["match_terms"] <= 1, (q, launched)
     st = store.stats()
     assert st["search_misses"] == 0 and st["errors"] == 0
     assert st["search_hits"] == 2 * len(queries)
-    assert all(K.LAUNCHES[k] > before[k] for k in K.LAUNCHES)
 
 
 def _grouped_input(s, t, seed):

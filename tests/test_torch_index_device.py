@@ -8,7 +8,9 @@ persisted, evicted, rejected) the port's device executor returns exactly
 the doc ids of ``m3_tpu``'s device executor and of the port's host
 executor. The twins of K1 and K2 equal the reference's ``match_terms`` /
 ``bitmap_from_terms`` / ``bitmap_from_term_range`` word for word, and the
-kernel source itself, built as host C++, equals the twins.
+kernel source itself, built as host C++ (K1's warp search and K2's span
+tiles run lane by lane), equals the twins. A query's leaves on a segment
+take one K2 call, after every unsupported node has been found.
 
 Where the port differs on purpose: a device fault raises instead of being
 answered from the host (``test_device_fault_raises``).
@@ -246,8 +248,16 @@ def postings_for(seed, n_terms, n_docs):
     return post_idx, data
 
 
+def spans_of_rows(*rows):
+    """K2's span list (int64 [m, 3]: row, start, end) of a few rows' spans."""
+    out = [(r, a, b) for r, sp in enumerate(rows) for a, b in sp]
+    return np.asarray(out, np.int64).reshape(-1, 3)
+
+
 @pytest.mark.parametrize("n_docs", [1, 31, 32, 33, 1000, 4097])
 def test_bitmap_twins_match_reference(n_docs):
+    """K2's twins, and the span wrapper on the CPU over both forms at once,
+    == the reference's programs."""
     n_terms = 40
     post_idx, data = postings_for(n_docs, n_terms, n_docs)
     n_words = -(-n_docs // 32)
@@ -255,17 +265,20 @@ def test_bitmap_twins_match_reference(n_docs):
     jpi, jpd = jnp.asarray(post_idx), jnp.asarray(data)
     for _ in range(6):
         gis = rng.integers(-1, n_terms, rng.integers(0, 9)).astype(np.int32)
-        got = tk.bitmap_from_terms(i32(post_idx), i32(data), i32(gis), n_words, 0).numpy()
-        want = np.asarray(jk.bitmap_from_terms(jpi, jpd, jnp.asarray(gis), n_words))
-        np.testing.assert_array_equal(got.view(np.uint32), want)
+        want_t = np.asarray(jk.bitmap_from_terms(jpi, jpd, jnp.asarray(gis), n_words))
+        got = tk.bitmap_from_terms_reference(i32(post_idx), i32(data), i32(gis), n_words)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want_t)
         lo, hi = sorted(rng.integers(0, n_terms + 1, 2).tolist())
         start = int(post_idx[lo, 0]) if hi > lo else 0
         end = int(post_idx[hi - 1, 1]) if hi > lo else 0
-        got = tk.bitmap_from_term_range(i32(data), start, end, n_words).numpy()
-        want = np.asarray(jk.bitmap_from_term_range(jpi, jpd, jnp.int32(lo), jnp.int32(hi),
-                                                    n_words))
-        np.testing.assert_array_equal(got.view(np.uint32), want)
+        want_r = np.asarray(jk.bitmap_from_term_range(jpi, jpd, jnp.int32(lo), jnp.int32(hi),
+                                                      n_words))
+        got = tk.bitmap_from_term_range_reference(i32(data), start, end, n_words).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want_r)
         assert not (tk.bitmap_to_docids(got) >= n_docs).any()  # tail bits stay 0
+        spans = spans_of_rows(tk.term_spans(post_idx, gis), [(start, end)])
+        got = tk.bitmap_from_spans(i32(data), spans, 2, n_words).numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, np.stack([want_t, want_r]))
 
 
 # ---------- the kernel source, built as host C++ ----------
@@ -285,45 +298,155 @@ def host_index_kernels(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.m3_index_match_terms_host.argtypes = [P, P, I64, I, P, P, P, P, I64, P]
-    lib.m3_index_bitmap_terms_host.argtypes = [P, P, I64, P, I64, P, I64]
-    lib.m3_index_bitmap_range_host.argtypes = [P, I64, I64, P, I64]
+    lib.m3_index_bitmap_spans_host.argtypes = [P, I64, P, I64, I, P, I64, I64]
     return lib
+
+
+def host_k1(lib, keys, lens, lo, hi, qk, ql):
+    keys, lens, qk, ql = (np.ascontiguousarray(a) for a in (keys, lens, qk, ql))
+    lo, hi = np.ascontiguousarray(lo, np.int32), np.ascontiguousarray(hi, np.int32)
+    out = np.zeros(len(lo), np.int32)
+    assert lib.m3_index_match_terms_host(
+        keys.ctypes.data, lens.ctypes.data, len(keys), keys.shape[1], lo.ctypes.data,
+        hi.ctypes.data, qk.ctypes.data, ql.ctypes.data, len(lo), out.ctypes.data) == 0
+    return out
+
+
+def host_k2(lib, data, spans, n_rows, n_words, shift=0):
+    """K2's host build over ``spans`` with quads counted from ``shift``
+    postings before ``data`` (the alignment a card's pointer would give)."""
+    spans = np.ascontiguousarray(spans, np.int64)
+    words = np.full((n_rows, n_words), -1, np.int32)  # the entry zeroes them
+    live = n_rows * n_words > 0 and bool((spans[:, 2] > spans[:, 1]).any())
+    assert lib.m3_index_bitmap_spans_host(
+        data.ctypes.data, len(data), spans.ctypes.data, len(spans), shift, words.ctypes.data,
+        n_rows, n_words) == (0 if live else -1)
+    return words
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_k1_source_host_build_matches_twin(host_index_kernels, seed):
     terms, fields, keys, lens, k = key_matrix(seed, n_terms=200 + 150 * seed)
     _, qk, ql, lo, hi = query_rows(seed, terms, fields, k)
-    out = np.zeros(len(lo), np.int32)
-    assert host_index_kernels.m3_index_match_terms_host(
-        keys.ctypes.data, lens.ctypes.data, len(terms), k, lo.ctypes.data, hi.ctypes.data,
-        qk.ctypes.data, ql.ctypes.data, len(lo), out.ctypes.data) == 0
+    out = host_k1(host_index_kernels, keys, lens, lo, hi, qk, ql)
     want = tk.match_terms(i32(keys), i32(lens), i32(lo), i32(hi), i32(qk), i32(ql)).numpy()
     np.testing.assert_array_equal(out, want)
 
 
+def sorted_terms(n, seed):
+    """``n`` distinct sorted terms of 0-9 bytes over a small alphabet (NUL
+    extensions among them)."""
+    rng = np.random.default_rng(seed)
+    terms = {b"", b"b", b"b\x00", b"b\x00\x00"}
+    while len(terms) < n:
+        m = n - len(terms)
+        lens_ = rng.integers(1, 10, m)
+        raw = rng.integers(0, 4, (m, 9)).astype(np.uint8) + 96
+        terms |= {bytes(r[:l]) for r, l in zip(raw, lens_)}
+    return sorted(terms)[:n]
+
+
+@pytest.mark.parametrize("n_keys", [1, 2, 32, 33, 34, 1089, 1090, 110_000])
+def test_k1_warp_search_host_build_key_counts(host_index_kernels, n_keys):
+    """The 33-way warp search (host build, lane by lane) == the twin and
+    bisect over whole and partial ranges of every length class: ranges of
+    at most 32 keys, just above (33, 34), 33**2 and one more, ~110,000; a
+    query below every key, above every key, between keys, lo == hi,
+    q_len < 0, and keys padded with zero words to a wider k_max."""
+    terms = sorted_terms(n_keys, n_keys)
+    k = tk.key_width_words(max(len(t) for t in terms))
+    rng = np.random.default_rng(n_keys + 7)
+    sample = terms if n_keys <= 2000 else [terms[i] for i in rng.integers(0, n_keys, 1500)]
+    values = list(sample) + [t + b"a" for t in sample[:300]] + [b"", b"\x00", b"\xff" * 5]
+    lo, hi = [], []
+    for i in range(len(values)):
+        a = int(rng.integers(0, n_keys + 1)) if i % 3 == 0 else 0
+        b = int(rng.integers(a, n_keys + 1)) if i % 3 == 1 else n_keys
+        lo.append(a), hi.append(b)
+    values += [terms[0], terms[-1]]  # lo == hi, at both ends
+    lo += [0, n_keys]
+    hi += [0, n_keys]
+    values.append(b"x" * (4 * k + 4))  # wider than the keys: q_len -1
+    lo.append(0), hi.append(n_keys)
+    for pad in (0, 2):
+        keys, lens = tk.build_term_keys(terms, k + pad)
+        qk, ql = tk.build_query_keys(values, k + pad)
+        if pad:
+            ql[-1] = -1  # the over-width row stays unmatchable at the padded width
+        out = host_k1(host_index_kernels, keys, lens, lo, hi, qk, ql)
+        want = tk.match_terms_reference(i32(keys), i32(lens), i32(np.asarray(lo, np.int32)),
+                                        i32(np.asarray(hi, np.int32)), i32(qk), i32(ql)).numpy()
+        np.testing.assert_array_equal(out, want)
+        for v, g, a, b, q in zip(values, out, lo, hi, ql):
+            at = bisect.bisect_left(terms, v, a, b) if a < b else a
+            hit = q >= 0 and at < b and terms[at] == v
+            assert g == (at if hit else -1), (v, a, b)
+    assert (out >= 0).sum() > 0 and out[-1] == -1
+
+
 @pytest.mark.parametrize("n_docs", [1, 33, 1000, 4097])
 def test_k2_source_host_build_matches_twin(host_index_kernels, n_docs):
+    """K2's span list, host build: term-list rows (-1 gis, duplicates) and
+    range rows (empty ranges) in one call == each form's twin, at every
+    alignment of post_data."""
     n_terms = 50
     post_idx, data = postings_for(n_docs + 7, n_terms, n_docs)
     n_words = -(-n_docs // 32)
     rng = np.random.default_rng(n_docs + 1)
-    for _ in range(8):
+    for trial in range(8):
         gis = rng.integers(-1, n_terms, rng.integers(0, 12)).astype(np.int32)
-        words = np.full(n_words, -1, np.int32)  # the entry zeroes them
-        assert host_index_kernels.m3_index_bitmap_terms_host(
-            post_idx.ctypes.data, data.ctypes.data, n_terms, gis.ctypes.data, len(gis),
-            words.ctypes.data, n_words) == 0
-        want = tk.bitmap_from_terms(i32(post_idx), i32(data), i32(gis), n_words, 0).numpy()
-        np.testing.assert_array_equal(words, want)
         lo, hi = sorted(rng.integers(0, n_terms + 1, 2).tolist())
         start = int(post_idx[lo, 0]) if hi > lo else 0
         end = int(post_idx[hi - 1, 1]) if hi > lo else 0
-        words = np.full(n_words, -1, np.int32)
-        assert host_index_kernels.m3_index_bitmap_range_host(
-            data.ctypes.data, start, end, words.ctypes.data, n_words) == 0
-        want = tk.bitmap_from_term_range(i32(data), start, end, n_words).numpy()
+        spans = spans_of_rows(tk.term_spans(post_idx, gis), [(start, end)],
+                              tk.term_spans(post_idx, np.concatenate([gis, gis[::-1]])))
+        words = host_k2(host_index_kernels, data, spans, 3, n_words, shift=trial % 4)
+        want_t = tk.bitmap_from_terms_reference(i32(post_idx), i32(data), i32(gis), n_words)
+        want_r = tk.bitmap_from_term_range_reference(i32(data), start, end, n_words)
+        np.testing.assert_array_equal(words[0], want_t.numpy())
+        np.testing.assert_array_equal(words[1], want_r.numpy())
+        np.testing.assert_array_equal(words[2], want_t.numpy())
+
+
+@pytest.mark.parametrize("n_docs", [31, 100, 4097, 70_001])
+def test_k2_span_host_build_edge_spans(host_index_kernels, n_docs):
+    """Dense runs of postings (one word across many lanes and tiles),
+    overlapping and duplicate spans in one row, empty spans, spans of one
+    posting, starts at every offset from a 16-byte boundary, and spans of
+    different rows inside one warp's tile: == the span twin, row by row."""
+    rng = np.random.default_rng(n_docs)
+    dense = np.arange(n_docs, dtype=np.int32)
+    sparse = np.sort(rng.choice(n_docs, min(n_docs, 300), replace=False)).astype(np.int32)
+    data = np.concatenate([dense, sparse, dense[::7]])
+    n_words = -(-n_docs // 32)
+    n = len(data)
+    rows = [
+        [(0, n_docs)],
+        [(3, 40), (10, 77), (3, 40), (5, 5), (n_docs, n_docs + len(sparse))],
+        [(i, i + 1) for i in range(0, min(n, 200), 3)],
+        [(a, a + int(rng.integers(0, 50))) for a in rng.integers(0, n - 50, 20)],
+        [],
+        [(n - 1, n), (0, 0), (1, 2), (2, 7)],
+    ]
+    spans = spans_of_rows(*rows)
+    spans[:, 2] = np.minimum(spans[:, 2], n)
+    for shift in range(4):
+        words = host_k2(host_index_kernels, data, spans, len(rows), n_words, shift)
+        want = tk.bitmap_from_spans_reference(i32(data), spans, len(rows), n_words).numpy()
         np.testing.assert_array_equal(words, want)
+    assert (want[4] == 0).all() and want[0].any()
+    for bad in ([[0, 0, n + 1]], [[len(rows), 0, 1]], [[-1, 0, 1]], [[0, -1, 1]]):
+        bad = np.asarray(bad, np.int64)  # outside the postings or the rows: refused
+        assert host_index_kernels.m3_index_bitmap_spans_host(
+            data.ctypes.data, n, bad.ctypes.data, 1, 0, words.ctypes.data, len(rows),
+            n_words) == -2
+        with pytest.raises(ValueError, match="outside"):
+            tk.bitmap_from_spans(i32(data), bad, len(rows), n_words)
+    for r, sp in enumerate(rows):  # each row is the range form's OR of its spans
+        acc = np.zeros(n_words, np.int32)
+        for a, b in sp:
+            acc |= tk.bitmap_from_term_range_reference(i32(data), a, min(b, n), n_words).numpy()
+        np.testing.assert_array_equal(want[r], acc)
 
 
 # ---------- executor parity ----------
@@ -409,6 +532,57 @@ def test_prematch_resolves_every_segment_in_one_launch(monkeypatch):
     for s in segs:
         assert set(pm[id(s)][1]) and pm[id(s)][0] is s._arrays
     assert len(dev) > 0
+
+
+def test_one_k2_call_per_segment_and_query(monkeypatch):
+    """Every leaf of a query on a resident segment (terms, alternations,
+    prefixes, general regexps, fields, under conjunctions, disjunctions and
+    negations) takes ONE K2 call, a bitmap row a leaf; a query with no
+    leaf takes none. Same doc ids as the host and m3_tpu."""
+    store, ix, jix = both([corpus_batch(900, seed=31), corpus_batch(500, seed=32, t=T0 + HOUR)],
+                          T0 + 3 * HOUR)
+    calls = []
+    real = tk.bitmap_from_spans
+    monkeypatch.setattr(tk, "bitmap_from_spans",
+                        lambda pd, spans, n_rows, nw: calls.append(n_rows) or real(pd, spans,
+                                                                                   n_rows, nw))
+    specs = [
+        ("term", b"dc", b"dc1"),
+        ("conj", ("term", b"dc", b"dc1"), ("re", b"name", b"metric_1|metric_2"),
+         ("neg", ("re", b"host", b"h00.*")), ("field", b"role")),
+        ("disj", ("re", b"role", b".*b"), ("term", b"name", b"metric_3"), ("re", b"host", b"h1.*")),
+        ("neg", ("conj", ("term", b"absent", b"x"), ("field", b"dc"))),
+    ]
+    for spec in specs:
+        calls.clear()
+        assert_parity(ix, spec, jix=jix)
+        assert len(calls) == 2, spec  # one per resident segment
+    assert calls[-1] == 2
+    calls.clear()
+    assert_parity(ix, ("all",), jix=jix)
+    assert calls == []
+    assert store.stats()["errors"] == 0 and store.stats()["search_misses"] == 0
+
+
+def test_unsupported_node_routes_before_any_k2_call(monkeypatch):
+    """A node the device does not model is found in the span pass, before
+    K2 runs: the search returns None (a counted miss) without a call."""
+
+    class Unmodelled(tq.Query):
+        pass
+
+    store = make_store()
+    ix = make_index(store)
+    ix.write_batch(corpus_batch(200, seed=33))
+    ix.seal_before(T0 + 2 * HOUR)
+    calls = []
+    monkeypatch.setattr(tk, "bitmap_from_spans", lambda *a: calls.append(a))
+    seg = next(s for b in ix.blocks.values() for s in b.segments)
+    q = tq.conj(tq.term(b"dc", b"dc1"), tq.regexp(b"role", b".*b"), Unmodelled())
+    before = store.stats()["search_misses"]
+    assert seg.search_ast(q) is None
+    assert calls == [] and store.stats()["search_misses"] == before + 1
+    assert store.stats()["errors"] == 0
 
 
 def test_multichip_dryrun_regexp_parity():
@@ -533,7 +707,9 @@ def test_device_fault_raises(monkeypatch, where):
     def boom(*a, **kw):
         raise RuntimeError("injected device fault")
 
-    monkeypatch.setattr(tk, where, boom)
+    # K2 is one span-list wrapper; the two ids fault it on a term-list leaf
+    # and on a range leaf
+    monkeypatch.setattr(tk, "match_terms" if where == "match_terms" else "bitmap_from_spans", boom)
     spec = {"match_terms": ("term", b"dc", b"dc1"),
             "bitmap_from_terms": ("term", b"dc", b"dc1"),
             "bitmap_from_term_range": ("re", b"name", b"metric_.*")}[where]
