@@ -52,8 +52,9 @@ Phases (any failure exits non-zero):
              host=h{i}; Engine(BlockStorage).query_range of
              sum by (job) (rate(m3_scan[1m])) and
              avg by (job) (avg_over_time(m3_scan[1m])) at a 10 s step
-             (window 7). The grid of the unique rows must equal the host
-             decode + consolidate_row bit for bit, and each job's result the
+             (window 7): kernel R decodes, kernel B-1 consolidates. The grid
+             of the unique rows must equal the host decode +
+             consolidate_row bit for bit, and each job's result the
              f64 sum of the unique rows' twin outputs weighted by their
              multiplicity, within rtol 1e-4. Then each stage's time (CUDA
              events), the end-to-end query_range median of 10 (host clock,
@@ -71,7 +72,11 @@ Phases (any failure exits non-zero):
              and the fold's chain of dependent adds at the SM clock), at 10
              groups, at one group of all 100,000 series (a plain sum over
              the block) and at the fan-out query's [11,111, 720] into one
-             group, with the column-block width it picked.
+             group, with the column-block width it picked. B-1 is held to
+             its twin bit for bit (values and counts) at the query's shape
+             ([100,000, 720] -> [100,000, 726], [database]'s too) and at a
+             ragged [333, 517] -> [333, 301], and timed single and back to
+             back beside its bytes bound and the twin.
   index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
              x 10 cpu fields = 1,000,000 series, each with __name__ and
              TSBS's 10 host tags, values drawn from --seed over TSBS's value
@@ -97,10 +102,16 @@ Phases (any failure exits non-zero):
              (filesystem source, re-index, re-admission). 1,000 series x 360
              points of live writes into the next block (write_tagged_batch):
              a scan of those series over both blocks streams (buffered
-             overlay); the flush of that block admits at seal. Engine over M3Storage (the staged
-             path) runs sum by (job) (rate(m3_scan[1m])) and avg by (job)
-             (avg_over_time(m3_scan[1m])), each bit-identical to the same
-             query over BlockStorage on the same streams; scan_totals is
+             overlay); the flush of that block admits at seal. Engine over
+             M3Storage runs sum by (job) (rate(m3_scan[1m])) and avg by (job)
+             (avg_over_time(m3_scan[1m])) through the query plan (the first
+             builds it; plan hits or misses, 0 fallbacks, 0 plan errors,
+             each query's routing printed), each bit-identical, values and
+             metas, to the same query force-staged (one run each, timed), to
+             the same query over BlockStorage on the same streams and to a
+             second run; then the warm median of 10, a warm query's launches
+             by kernel and its device-to-host copies (torch.profiler: must be
+             1); scan_totals is
              resident and bit-identical to chunked_scan_aggregate_packed over
              the same streams, and warm repeats move 0 upload bytes. After
              resident_clear a scan of the 1,000 live series streams with the
@@ -112,7 +123,8 @@ Phases (any failure exits non-zero):
              the sealed blocks are resident again. Kernel B-2 == its twin bit
              for bit here and in [resident] (1M series), K3 on subnormal
              inputs == its flushed twin. Prints the bootstrap seconds, each
-             query's end-to-end median, the scans' end-to-end times, B-2's
+             query's cold, warm and force-staged times, the scans' end-to-end
+             times, B-2's
              time beside its bound, its twin's and the series its direct
              route took, and the node's resident and index stats.
 Prints the card as nvidia-smi reports it, a {"kernels": [...]} line, and
@@ -166,9 +178,9 @@ RESIDENT_SERIES, RESIDENT_CALLS, FETCH_KEYS = 1 << 20, 16, 100_000
 T0 = 1_600_000_000 * 10**9
 # [database]: BASELINE config 3's block through a storage node (8 shards,
 # the Database's default) plus live writes into the next block (a power of
-# ten of series). A staged query takes seconds end to end, so each is timed
-# over DB_QUERY_RUNS runs to keep the phase near 3 minutes
-DB_SERIES, DB_SHARDS, DB_LIVE_SERIES, DB_LIVE_POINTS, DB_QUERY_RUNS = 100_000, 8, 1_000, 360, 3
+# ten of series). A force-staged query takes seconds end to end, so each
+# runs once
+DB_SERIES, DB_SHARDS, DB_LIVE_SERIES, DB_LIVE_POINTS = 100_000, 8, 1_000, 360
 BLOCK = 2 * 3600 * 10**9  # the Database's default block size
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
          ("specials", "c", 32)]
@@ -760,6 +772,38 @@ def per_launch_ms(fn, launches: int = 20) -> float:
     return a.elapsed_time(b) / launches
 
 
+def b1_check(rec, lo: int, hi: int, grid, lookback: int, tag: str) -> dict:
+    """Kernel B-1 (the step-grid consolidation) against its plain torch twin
+    on the card, values and counts bit for bit, then its time (median of 10
+    single launches and back to back, CUDA events), its bytes bound (each
+    record's 19 bytes read once, the grid once, values and counts written
+    once) and the twin's time on the card."""
+    import torch
+
+    from m3_tpu_torch.query import plan as qplan
+
+    launches = qplan.LAUNCHES
+    got, got_counts = qplan.consolidate_grid(rec, lo, hi, grid, lookback)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_counts = qplan.consolidate_grid_reference(rec, lo, hi, grid, lookback)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got.view(torch.int64), want.view(torch.int64))
+            and torch.equal(got_counts, want_counts)):
+        raise AssertionError(f"[{tag}] B-1 differs from its twin")
+    run = lambda: qplan.consolidate_grid(rec, lo, hi, grid, lookback)
+    ms = statistics.median(cuda_ms(run, 10))
+    b2b = per_launch_ms(run)
+    qplan.LAUNCHES = launches  # checks and timing are not the main path's launches
+    s, p = rec.ts.shape
+    t = got.shape[1]
+    nbytes = s * p * 19 + t * 8 + s * t * 8 + s * 4
+    return {"shape": f"[{s}, {p}] -> [{s}, {t}]", "ms": ms, "b2b": b2b, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "datapoints": int(got_counts.sum())}
+
+
 def b2_check(plan, s_pad: int, tag: str) -> dict:
     """Kernel B-2 (the resident lane assembly) against its plain torch twin
     on the card, bit for bit, in all three outputs it gives (B1's packed
@@ -878,7 +922,7 @@ def phase_temporal_sizes(dev) -> float:
     return worst
 
 
-def phase_query(dev, kernels: list, temporal_err: float) -> None:
+def phase_query(dev, kernels: list, temporal_err: float) -> dict:
     import torch
 
     from m3_tpu_torch.block.core import Bounds, make_tags
@@ -888,8 +932,9 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     from m3_tpu_torch.query import engine as E
     from m3_tpu_torch.query.functions import aggregation as A
     from m3_tpu_torch.query.functions import temporal_fused as TF
+    from m3_tpu_torch.ops.decode import DecodeResult
+    from m3_tpu_torch.query import plan as qplan
     from m3_tpu_torch.query.m3_storage import BlockStorage
-    from m3_tpu_torch.query.plan import consolidate_grid
     from m3_tpu_torch.query.promql import Matcher
     from m3_tpu_torch.utils.synthetic import synthetic_streams
 
@@ -916,13 +961,15 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     chunked.LAUNCHES = 0
     TF.LAUNCHES = 0
     A.LAUNCHES = 0
+    qplan.LAUNCHES = 0
     for k in IK.LAUNCHES:
         IK.LAUNCHES[k] = 0
     results = {fn: eng.query_range(q, start, end, STEP) for fn, q in queries.items()}
     fanout = eng.query_range(FANOUT_QUERY, start, end, STEP)
     torch.cuda.synchronize()
-    launches = {"decode_records": chunked.LAUNCHES, "temporal_fused": TF.LAUNCHES,
-                "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
+    launches = {"decode_records": chunked.LAUNCHES, "consolidate_grid": qplan.LAUNCHES,
+                "temporal_fused": TF.LAUNCHES, "grouped_reduce": A.LAUNCHES,
+                "index_match_terms": IK.LAUNCHES["match_terms"],
                 "index_bitmap": IK.LAUNCHES["bitmap_from_spans"]}
     log(f"[query] launches on the main path (3 queries): {launches}")
     for name, n in launches.items():
@@ -1016,7 +1063,12 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
     r_ms = statistics.median(cuda_ms(run_r, 10))
     r_b2b = per_launch_ms(run_r)
     rec_s = chunked.decode_chunked(pk.windows, pk.lanes, s_q, c, K)
-    cons_ms = statistics.median(cuda_ms(lambda: consolidate_grid(rec_s, lo, hi, grid, lookback), 5))
+    # B-1 at the query's (and [database]'s) shape, and at a small ragged one
+    b1 = b1_check(rec_s, lo, hi, grid, lookback, "query")
+    ragged = DecodeResult(*[x[:333, :517].contiguous() if x.dim() == 2 else x[:333]
+                            for x in rec_s])
+    b1_ragged = b1_check(ragged, lo, hi, grid[:301], lookback, "query")
+    del ragged
     grid32 = values.to(torch.float32)
     b2 = {fn: statistics.median(cuda_ms(
         lambda fn=fn: TF.fused_temporal(grid32, window, STEP / 1e9, (fn,)), 20)) for fn in queries}
@@ -1122,7 +1174,14 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
         f"them] {r_ms:.3f} ms (median of 10, CUDA events; back-to-back {r_b2b:.3f} ms); bound "
         f"{r_bound:.3f} ms ({r_bytes / 1e9:.4f} GB at 3.35 TB/s = {r_bound / r_ms:.1%} of "
         f"roofline); twin {r_plain_ms:.1f} ms; {occupancy('decode_records', qw.shape[0])}")
-    log(f"[query] consolidation (plain torch) [{s_q}, {c * K}] -> [{s_q}, {cols}] {cons_ms:.3f} ms")
+    for what, b in (("the query's", b1), ("ragged", b1_ragged)):
+        log(f"[query] B-1 (consolidate_grid) {what} {b['shape']}: {b['ms']:.3f} ms (median of 10, "
+            f"CUDA events; back-to-back {b['b2b']:.3f} ms); bound {b['bound_ms']:.3f} ms "
+            f"({b['bytes'] / 1e9:.4f} GB at 3.35 TB/s = {b['bound_ms'] / b['ms']:.1%} of "
+            f"roofline); twin {b['plain_ms']:.1f} ms; == twin bit for bit (values and "
+            f"{b['datapoints']} datapoints)")
+    log("[query] library_ms for B-1: no PyTorch call does a lookback upper bound with a value "
+        "pick; null")
     for fn in queries:
         log(f"[query] B2 (temporal_fused) {fn} [{rows}, {cols}] w={window}: {b2[fn]:.3f} ms (median "
             f"of 20; back-to-back {b2_b2b[fn]:.3f} ms); bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.4f} GB at 3.35 TB/s = "
@@ -1189,6 +1248,7 @@ def phase_query(dev, kernels: list, temporal_err: float) -> None:
         "bound_by": k3["10 groups"]["bound_by"],
         "library_ms": k3["10 groups"]["lib_ms"],
     }]
+    return b1
 
 
 def sm_clock_hz() -> float:
@@ -1418,7 +1478,7 @@ def phase_index(dev, kernels: list, seed: int) -> None:
     k2t_ms = statistics.median(cuda_ms(k2t, 20))
     k2t_b2b = per_launch_ms(k2t)
     gis = torch.tensor([gi], dtype=torch.int32, device=dev)
-    k2t_twin = IK.bitmap_from_terms_reference(a0.post_idx, a0.post_data, gis, a0.n_words)
+    k2t_twin = IK.bitmap_from_terms_reference(a0.host_post_idx, a0.post_data, gis, a0.n_words)
     if not (torch.equal(k2r_out[0], k2r_twin) and torch.equal(k2r_out, k2r_again)
             and torch.equal(k2t_out[0], k2t_twin)):
         raise AssertionError("K2 differs from its twin, or between two runs")
@@ -1515,20 +1575,42 @@ def tiled_packed_scan(streams: list[bytes], n_series: int, k: int, dev):
     return chunked_scan_aggregate_packed(packed, s=s_pad, c=batch.num_chunks, k=k)
 
 
-def phase_database(dev, kernels: list, b2_resident: dict) -> None:
+def profiled(fn) -> dict:
+    """One fn() under torch.profiler: the device-to-host copies the card
+    ran, the device time of its kernels and copies (the device-side events
+    only) and the host-clock time, ending in a synchronize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"dtoh": sum(1 for e in dev if "DtoH" in e.name),
+            "device_ms": sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA) / 1e3,
+            "wall_ms": wall * 1e3}
+
+
+def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> None:
     import shutil
     import tempfile
     from pathlib import Path
 
     import torch
 
-    from m3_tpu_torch.block.core import SeriesMeta, make_tags
+    from m3_tpu_torch.block.core import Bounds, SeriesMeta, make_tags
     from m3_tpu_torch.index.device import IndexDeviceOptions
     from m3_tpu_torch.index.device import kernels as IK
     from m3_tpu_torch.ops import chunked, fused
     from m3_tpu_torch.ops.sideplane import pack_side_rows
     from m3_tpu_torch.parallel import scan
     from m3_tpu_torch.query import engine as E
+    from m3_tpu_torch.query import plan as qplan
     from m3_tpu_torch.query import stats
     from m3_tpu_torch.query.functions import aggregation as A
     from m3_tpu_torch.query.functions import temporal_fused as TF
@@ -1642,9 +1724,10 @@ def phase_database(dev, kernels: list, b2_resident: dict) -> None:
             f"block {flush_s:.2f} s, {len(flushed)} filesets admitted at seal "
             f"({rst['entries']} lanes resident)")
 
-        # 3. queries through Engine over M3Storage (the staged path), each
-        # held bit for bit to the same query over BlockStorage on the same
-        # streams in the same series order
+        # 3. queries through Engine over M3Storage, served by the query plan,
+        # each held bit for bit to the same query force-staged, to the same
+        # query over BlockStorage on the same streams in the same series
+        # order, and to a second run
         docs = db.query_ids("m3", matchers_to_index_query(m_all), b0, b0 + BLOCK).docs
         index_of = {sid: i for i, sid in enumerate(sids)}
         order = [index_of[d.id] for d in docs]
@@ -1657,41 +1740,105 @@ def phase_database(dev, kernels: list, b2_resident: dict) -> None:
         start, end = b0, b0 + (N_POINTS - 1) * STEP
         queries = {"rate": "sum by (job) (rate(m3_scan[1m]))",
                    "avg_over_time": "avg by (job) (avg_over_time(m3_scan[1m]))"}
-        # the main path, counted: both queries and a resident scan, the
-        # counts set to 0 just before and read just after
+        # the main path, counted: both queries (the first builds its plan)
+        # and a resident scan, the counts set to 0 just before and read just
+        # after
         chunked.LAUNCHES = fused.LAUNCHES = TF.LAUNCHES = A.LAUNCHES = scan.ASSEMBLY_LAUNCHES = 0
+        qplan.LAUNCHES = 0
         for k in IK.LAUNCHES:
             IK.LAUNCHES[k] = 0
-        results = {fn: eng.query_range(q, start, end, STEP) for fn, q in queries.items()}
+        errors = qplan._M_ERRORS.value
+        results, cold, routing = {}, {}, {}
+        for fn, q in queries.items():
+            rec = stats.start(q)
+            rec.record_routing = True
+            t0 = time.perf_counter()
+            results[fn] = eng.query_range(q, start, end, STEP)
+            results[fn].values.cpu()
+            cold[fn] = time.perf_counter() - t0
+            stats.finish(rec, cold[fn])
+            routing[fn] = rec
         resident = st.scan_totals(m_all, b0, b0 + BLOCK)
         torch.cuda.synchronize()
         launches = {"resident_assembly": scan.ASSEMBLY_LAUNCHES, "decode_records": chunked.LAUNCHES,
-                    "lane_aggregates": fused.LAUNCHES, "temporal_fused": TF.LAUNCHES,
-                    "grouped_reduce": A.LAUNCHES, "index_match_terms": IK.LAUNCHES["match_terms"],
+                    "consolidate_grid": qplan.LAUNCHES, "lane_aggregates": fused.LAUNCHES,
+                    "temporal_fused": TF.LAUNCHES, "grouped_reduce": A.LAUNCHES,
+                    "index_match_terms": IK.LAUNCHES["match_terms"],
                     "index_bitmap": IK.LAUNCHES["bitmap_from_spans"]}
         log(f"[database] launches on the main path (2 queries, 1 scan): {launches}")
         for name, n in launches.items():
             if n < 1:
                 raise AssertionError(f"the [database] path did not launch {name}")
+        for fn, rec in routing.items():
+            staged_reasons = sorted({r["reason"] for r in rec.routing if r["path"] == "staged"})
+            log(f"[database] {queries[fn]}: plan hits {rec.plan_hits}, misses {rec.plan_misses}, "
+                f"fallbacks {rec.plan_fallbacks}, device dispatches {rec.device_dispatches}; "
+                f"staged routes {staged_reasons or 'none'}")
+            if (rec.plan_hits + rec.plan_misses < 1 or rec.plan_fallbacks
+                    or qplan._M_ERRORS.value != errors):
+                raise AssertionError(f"[database] {queries[fn]} was not served by the plan: "
+                                     f"{rec.to_dict()}, plan errors "
+                                     f"{qplan._M_ERRORS.value - errors}")
+        staged = {}
         for fn, q in queries.items():
-            want = beng.query_range(q, start, end, STEP)
             got = results[fn]
-            if ([m.tags for m in got.metas] != [m.tags for m in want.metas]
-                    or not same_bits(got.values, want.values)):
-                raise AssertionError(f"[database] {q} over M3Storage differs from BlockStorage")
-            if not same_bits(eng.query_range(q, start, end, STEP).values, got.values):
-                raise AssertionError(f"[database] {q}: a second run differs from the first")
-        log(f"[database] both queries over M3Storage == the same queries over BlockStorage bit "
-            f"for bit ([{len(results['rate'].metas)}, {results['rate'].values.shape[1]}]), and "
-            f"== a second run")
+            t0 = time.perf_counter()
+            with qplan.force_staged():
+                forced = eng.query_range(q, start, end, STEP)
+            forced.values.cpu()
+            staged[fn] = time.perf_counter() - t0
+            for what, want in (("force_staged()", forced),
+                               ("BlockStorage", beng.query_range(q, start, end, STEP)),
+                               ("a second run", eng.query_range(q, start, end, STEP))):
+                if ([m.tags for m in got.metas] != [m.tags for m in want.metas]
+                        or not same_bits(got.values, want.values)):
+                    raise AssertionError(f"[database] {q} over the plan differs from {what}")
+        log(f"[database] both queries over M3Storage (plan-served) == the same queries "
+            f"force-staged, == over BlockStorage, and == a second run, bit for bit, values and "
+            f"metas ([{len(results['rate'].metas)}, {results['rate'].values.shape[1]}])")
         e2e = {}
         for fn, q in queries.items():
             times = []
-            for _ in range(DB_QUERY_RUNS):
+            for _ in range(10):
                 t0 = time.perf_counter()
                 eng.query_range(q, start, end, STEP).values.cpu()
                 times.append(time.perf_counter() - t0)
             e2e[fn] = statistics.median(times)
+        # a warm query's launches by kernel, and its device-to-host copies
+        chunked.LAUNCHES = fused.LAUNCHES = TF.LAUNCHES = A.LAUNCHES = scan.ASSEMBLY_LAUNCHES = 0
+        qplan.LAUNCHES = 0
+        for k in IK.LAUNCHES:
+            IK.LAUNCHES[k] = 0
+        eng.query_range(queries["rate"], start, end, STEP)
+        torch.cuda.synchronize()
+        warm = {"index_match_terms": IK.LAUNCHES["match_terms"],
+                "index_bitmap": IK.LAUNCHES["bitmap_from_spans"],
+                "resident_assembly": scan.ASSEMBLY_LAUNCHES, "decode_records": chunked.LAUNCHES,
+                "consolidate_grid": qplan.LAUNCHES, "temporal_fused": TF.LAUNCHES,
+                "grouped_reduce": A.LAUNCHES}
+        prof = profiled(lambda: eng.query_range(queries["rate"], start, end, STEP))
+        log(f"[database] a warm plan-served query ({queries['rate']}) launches {warm} and makes "
+            f"{prof['dtoh']} device-to-host cop{'y' if prof['dtoh'] == 1 else 'ies'}; device time "
+            f"{prof['device_ms']:.3f} ms of {prof['wall_ms']:.1f} ms (torch.profiler)")
+        if prof["dtoh"] != 1:
+            raise AssertionError(f"[database] a warm query made {prof['dtoh']} device-to-host "
+                                 f"copies")
+        # the warm plan execution alone (M3Storage.fetch_grid: index match,
+        # gather, B-2, R, B-1, the readback), and the engine's host grouping
+        grid = Bounds(start - 6 * STEP, STEP, N_POINTS + 6).timestamps()
+        fetch_s = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            metas, _, _ = st.fetch_grid(m_all, start - 6 * STEP - eng.lookback, end + STEP, grid,
+                                        eng.lookback)
+            torch.cuda.synchronize()
+            fetch_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        A.group_by_tags(metas, [b"job"])
+        group_s = time.perf_counter() - t0
+        log(f"[database] of a warm query: M3Storage.fetch_grid (the plan's execution, its "
+            f"readback included) {statistics.median(fetch_s) * 1e3:.1f} ms (median of 10); "
+            f"group_by_tags over the {s} metas (host) {group_s * 1e3:.1f} ms")
 
         # scan_totals: resident == chunked_scan_aggregate_packed over the
         # same streams in the same order and padding (the streamed twin)
@@ -1788,8 +1935,12 @@ def phase_database(dev, kernels: list, b2_resident: dict) -> None:
         log(f"[database] index stats: { {k: v for k, v in istats.items() if k != 'namespaces'} }, "
             f"namespace m3: {istats['namespaces']['m3']}")
         for fn, q in queries.items():
-            log(f"[database] end to end {q} over M3Storage: {e2e[fn] * 1e3:.1f} ms (median of "
-                f"{DB_QUERY_RUNS}, host clock, ending in a host copy)")
+            first = ("cold (the plan's build)" if routing[fn].plan_misses
+                     else "first run (a plan hit: the query before built the plan)")
+            log(f"[database] end to end {q} over M3Storage: plan-served warm "
+                f"{e2e[fn] * 1e3:.1f} ms (median of 10), {first} {cold[fn] * 1e3:.1f} ms, "
+                f"force-staged {staged[fn] * 1e3:.1f} ms (one run); host clock, each ending in a "
+                f"host copy")
         log(f"[database] end to end scan_totals of m3_scan over {s} series: resident "
             f"{statistics.median(res_s) * 1e3:.1f} ms (median of 3); streamed over the "
             f"{DB_LIVE_SERIES} live series {streamed_s * 1e3:.1f} ms (one run, the re-admission "
@@ -1818,6 +1969,19 @@ def phase_database(dev, kernels: list, b2_resident: dict) -> None:
         f"{b2_resident['plain_ms']:.1f} ms)")
     log("[database] library_ms for B-2: no single PyTorch call gathers M3TSZ windows and "
         "unpacks side planes; null")
+    kernels.append({
+        "name": "consolidate_grid",
+        "route": "cuda",
+        "source": "m3_tpu_torch/query/csrc/consolidate_grid.cu",
+        "replaces": "m3_tpu/query/plan.py:360",
+        "launches": launches["consolidate_grid"],
+        "max_abs_err": 0.0,
+        "ms": b1_query["ms"],
+        "plain_ms": b1_query["plain_ms"],
+        "bound_ms": b1_query["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
 
 
 def main() -> int:
@@ -1854,9 +2018,9 @@ def main() -> int:
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
-    phase_query(dev, kernels, temporal_err)
+    b1 = phase_query(dev, kernels, temporal_err)
     phase_index(dev, kernels, args.seed)
-    phase_database(dev, kernels, b2)
+    phase_database(dev, kernels, b2, b1)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

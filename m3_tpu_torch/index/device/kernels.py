@@ -271,8 +271,10 @@ def bitmap_from_spans_reference(post_data, spans, n_rows: int, n_words: int) -> 
 
 
 def bitmap_from_terms_reference(post_idx, post_data, gis, n_words: int) -> torch.Tensor:
-    """Plain PyTorch twin of K2's term-list form."""
-    gis = gis.to(torch.int64)
+    """Plain PyTorch twin of K2's term-list form; ``post_idx`` is the
+    postings index ([n_terms, 2], a host array or a tensor)."""
+    post_idx = torch.as_tensor(post_idx).to(post_data.device)
+    gis = gis.to(torch.int64).to(post_data.device)
     gis = gis[(gis >= 0) & (gis < post_idx.shape[0])]
     starts = post_idx[gis, 0].to(torch.int64)
     counts = post_idx[gis, 1].to(torch.int64) - starts

@@ -103,7 +103,7 @@ class DeviceArrays:
     ONE host-to-device copy, sliced on the device)."""
 
     __slots__ = (
-        "term_keys", "term_lens", "post_idx", "post_data", "all_words",
+        "term_keys", "term_lens", "post_data", "all_words",
         "fields", "k_words", "n_terms", "n_docs", "n_words", "nbytes",
         "host_keys", "host_lens", "host_post_idx", "dot_safe",
         # weak-referenceable: the cross-segment match cache (batch.py)
@@ -111,12 +111,11 @@ class DeviceArrays:
         "__weakref__",
     )
 
-    def __init__(self, term_keys, term_lens, post_idx, post_data, all_words,
+    def __init__(self, term_keys, term_lens, post_data, all_words,
                  fields, k_words, n_docs, n_words, nbytes,
                  host_keys, host_lens, host_post_idx, dot_safe=True) -> None:
         self.term_keys = term_keys  # int32 [n_terms, k_words], u32 bit patterns
         self.term_lens = term_lens  # int32 [n_terms]
-        self.post_idx = post_idx  # int32 [n_terms, 2]: [start, end) into post_data
         self.post_data = post_data  # int32 [total postings]
         self.all_words = all_words  # int32 [n_words], tail bits 0
         # name -> (global term start, term count, postings data start,
@@ -128,8 +127,9 @@ class DeviceArrays:
         self.n_words = n_words
         self.nbytes = nbytes
         # host mirrors: literal-prefix range narrowing and general-regexp
-        # candidate walks never touch the device, and K2's launch is sized
-        # from the listed terms' postings counts
+        # candidate walks never touch the device, and K2's spans are the
+        # listed terms' rows of the postings index, which lives only here
+        # (int64 [n_terms, 2]: [start, end) into post_data)
         self.host_keys = host_keys
         self.host_lens = host_lens
         self.host_post_idx = host_post_idx

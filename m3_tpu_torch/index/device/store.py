@@ -253,8 +253,9 @@ class DeviceIndexStore:
 
     def _build_host(self, host_seg):
         """Host staging: one flat int32 buffer holding the key matrix,
-        lengths, postings index, postings data and the all-docs bitmap
-        (uploaded in one transfer), plus the side parts. Returns a
+        lengths, postings data and the all-docs bitmap (uploaded in one
+        transfer), plus the side parts; the postings index stays on the
+        host (K2's spans are laid out there). Returns a
         rejection reason string instead when the segment can't take a
         device tier."""
         n_docs = len(host_seg)
@@ -296,7 +297,6 @@ class DeviceIndexStore:
         flat = np.concatenate([
             keys.ravel().view(np.int32),
             lens,
-            post_idx.ravel().astype(np.int32),
             np.concatenate(chunks).astype(np.int32, copy=False),
             all_words.view(np.int32),
         ])
@@ -324,14 +324,11 @@ class DeviceIndexStore:
         term_keys = dev[:o].view(n, k)
         term_lens = dev[o : o + n]
         o += n
-        post_idx = dev[o : o + 2 * n].view(n, 2)
-        o += 2 * n
         post_data = dev[o : o + p]
         all_words = dev[o + p :]
         return DeviceArrays(
             term_keys=term_keys,
             term_lens=term_lens,
-            post_idx=post_idx,
             post_data=post_data,
             all_words=all_words,
             fields=parts["fields"],

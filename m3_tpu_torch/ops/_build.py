@@ -36,7 +36,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # each kernel's contract with the reference's f32 arithmetic (see the note at
 # the top of each source): -fmad=false everywhere; -ftz=true for the lane
 # decode and the grouped reductions, whose reference flushes f32 subnormals
-# as XLA does.
+# as XLA does, and for the consolidation (its f64 arithmetic is unaffected).
 SOURCES = {
     "lane_aggregates": (
         PKG / "ops" / "csrc" / "lane_aggregates.cu",
@@ -104,6 +104,18 @@ SOURCES = {
                                      _I, _I, _I, _I, _I64, _I64, _I, _P, _P, _P, _P],
             # c, cw -> the most stream words a staged series may take
             "m3_resident_assembly_slot_words": [_I64, _I],
+        },
+    ),
+    "consolidate_grid": (
+        PKG / "query" / "csrc" / "consolidate_grid.cu",
+        _COMMON + ("-ftz=true",),
+        {
+            # ts, bits, point_is_float, mult, valid, s, p, lo, hi, grid, t,
+            # lookback, out values, out counts, stream
+            "m3_consolidate_grid": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I64, _I64,
+                                    _P, _P, _P],
+            # -> the most records a block stages at once
+            "m3_consolidate_grid_tile_records": [],
         },
     ),
 }

@@ -11,9 +11,10 @@ sharded variants wait for ROADMAP §A8):
   with kernel B3 (``ops/fused.lane_aggregates_fields``).
 - the resident lane assembly: device gathers over the resident pool's
   pages and side planes build either layout (``assemble_resident_packed``,
-  ``assemble_resident_lanes``). For a pool on the card they launch kernel
-  B-2 (``csrc/resident_assembly.cu``); for a pool on the CPU they run its
-  plain torch twin (``_resident_gather``).
+  ``assemble_resident_lanes``; ``assemble_lane_rows`` for the query plan's
+  rows of plan vectors already on the device). For a pool on the card they
+  launch kernel B-2 (``csrc/resident_assembly.cu``); for a pool on the CPU
+  they run its plain torch twin (``_resident_gather``).
 """
 
 from __future__ import annotations
@@ -250,23 +251,27 @@ class _PlanOnDevice:
     """A padded plan's vectors on the pool's device, and the flat views of
     the two buffers the gathers index."""
 
-    def __init__(self, plan, s_pad: int):
-        dev = plan.words.device
-        pr, sr, nc, tb, bh, bl = pad_chunked_plan(plan, s_pad)
-        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        self.s = s_pad
+    def __init__(self, words, side, vecs: list, c: int, cw: int, w: int, spc: int):
+        """``vecs``: plan_vectors' six int32 tensors on the device."""
+        pr, sr, nc, tb, bh, bl = vecs
+        self.s = nc.shape[0]
         self.lp, self.sl = pr.shape[1], sr.shape[1]
-        self.page_rows = put(pr.reshape(-1))
-        self.side_rows = put(sr.reshape(-1))
-        self.n_chunks = put(nc)
-        self.total_bits = put(tb.astype(np.int64))
-        self.block = (put(bh.astype(np.int64)), put(bl.astype(np.int64)))
-        self.words = plan.words.reshape(-1)
-        self.side = plan.side.reshape(-1, plan.side.shape[-1])
+        self.page_rows = pr.reshape(-1)
+        self.side_rows = sr.reshape(-1)
+        self.n_chunks = nc
+        self.total_bits = tb.to(torch.int64)
+        self.block = (bh.to(torch.int64) & 0xFFFFFFFF, bl.to(torch.int64) & 0xFFFFFFFF)
+        self.words = words.reshape(-1)
+        self.side = side.reshape(-1, side.shape[-1])
         # flat word index page * W + word: int32 while it fits
         self.idx_dtype = torch.int32 if self.words.numel() < 2**31 else torch.int64
-        self.c, self.cw = plan.num_chunks, plan.window_words
-        self.w, self.spc = plan.page_words, plan.side_page_chunks
+        self.c, self.cw = c, cw
+        self.w, self.spc = w, spc
+
+    @classmethod
+    def of_plan(cls, plan, s_pad: int) -> "_PlanOnDevice":
+        return cls(plan.words, plan.side, plan_vectors(plan, s_pad), plan.num_chunks,
+                   plan.window_words, plan.page_words, plan.side_page_chunks)
 
 
 def _resident_gather(pd: _PlanOnDevice, si, ci):
@@ -334,13 +339,19 @@ def assembly_slot(plan, cap: int) -> tuple[int, int]:
     ``cap`` (what a block's shared memory holds beside the side rows, 0 when
     nothing fits), and a series with chunks whose span exceeds the slot
     takes B-2's direct route."""
-    row = plan.page_rows.shape[1] * plan.page_words
-    top = min((max(int(plan.total_bits.max(initial=0)), 0) + 31) // 32 + plan.window_words, row)
+    return _slot(plan.total_bits, plan.n_chunks, plan.page_rows.shape[1] * plan.page_words,
+                 plan.window_words, cap)
+
+
+def _slot(total_bits: np.ndarray, n_chunks: np.ndarray, row: int, cw: int,
+          cap: int) -> tuple[int, int]:
+    """assembly_slot over host vectors; ``row`` the words of a page row."""
+    top = min((max(int(total_bits.max(initial=0)), 0) + 31) // 32 + cw, row)
     slot = min(top, cap)
     if slot == top:  # every span fits: one reduction over the plan, not an array pass
         return slot, 0
-    tb = np.maximum(plan.total_bits.astype(np.int64), 0)
-    span = np.minimum((tb + 31) // 32 + plan.window_words, row)[plan.n_chunks > 0]
+    tb = np.maximum(total_bits.astype(np.int64), 0)
+    span = np.minimum((tb + 31) // 32 + cw, row)[n_chunks > 0]
     return slot, int((span > slot).sum())
 
 
@@ -353,14 +364,27 @@ def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes:
     stream words a staged series may take below assembly_slot's choice
     (tests send series down the direct route with it). Raises if the build
     or the launch fails."""
+    from ..ops._build import load_library
+
+    vecs = plan_vectors(plan, s_pad) if vecs is None else vecs
+    c, cw = plan.num_chunks, plan.window_words
+    cap = load_library("resident_assembly").m3_resident_assembly_slot_words(c, cw)
+    slot_direct = assembly_slot(plan, cap if slot is None else min(slot, cap))
+    return _launch_vecs(plan.words, plan.side, vecs, c, cw, plan.page_words,
+                        plan.side_page_chunks, order, lane_major, tile_lanes, *slot_direct)
+
+
+def _launch_vecs(words, side, vecs: list, c: int, cw: int, page_words: int, spc: int,
+                 order: str, lane_major: bool, tile_lanes: int, slot: int, direct: int):
+    """B-2's launch over plan vectors already on the card (series count
+    ``vecs[2].shape[0]``), with its slot and direct-route count given."""
     global ASSEMBLY_LAUNCHES, ASSEMBLY_DIRECT_SERIES
     from ..ops._build import launch_error, load_library
 
-    dev = plan.words.device
-    vecs = plan_vectors(plan, s_pad) if vecs is None else vecs
-    words = plan.words.contiguous()
-    side = plan.side.contiguous()
-    c, cw = plan.num_chunks, plan.window_words
+    dev = words.device
+    words = words.contiguous()
+    side = side.contiguous()
+    s_pad = vecs[2].shape[0]
     n = s_pad * c
     npad = n if lane_major else -(-n // tile_lanes) * tile_lanes
     windows = torch.empty((npad, cw) if lane_major else (cw, npad), dtype=torch.int32, device=dev)
@@ -368,15 +392,12 @@ def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes:
     tile_flags = (None if lane_major else
                   torch.empty(npad // tile_lanes, dtype=torch.int32, device=dev))
     lib = load_library("resident_assembly")
-    cap = lib.m3_resident_assembly_slot_words(c, cw)
-    slot, direct = assembly_slot(plan, cap if slot is None else min(slot, cap))
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
     with device_guard(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.m3_resident_assembly(
             ptr(words), ptr(side), *[ptr(v) for v in vecs],
-            s_pad, c, vecs[0].shape[1], vecs[1].shape[1], plan.page_words,
-            plan.side_page_chunks, cw,
+            s_pad, c, vecs[0].shape[1], vecs[1].shape[1], page_words, spc, cw,
             0 if order == "c" else 1, int(lane_major), npad, tile_lanes, slot,
             ptr(windows), ptr(planes), ptr(tile_flags), ctypes.c_void_p(stream),
         )
@@ -388,6 +409,47 @@ def _launch_assembly(plan, s_pad: int, order: str, lane_major: bool, tile_lanes:
     ASSEMBLY_LAUNCHES += 1
     ASSEMBLY_DIRECT_SERIES += direct
     return windows, planes, tile_flags, n
+
+
+class LaneRows(NamedTuple):
+    """B-2's inputs as a table of lane rows held on the pool's device: the
+    query plan's per-(doc, block) rows, built once per plan and gathered by
+    row on every execution (``assemble_lane_rows``). ``vecs`` are
+    plan_vectors' six int32 tensors ([R, LP], [R, SL], then [R] four times);
+    ``total_bits`` and ``n_chunks`` their host copies, which fix B-2's slot
+    and direct-route count over all R rows once."""
+
+    vecs: list
+    total_bits: np.ndarray
+    n_chunks: np.ndarray
+    num_chunks: int  # C = the most chunks of any row
+    window_words: int
+    page_words: int
+    side_page_chunks: int
+
+
+def assemble_lane_rows(words, side, table: LaneRows, rows: torch.Tensor,
+                       tile_rows: int = fused.ROWS_DEFAULT) -> fused.PackedLanes:
+    """The series-major packed lanes (kernel R's input) of ``table``'s rows
+    ``rows`` (an int64 tensor on the pool's device, one series a row) over
+    the pool buffers ``words`` and ``side``, with no host read: a pool on
+    the card launches B-2 over the gathered rows, one on the CPU runs its
+    twin. The slot is the table's longest span (at most what a block
+    holds), and the direct-route count counts the table's rows past it, an
+    upper bound of the gathered rows'."""
+    vecs = [v.index_select(0, rows) for v in table.vecs]
+    c, cw, w, spc = (table.num_chunks, table.window_words, table.page_words,
+                     table.side_page_chunks)
+    if words.device.type == "cuda":
+        from ..ops._build import load_library
+
+        cap = load_library("resident_assembly").m3_resident_assembly_slot_words(c, cw)
+        slot_direct = _slot(table.total_bits, table.n_chunks, vecs[0].shape[1] * w, cw, cap)
+        windows, planes, tile_flags, n = _launch_vecs(words, side, vecs, c, cw, w, spc, "s",
+                                                      False, tile_rows * 128, *slot_direct)
+        return fused.PackedLanes(windows=windows, lanes=planes, tile_flags=tile_flags, n=n,
+                                 order="s")
+    return _packed_reference(_PlanOnDevice(words, side, vecs, c, cw, w, spc), "s", tile_rows)
 
 
 def _lane_fields(windows, planes) -> dict:
@@ -425,7 +487,7 @@ def assemble_resident_lanes_reference(plan, s_pad: int | None = None) -> tuple[d
     """Plain torch twin of B-2's per-field layout, on the pool's device."""
     s = plan.page_rows.shape[0]
     s_pad = s if s_pad is None else max(s_pad, s)
-    pd = _PlanOnDevice(plan, s_pad)
+    pd = _PlanOnDevice.of_plan(plan, s_pad)
     dev = pd.words.device
     n = s_pad * pd.c
     i32 = dict(dtype=torch.int32, device=dev)
@@ -489,7 +551,12 @@ def assemble_resident_packed_reference(plan, s_pad: int | None = None, order: st
         raise ValueError(f"order must be 'c' or 's', got {order!r}")
     s = plan.page_rows.shape[0]
     s_pad = s if s_pad is None else max(s_pad, s)
-    pd = _PlanOnDevice(plan, s_pad)
+    return _packed_reference(_PlanOnDevice.of_plan(plan, s_pad), order, rows), s_pad
+
+
+def _packed_reference(pd: _PlanOnDevice, order: str, rows: int) -> fused.PackedLanes:
+    """The packed layout's twin over a plan on the device."""
+    s_pad = pd.s
     dev = pd.words.device
     n = s_pad * pd.c
     tile_lanes = rows * 128
@@ -524,7 +591,7 @@ def assemble_resident_packed_reference(plan, s_pad: int | None = None, order: st
         flt_tiles[t] = fast_f.reshape(-1, tile_lanes).all(dim=1)
     tile_flags = torch.where(int_tiles, 1, torch.where(flt_tiles, 2, 0)).to(torch.int32)
     return fused.PackedLanes(windows=windows, lanes=lanes, tile_flags=tile_flags, n=n,
-                             order=order), s_pad
+                             order=order)
 
 
 def resident_chunked_scan(plan, s_pad: int) -> ScanAggregates:

@@ -5,10 +5,12 @@ evaluates to a dense [S, T] tensor on the engine's device (a [1, T] row
 for scalars), so each transform is one vectorized call:
 
     parse (promql.py) → _fetch: the storage's fetch_grid decodes and
-    consolidates the matched series onto the step grid; a storage without
-    fetch_grid (``M3Storage``), or one whose fetch_grid returns None, runs
-    the staged path instead: ``storage.fetch`` gives each matched series'
-    raw samples and ``consolidate`` puts them on the grid on the host →
+    consolidates the matched series onto the step grid (``M3Storage``
+    through its query plan, ``query/plan.py``); a storage without
+    fetch_grid, or one whose fetch_grid returns None (a plan-ineligible
+    query), runs the staged path instead: ``storage.fetch`` gives each
+    matched series' raw samples and ``consolidate`` puts them on the grid on
+    the host →
     temporal functions (temporal_fused, kernel B2) → grouped aggregations
     (aggregation.py, kernel K3).
 

@@ -3,32 +3,42 @@
 Port of ``m3_tpu/query/m3_storage.py``:
 
 - ``M3Storage`` — the Engine's storage over one ``storage.Database``
-  namespace: ``fetch`` (raw samples of the matched series, for the
-  engine's staged path) and ``scan_totals`` (whole-block scan-and-aggregate),
-  each routed either to decode-from-residency (``resident/scan``: kernel R
-  for fetches, B1 for scans, both over the resident lane assembly B-2) or to
-  the streamed path (fileset streams decoded on the host for fetches,
-  uploaded and decoded by B1 for scans), with read-through re-admission of
-  evicted blocks. The routes that are the reference's semantics stay and
-  are recorded in ``query/stats`` routing records: a block that is not
-  resident streams, a raced eviction streams, annotated lanes re-read on
-  the host, a budget-deferred re-admission is skipped.
+  namespace. ``fetch_grid`` serves an eligible range-query fetch through the
+  one-program query plan (``query/plan.py`` ``Planner``: the index match,
+  the resident assembly B-2, the records decode R and the consolidation B-1
+  on the device, one readback), and returns None for the rest, which the
+  engine serves staged: ``fetch`` (raw samples of the matched series) and
+  ``scan_totals`` (whole-block scan-and-aggregate), each routed either to
+  decode-from-residency (``resident/scan``: kernel R for fetches, B1 for
+  scans, both over the resident lane assembly B-2) or to the streamed path
+  (fileset streams decoded on the host for fetches, uploaded and decoded by
+  B1 for scans), with read-through re-admission of evicted blocks. The
+  routes that are the reference's semantics stay and are recorded in
+  ``query/stats`` routing records: a plan-ineligible query runs staged
+  with the plan's reason (``plan:<reason>``), a block that is not resident
+  streams, a raced eviction streams, annotated lanes re-read on the host, a
+  budget-deferred re-admission is skipped.
 
-  One divergence, on purpose: the reference's ``_maybe_readmit`` catches
-  every exception so that the query, already served from the streamed
-  result, succeeds. Here only the pool's own budget refusal is a counted,
-  quiet outcome; a failed build, a failed launch or any CUDA error (OOM
-  included) during re-admission is counted in
-  ``resident_readmission_failures_total`` and RAISED, so a device fault is
-  never hidden behind a host answer (ROADMAP §C).
-
-  ``fetch_grid`` and the one-program ``Planner`` come with ROADMAP §A4.
+  Two divergences, on purpose (ROADMAP §C):
+  - the reference's ``fetch_grid`` catches every exception from the plan
+    and serves the query staged as ``plan:device-error``. Here an
+    ``Ineligible`` stays a recorded route (the ``force-staged`` and
+    ``plan-disabled`` bypasses count no fallback, as in the reference), but
+    any other exception from the plan (a failed build or launch, a CUDA
+    error, an OOM) is counted in ``query_plan_errors_total`` and RAISED;
+  - the reference's ``_maybe_readmit`` catches every exception so that the
+    query, already served from the streamed result, succeeds. Here only the
+    pool's own budget refusal is a counted, quiet outcome; a failed build, a
+    failed launch or any CUDA error (OOM included) during re-admission is
+    counted in ``resident_readmission_failures_total`` and RAISED.
+  Either way a device fault is never hidden behind a host answer.
 - ``BlockStorage`` — ONE sealed block held on the card, with
-  ``fetch_grid`` (the device gather, kernel R, consolidation). It stays
-  until ``M3Storage`` has a ``fetch_grid`` (ROADMAP §A4); its matchers
-  resolve through the port's inverted index (``index/``): the block's
-  series are the docs of one sealed index segment, resident in a
-  ``DeviceIndexStore``, searched by the index kernels K1 and K2.
+  ``fetch_grid`` (the device gather, kernel R, kernel B-1). ``chip_smoke.py``
+  holds ``M3Storage`` to it; its retirement is queued in ROADMAP §B's list
+  of speed work. Its matchers resolve through the port's inverted index
+  (``index/``): the block's series are the docs of one sealed index
+  segment, resident in a ``DeviceIndexStore``, searched by the index
+  kernels K1 and K2.
 """
 
 from __future__ import annotations
@@ -109,11 +119,91 @@ _EMPTY_TOTALS = _EmptyTotals()
 
 @dataclass
 class M3Storage:
-    """Engine Storage over one Database namespace (staged path: ``fetch``;
-    the engine consolidates on the host)."""
+    """Engine Storage over one Database namespace: ``fetch_grid`` through
+    the query plan, else the staged ``fetch`` (the engine consolidates on
+    the host)."""
 
     db: Database
     namespace: str
+
+    @property
+    def planner(self):
+        """The device query planner (``query/plan.py``), one per adapter,
+        owning the LRU plan cache for this namespace."""
+        p = self.__dict__.get("_planner")
+        if p is None:
+            from .plan import Planner
+
+            p = self.__dict__["_planner"] = Planner(self.db, self.namespace)
+        return p
+
+    def fetch_grid(self, matchers, start_nanos, end_nanos, grid, lookback_nanos):
+        """The fetch and its consolidation onto the engine's step grid as
+        one plan execution (``query/plan.py``): the matchers resolve, the
+        lanes decode and consolidate on the device, with one readback; the
+        host attaches tags. Returns ``(metas, values f64[S, T] on the
+        pool's device, datapoints)``, or None to run the staged path: every
+        ineligibility cause lands in the routing record. A fault of the
+        plan's device work raises (the module docstring).
+
+        ``grid`` is the engine's consolidation timestamp vector (i64
+        nanos); ``[start_nanos, end_nanos)`` the raw fetch window
+        (lookback included by the caller)."""
+        from .plan import _M_ERRORS, _M_FALLBACKS, Ineligible
+
+        try:
+            matched, values, datapoints, err_rows = self.planner.run(
+                matchers, start_nanos, end_nanos, grid, lookback_nanos
+            )
+        except Ineligible as e:
+            stats.add_routing(b"*", None, "staged", f"plan:{e.reason}")
+            if e.reason in ("force-staged", "plan-disabled"):
+                # deliberate bypasses (the parity probe, the kill switch)
+                # are not degradations: they must not count as fallbacks
+                return None
+            self.planner.fallbacks += 1
+            _M_FALLBACKS.inc()
+            stats.add(plan_fallbacks=1)
+            # release plans stamped against state that has since moved
+            self.planner.evict_stale()
+            return None
+        except Exception:
+            _M_ERRORS.inc()
+            raise
+        matched, metas = matched
+        if len(err_rows):
+            # lanes the device decoder bailed on (annotated streams):
+            # batched host re-read per block, consolidated with the same
+            # rule; the routing record shows the hybrid per series
+            values = self._stitch_grid_rows(
+                matched, err_rows, values, start_nanos, end_nanos, grid, lookback_nanos,
+            )
+        st = stats.current()
+        if st is not None and st.record_routing:
+            err_set = set(int(i) for i in err_rows)
+            for i, doc in enumerate(matched):
+                stats.add_routing(
+                    doc.id, None, "fused",
+                    "annotated-err-lane (host stitch)" if i in err_set else "device-plan",
+                )
+        nb = int(values.numel()) * 16  # times+values equivalent of the staged read
+        stats.add(resident_hits=1, bytes_=nb, resident_bytes=nb)
+        return metas, values, datapoints
+
+    def _stitch_grid_rows(self, matched, err_rows, values, start_nanos, end_nanos, grid,
+                          lookback_nanos):
+        """Host-consolidate the err rows from batched codec re-reads,
+        through the ONE shared 'last' consolidation rule
+        (engine.consolidate_row), so the hybrid rows cannot drift from the
+        staged path's."""
+        err_docs = [matched[int(i)] for i in err_rows]
+        arrays = self.host_stitch_arrays(err_docs, start_nanos, end_nanos)
+        values = values.clone()
+        for i, doc in zip(err_rows, err_docs):
+            t, v = arrays[doc.id]
+            row = consolidate_row(t, v, np.asarray(grid, np.int64), lookback_nanos)
+            values[int(i)] = torch.from_numpy(row).to(values.device)
+        return values
 
     def host_stitch_arrays(self, docs, start_nanos, end_nanos) -> dict:
         """Batched host-codec re-read for lanes the device decoder bailed
@@ -489,9 +579,9 @@ class M3Storage:
 
 
 class BlockStorage:
-    """One sealed block (stays until ``M3Storage`` gets ``fetch_grid``,
-    ROADMAP §A4): series tags on the host, their M3TSZ chunk-lanes
-    packed series-major on the device.
+    """One sealed block, ``chip_smoke.py``'s reference for ``M3Storage``
+    (its retirement is queued in ROADMAP): series tags on the host, their
+    M3TSZ chunk-lanes packed series-major on the device.
 
     Series i is ``streams[i % len(streams)]`` with tags ``tags[i]``; more
     tags than streams tile the streams on the device (``pack_lanes
@@ -531,9 +621,9 @@ class BlockStorage:
     def fetch_grid(self, matchers, start_nanos, end_nanos, grid, lookback_nanos):
         """Matched series consolidated onto ``grid`` (int64 step times)
         with samples in ``[start_nanos, end_nanos)``: gather their lanes on
-        the device, decode (kernel R), consolidate, and re-read on the host
-        the rows the device decoder bailed on (err). Returns (metas,
-        values float64[S, T] on the device, datapoints)."""
+        the device, decode (kernel R), consolidate (kernel B-1), and re-read
+        on the host the rows the device decoder bailed on (err). Returns
+        (metas, values float64[S, T] on the device, datapoints)."""
         sel = self.match(matchers)
         c = self.num_chunks
         lanes = (torch.from_numpy(sel).to(self.device)[:, None] * c
@@ -541,9 +631,11 @@ class BlockStorage:
         res = chunked.decode_chunked(
             self.packed.windows[:, lanes], self.packed.lanes[:, lanes], s=sel.size, c=c, k=self.k
         )
-        values, datapoints = consolidate_grid(res, start_nanos, end_nanos, grid, lookback_nanos)
-        err_rows = torch.nonzero(res.err).flatten().tolist()
-        for i in err_rows:
+        values, counts = consolidate_grid(res, start_nanos, end_nanos, grid, lookback_nanos)
+        # one read back: the datapoints, then the err rows
+        out = torch.cat([counts.sum(dtype=torch.int64).view(1), res.err.to(torch.int64)]).cpu()
+        datapoints = int(out[0])
+        for i in np.flatnonzero(out[1:].numpy()).tolist():
             dps = [dp for dp in decode(self.streams[int(sel[i]) % len(self.streams)])
                    if start_nanos <= dp.timestamp < end_nanos]
             row = consolidate_row(

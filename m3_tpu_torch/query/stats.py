@@ -7,10 +7,13 @@ through engine → storage adapter → database for the duration of a query:
 - per-stage wall seconds (``index_resolve``, ``decode``, ...);
 - series / datapoints / bytes scanned, decoded-block cache hits and misses,
   resident hits and misses;
+- the query plan's (``query/plan.py``) hits, misses, fallbacks and
+  coalesced fetches, and the plan-served fetches' device dispatches;
 - with ``record_routing`` on, one entry per resident-vs-streamed routing
   decision (the record EXPLAIN renders).
 
-Completed records charge the process counters. EXPLAIN's rendering, the
+Completed records charge the process counters; ``to_dict`` is the record
+under the reference's names (``planHits``, ...). EXPLAIN's rendering, the
 slow-query ring, the histograms, tenants, SLO objectives and the
 scheduler's fields wait for the rest of the query layer (ROADMAP §A5).
 """
@@ -45,6 +48,19 @@ class QueryStats:
     # the pool was on
     resident_hits: int = 0
     resident_misses: int = 0
+    # the one-program query plan (query/plan.py): fetches served by a
+    # cached plan (hits), plans (re)built this query (misses), fetches that
+    # degraded to the staged path (fallbacks, the routing record says why)
+    plan_hits: int = 0
+    plan_misses: int = 0
+    plan_fallbacks: int = 0
+    # fetches served by joining another concurrent query's in-flight plan
+    # execution: this query dispatched nothing for them
+    plan_coalesced: int = 0
+    # plan executions this query dispatched, one per plan-served fetch (the
+    # reference counts them at its KernelProfiler seam, which the port has
+    # not yet, ROADMAP §A9): a warm plan-served query is exactly one
+    device_dispatches: int = 0
     trace_id: str | None = None
     error: str | None = None
     # routing decisions, one per (series, block) — {"series", "block",
@@ -56,6 +72,34 @@ class QueryStats:
 
     def add_stage(self, name: str, secs: float) -> None:
         self.stages[name] = self.stages.get(name, 0.0) + secs
+
+    def to_dict(self) -> dict:
+        """The record under the reference's names (the fields the port
+        keeps; tenants, the scheduler's and the index's wait for §A5)."""
+        out = {
+            "query": self.query,
+            "startUnixNanos": self.start_unix_nanos,
+            "durationSecs": self.duration_secs,
+            "stages": dict(self.stages),
+            "seriesScanned": self.series_scanned,
+            "datapointsScanned": self.datapoints_scanned,
+            "bytesScanned": self.bytes_scanned,
+            "cacheHits": self.cache_hits,
+            "cacheMisses": self.cache_misses,
+            "residentHits": self.resident_hits,
+            "residentMisses": self.resident_misses,
+            "planHits": self.plan_hits,
+            "planMisses": self.plan_misses,
+            "planFallbacks": self.plan_fallbacks,
+            "planCoalesced": self.plan_coalesced,
+            "deviceDispatches": self.device_dispatches,
+            "traceId": self.trace_id,
+            "error": self.error,
+        }
+        if self.record_routing:
+            out["routing"] = list(self.routing)
+            out["routingDropped"] = self.routing_dropped
+        return out
 
 
 # routing entries per record: enough to show every block of a real
@@ -134,6 +178,11 @@ def add(
     resident_hits: int = 0,
     resident_misses: int = 0,
     resident_bytes: int = 0,
+    plan_hits: int = 0,
+    plan_misses: int = 0,
+    plan_fallbacks: int = 0,
+    plan_coalesced: int = 0,
+    device_dispatches: int = 0,
 ) -> None:
     """Charge scan counters against this thread's active query (no-op
     outside a query, so storage paths call it unconditionally)."""
@@ -148,6 +197,11 @@ def add(
     st.resident_hits += resident_hits
     st.resident_misses += resident_misses
     st.resident_bytes += resident_bytes
+    st.plan_hits += plan_hits
+    st.plan_misses += plan_misses
+    st.plan_fallbacks += plan_fallbacks
+    st.plan_coalesced += plan_coalesced
+    st.device_dispatches += device_dispatches
 
 
 class _Stage:

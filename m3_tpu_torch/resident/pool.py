@@ -667,6 +667,47 @@ class ResidentPool:
             entries.append(e)
         return entries
 
+    def buffers(self):
+        """(page buffer, side buffer) as published now, or None before the
+        first admission. A reader takes them under ``read_lease()``, which
+        keeps the snapshot valid while it is used (the query plan's
+        execution, ``query/plan.py``)."""
+        with self._lock:
+            if self._words is None or self._side is None:
+                return None
+            return self._words, self._side
+
+    def _check_entry(self, e: ResidentEntry) -> None:
+        """Raise on a corrupt page-table row (a copy of the reference's
+        ``m3_tpu/resident/pool.py:1131``). Entries are immutable and options
+        never change, so it needs no lock; the query plan runs it on every
+        row of its tables."""
+        o = self.options
+        n = len(e.pages)
+        if n > o.max_lane_pages:
+            raise ResidentPoolError(
+                f"page table entry spans {n} pages > limit {o.max_lane_pages}"
+            )
+        if n * o.page_words * 32 < e.num_bits:
+            raise ResidentPoolError(
+                f"page table entry holds {e.num_bits} bits in {n} pages "
+                f"of {o.page_words * 32} bits"
+            )
+        for p in e.pages:
+            if not 0 < p < o.num_pages:
+                raise ResidentPoolError(
+                    f"corrupt page index {p} (pool has {o.num_pages} pages)"
+                )
+        for p in e.side_pages:
+            if not 0 < p < o.num_side_pages:
+                raise ResidentPoolError(
+                    f"corrupt side page index {p} (pool has {o.num_side_pages} side pages)"
+                )
+        if e.n_chunks > len(e.side_pages) * o.side_page_chunks:
+            raise ResidentPoolError(
+                f"side table holds {e.n_chunks} chunks in {len(e.side_pages)} side pages"
+            )
+
     def _check_entries(self, n_pages, pages, num_bits, n_side, side_pages, n_chunks) -> None:
         """Raise on corrupt page-table rows (flattened over the plan's
         entries) instead of gathering out of bounds or wrapping."""

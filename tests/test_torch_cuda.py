@@ -2,8 +2,9 @@
 the lane-aggregate kernel (B1), the records decode (kernel R), the fused
 temporal kernel (B2), the per-field lane-aggregate kernel (B3), the
 resident scan that feeds B1, R and B3 from device residency, the index
-kernels K1 and K2 with the index's device tier, and the grouped
-reductions K3.
+kernels K1 and K2 with the index's device tier, the grouped
+reductions K3, and the step-grid consolidation B-1 with the query plan
+over a Database on the card.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -905,4 +906,80 @@ def test_cuda_readmission_device_fault_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(pool_mod, "_scatter", scatter)
     assert st.scan_totals(m, *span)["path"] == "streamed"  # re-admits this time
     assert st.scan_totals(m, *span)["path"] == "resident"
+    db.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p", [(64, 1), (300, 2 * 720 + 24), (16, 8193)])
+def test_cuda_consolidate_grid_matches_twin(s, p):
+    """Kernel B-1 == its twin bit for bit (values with NaN payloads, and
+    counts): one record a row, a ragged two-block row, and rows one past
+    the kernel's shared-memory tile with grids of more than one pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.ops import decode as D
+    from m3_tpu_torch.query import plan as qplan
+    from torch_streams import consolidation_records
+
+    rec, grid, lo, hi, lookback = consolidation_records(s, p, seed=p)
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in rec.items()}
+    res = D.DecodeResult(err=torch.zeros(s, dtype=torch.bool), **host)
+    cuda = D.DecodeResult(*[x.cuda() for x in res])
+    before = qplan.LAUNCHES
+    got, got_counts = qplan.consolidate_grid(cuda, lo, hi, grid, lookback)
+    assert qplan.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want, want_counts = qplan.consolidate_grid_reference(res, lo, hi, grid, lookback)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+    assert torch.equal(got_counts.cpu(), want_counts)
+
+
+@pytest.mark.cuda
+def test_cuda_plan_matches_force_staged(tmp_path):
+    """A Database on the card: a range query served by the query plan (B-2,
+    R and B-1 launched, no fallback) == the same query force-staged, bit
+    for bit; a warm repeat is a plan hit of one dispatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import IndexDeviceOptions
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.query import plan as qplan
+    from m3_tpu_torch.query import stats
+    from m3_tpu_torch.query.engine import Engine
+    from m3_tpu_torch.query.m3_storage import M3Storage
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+
+    db = Database(str(tmp_path), num_shards=2, commitlog_enabled=False,
+                  resident_options=ResidentOptions(max_bytes=1 << 24),
+                  index_device_options=IndexDeviceOptions(max_bytes=1 << 24), device="cuda")
+    db.create_namespace("ns", NamespaceOptions(block_size_nanos=3600 * 10**9))
+    rng = np.random.default_rng(4)
+    for i in range(40):
+        tags = ((b"__name__", b"pm"), (b"job", b"app%d" % (i % 3)), (b"s", b"%03d" % i))
+        for j in range(60):
+            v = float(j % 9) if i % 3 == 0 else round(float(rng.standard_normal()), 2 + i % 3)
+            db.write_tagged("ns", tags, T0 + j * 10**10, v)
+    db.flush("ns", T0 + 4 * 3600 * 10**9)
+    eng = Engine(M3Storage(db, "ns"), device="cuda")
+    span = (T0 + 60 * 10**9, T0 + 560 * 10**9, 20 * 10**9)
+    for q in ('rate(pm{job=~"app.*"}[2m])', 'sum by (job) (avg_over_time(pm[1m]))',
+              'pm{job="app1",s!="004"}'):
+        launches = (scan.ASSEMBLY_LAUNCHES, chunked.LAUNCHES, qplan.LAUNCHES)
+        st = stats.start(q)
+        got = eng.query_range(q, *span)
+        stats.finish(st, 0.0)
+        assert st.plan_misses == 1 and st.plan_fallbacks == 0, st.to_dict()
+        assert (scan.ASSEMBLY_LAUNCHES, chunked.LAUNCHES, qplan.LAUNCHES) == tuple(
+            n + 1 for n in launches)
+        st = stats.start(q)
+        again = eng.query_range(q, *span)
+        stats.finish(st, 0.0)
+        assert st.plan_hits == 1 and st.device_dispatches == 1
+        with qplan.force_staged():
+            want = eng.query_range(q, *span)
+        assert [m.tags for m in got.metas] == [m.tags for m in want.metas]
+        bits = torch.int64 if want.values.dtype == torch.float64 else torch.int32
+        for x in (got.values, again.values):
+            assert torch.equal(x.cpu().view(bits), want.values.cpu().view(bits))
     db.close()

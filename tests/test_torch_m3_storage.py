@@ -6,9 +6,9 @@ flushes (the port on ``device="cpu"``: its kernels' twins).
   read-through re-admission counters and ``resident_stats`` keys are equal
   bit for bit, on the resident path, the streamed path after eviction, and
   with a buffered overlay.
-- ``Engine.query_range`` over the port's ``M3Storage`` (staged path) equals
-  ``m3_tpu``'s through its fused planner and, with ``M3_TPU_QUERY_PLAN=0``,
-  through its staged path.
+- ``Engine.query_range`` over the port's ``M3Storage`` equals ``m3_tpu``'s
+  through its fused planner (both plan-served where eligible) and, with
+  ``M3_TPU_QUERY_PLAN=0``, through its staged path (both staged).
 - Mirrors of the Database cases of ``tests/test_resident.py``; the last
   (a failed read-through re-admission) asserts the port's raise.
 - Kernel B-2 (``parallel/csrc/resident_assembly.cu``) built as host C++ vs
@@ -280,9 +280,10 @@ QUERIES = [
 @pytest.mark.parametrize("query", QUERIES)
 @pytest.mark.parametrize("plan", ["fused", "staged"])
 def test_engine_query_range_matches_reference(shared_dbs, monkeypatch, query, plan):
-    """The port's Engine over M3Storage (staged path: fetch, host
-    consolidation, B2's and K3's twins) equals m3_tpu's Engine through its
-    fused planner and through its staged path, bit for bit."""
+    """The port's Engine over M3Storage (its query plan where eligible, else
+    the staged fetch and host consolidation; B2's and K3's twins) equals
+    m3_tpu's Engine through its fused planner and, with the plan off in
+    both, through the two staged paths, bit for bit."""
     if plan == "staged":
         monkeypatch.setenv("M3_TPU_QUERY_PLAN", "0")
     j, t = shared_dbs

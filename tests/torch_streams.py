@@ -25,3 +25,48 @@ def group_streams(n_points=97):
     rows = ints[:20] + floats[:20] + mixed
     return [encode_series(t, [float(v) for v in r]) for r in rows] + synthetic_mixed_streams(
         16, n_points, seed=3, frac_float=0.3, frac_tu_change=0.4, frac_annotation=0.2)
+
+
+# f64 float points B-1 must carry bit for bit: NaNs (one with a payload),
+# signed zeros, infinities, subnormals and the largest finite values
+F64_SPECIALS = np.array([
+    0x7FF8000000000000, 0x7FF0000000000123, 0xFFF8000000000001, 0x0000000000000000,
+    0x8000000000000000, 0x7FF0000000000000, 0xFFF0000000000000, 0x0000000000000001,
+    0x800FFFFFFFFFFFFF, 0x7FEFFFFFFFFFFFFF, 0xFFEFFFFFFFFFFFFF, 0x3FF0000000000000,
+], np.uint64).view(np.int64)
+
+
+def consolidation_records(s, p, seed=0, step=10):
+    """Decoded records [s, p] for the step-grid consolidation (kernel B-1)
+    and a query over them: (records dict of numpy arrays ts int64, bits
+    int64, point_is_float bool, mult uint8, valid bool; grid int64 [T];
+    lo; hi; lookback). Timestamps are seconds on a 10 s lattice, so many
+    steps fall exactly ``lookback`` after a record. Rows by index mod 6: no
+    valid record; valid records only outside [lo, hi); runs of equal
+    timestamps; and three of random gaps, some gaps past the lookback.
+    Points mix float ones (``F64_SPECIALS`` and normal values) and int ones
+    at every mult 0..6, negatives too; invalid records hold garbage
+    timestamps."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.choice([0, step, step, step, 2 * step, 7 * step], size=(s, p))
+    gaps[:, 0] = rng.integers(0, 5, s) * step
+    ts = T0 + np.cumsum(gaps, axis=1).astype(np.int64)
+    kind = np.arange(s) % 6
+    valid = rng.random((s, p)) < 0.85
+    valid[kind == 0] = False
+    span = int(ts.max() - T0) + step
+    lo, hi = T0 + span // 8, T0 + span - span // 8
+    out = (ts < lo) | (ts >= hi)
+    valid[kind == 1] &= out[kind == 1]
+    eq = kind == 2
+    ts[eq] = T0 + (np.arange(p)[None, :] // 3 * step + lo - T0)
+    ts = np.where(valid, ts, rng.integers(-(1 << 62), 1 << 62, (s, p)))
+    pif = rng.random((s, p)) < 0.5
+    fbits = np.where(rng.random((s, p)) < 0.3, rng.choice(F64_SPECIALS, (s, p)),
+                     rng.normal(0, 1e3, (s, p)).view(np.int64))
+    ibits = rng.integers(-10**9, 10**9, (s, p))
+    bits = np.where(pif, fbits, ibits).astype(np.int64)
+    mult = rng.integers(0, 7, (s, p)).astype(np.uint8)
+    grid = T0 + np.arange(-3 * step, span + 4 * step, step, dtype=np.int64)
+    records = dict(ts=ts.astype(np.int64), bits=bits, point_is_float=pif, mult=mult, valid=valid)
+    return records, grid, lo, hi, 3 * step
