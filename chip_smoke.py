@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N] [--parent-b1 TREE/m3_tpu_torch/query/csrc/consolidate_grid.cu]
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
@@ -76,7 +76,12 @@ Phases (any failure exits non-zero):
              its twin bit for bit (values and counts) at the query's shape
              ([100,000, 720] -> [100,000, 726], [database]'s too) and at a
              ragged [333, 517] -> [333, 301], and timed single and back to
-             back beside its bytes bound and the twin.
+             back beside its bytes bound, the twin and the launch floor (an
+             empty kernel through the same route), with its launch shape
+             (warps a block, blocks, shared memory, registers) and ptxas's
+             report. With --parent-b1 (another tree's consolidate_grid.cu)
+             that tree's B-1 is built beside this one and timed in turns
+             with it (parent, new, new, parent) on the same inputs.
   index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
              x 10 cpu fields = 1,000,000 series, each with __name__ and
              TSBS's 10 host tags, values drawn from --seed over TSBS's value
@@ -804,6 +809,107 @@ def b1_check(rec, lo: int, hi: int, grid, lookback: int, tag: str) -> dict:
             "datapoints": int(got_counts.sum())}
 
 
+def ptxas_report(lib: str, kernel: str) -> str:
+    """Each instantiation of ``kernel`` as ``nvcc -Xptxas -v`` reported it
+    in this run's build of ``lib``: registers, shared memory, spills."""
+    from m3_tpu_torch.ops import _build
+
+    text = _build.BUILD_LOG.get(lib)
+    if not text:
+        return "not in this run's build log"
+    entries, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = None
+            if kernel in name:  # a template instantiation's mangled name: <true> is ILb1E
+                cur = kernel + ("<true>" if "ILb1E" in name else "<false>" if "ILb0E" in name
+                                else "")
+                entries[cur] = []
+        elif cur is not None and ("Used" in line or "spill" in line):
+            entries[cur].append(line.split(":", 1)[-1].strip())
+    return "; ".join(f"{name}: {', '.join(info)}" for name, info in entries.items()) or "none"
+
+
+def build_parent_b1(source: str):
+    """Starts nvcc on another tree's B-1 source (``--parent-b1``: the
+    parent commit's ``consolidate_grid.cu``, unpacked beside this checkout
+    in a directory .gitignore lists), with this checkout's flags, into
+    build/kernels. Returns (process, library path)."""
+    import hashlib
+    from pathlib import Path
+
+    from m3_tpu_torch.ops import _build
+
+    src = Path(source).resolve()
+    flags = _build.SOURCES["consolidate_grid"][1]
+    header = src.parents[2] / "csrc" / "launch.cuh"
+    digest = hashlib.sha256(src.read_bytes() + header.read_bytes()).hexdigest()[:16]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"parent_consolidate_grid_{digest}.so"
+    proc = subprocess.Popen([_build.nvcc_path(), *flags, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def load_parent_b1(proc, out):
+    """The parent's ``m3_consolidate_grid`` once its build is done: its
+    entry takes the arguments of the entry before ``tile`` and ``run``
+    (ts, bits, point_is_float, mult, valid, s, p, lo, hi, grid, t,
+    lookback, values, counts, stream)."""
+    import ctypes
+
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's B-1 did not build:\n{log_text}")
+    fn = ctypes.CDLL(str(out)).m3_consolidate_grid
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [P, P, P, P, P, I64, I64, I64, I64, P, I64, I64, P, P, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def b1_turns(parent, rec, lo: int, hi: int, grid, lookback: int) -> list:
+    """The parent commit's B-1 and this one's in turns (parent, new, new,
+    parent) on the same inputs, each through its C entry into outputs
+    allocated once: a median of 10 single launches, a back-to-back run of
+    20 (CUDA events) and the device time a launch (torch.profiler). The
+    parent's values and counts must equal this one's bit for bit."""
+    import torch
+
+    from m3_tpu_torch.ops._build import load_library
+
+    s, p = rec.ts.shape
+    g = torch.as_tensor(np.asarray(grid, np.int64)).cuda()
+    t = g.numel()
+    ins = [x.contiguous() for x in (rec.ts, rec.bits, rec.point_is_float, rec.mult, rec.valid)]
+    outs = {name: (torch.empty((s, t), dtype=torch.float64, device="cuda"),
+                   torch.empty(s, dtype=torch.int32, device="cuda")) for name in ("parent", "new")}
+    new = load_library("consolidate_grid").m3_consolidate_grid
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(name):
+        v, c = outs[name]
+        head = (*[x.data_ptr() for x in ins], s, p, int(lo), int(hi), g.data_ptr(), t,
+                int(lookback), v.data_ptr(), c.data_ptr())
+        rc = parent(*head, stream) if name == "parent" else new(*head, 0, 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"the {name} B-1 launch failed: CUDA error {rc}")
+
+    call("parent")
+    call("new")
+    torch.cuda.synchronize()
+    if not (torch.equal(outs["parent"][0].view(torch.int64), outs["new"][0].view(torch.int64))
+            and torch.equal(outs["parent"][1], outs["new"][1])):
+        raise AssertionError("the parent's B-1 and this one's differ")
+    turns = []
+    for name in ("parent", "new", "new", "parent"):
+        f = lambda name=name: call(name)
+        turns.append((name, statistics.median(cuda_ms(f, 10)), per_launch_ms(f),
+                      sum(device_us(f).values()) / 1e3))
+    return turns
+
+
 def b2_check(plan, s_pad: int, tag: str) -> dict:
     """Kernel B-2 (the resident lane assembly) against its plain torch twin
     on the card, bit for bit, in all three outputs it gives (B1's packed
@@ -922,7 +1028,7 @@ def phase_temporal_sizes(dev) -> float:
     return worst
 
 
-def phase_query(dev, kernels: list, temporal_err: float) -> dict:
+def phase_query(dev, kernels: list, temporal_err: float, parent_b1=None) -> dict:
     import torch
 
     from m3_tpu_torch.block.core import Bounds, make_tags
@@ -1069,6 +1175,13 @@ def phase_query(dev, kernels: list, temporal_err: float) -> dict:
                             for x in rec_s])
     b1_ragged = b1_check(ragged, lo, hi, grid[:301], lookback, "query")
     del ragged
+    b1_shape = qplan.consolidate_grid_shape(s_q, rec_s.ts.shape[1], len(grid))
+    b1_pairs = (b1_turns(parent_b1, rec_s, lo, hi, grid, lookback) if parent_b1 is not None
+                else None)
+    # the launch floor: an empty kernel through the same ctypes route
+    floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
+    floor_b2b = per_launch_ms(lambda: IK.launch_floor(dev))
+    b1["floor_ms"] = floor_ms
     grid32 = values.to(torch.float32)
     b2 = {fn: statistics.median(cuda_ms(
         lambda fn=fn: TF.fused_temporal(grid32, window, STEP / 1e9, (fn,)), 20)) for fn in queries}
@@ -1180,6 +1293,20 @@ def phase_query(dev, kernels: list, temporal_err: float) -> dict:
             f"({b['bytes'] / 1e9:.4f} GB at 3.35 TB/s = {b['bound_ms'] / b['ms']:.1%} of "
             f"roofline); twin {b['plain_ms']:.1f} ms; == twin bit for bit (values and "
             f"{b['datapoints']} datapoints)")
+    log(f"[query] B-1 launch floor (empty kernel, same route): {floor_ms:.4f} ms (median of 20, "
+        f"back-to-back {floor_b2b:.4f} ms); B-1 {b1['ms']:.3f} ms is {b1['ms'] / floor_ms:.1f}x it, "
+        f"ragged {b1_ragged['ms']:.3f} ms {b1_ragged['ms'] / floor_ms:.1f}x")
+    log(f"[query] B-1 launch at the query's shape: {b1_shape['blocks']} blocks of "
+        f"{b1_shape['warps']} warps (resident_blocks {b1_shape['resident_blocks']}), "
+        f"{b1_shape['smem_bytes']} bytes of shared memory a block, {b1_shape['registers']} "
+        f"registers a thread, tile {b1_shape['tile']} records, run {b1_shape['run']} steps a lane, "
+        f"grid in shared memory {bool(b1_shape['grid_in_smem'])}; ptxas: "
+        f"{ptxas_report('consolidate_grid', 'consolidate_grid_kernel')}")
+    if b1_pairs is not None:
+        log(f"[query] B-1 in turns with the parent's at {b1['shape']} (C entries, outputs "
+            f"allocated once; == bit for bit): " + "; ".join(
+                f"{name} {ms:.3f} ms (back-to-back {b2b:.3f} ms, device {dev_ms:.3f} ms)"
+                for name, ms, b2b, dev_ms in b1_pairs))
     log("[query] library_ms for B-1: no PyTorch call does a lookback upper bound with a value "
         "pick; null")
     for fn in queries:
@@ -1981,6 +2108,7 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
         "bound_ms": b1_query["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": b1_query["floor_ms"],
     })
 
 
@@ -1991,6 +2119,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED, help="seed of the [index] phase's tags")
+    ap.add_argument("--parent-b1", metavar="CU", default=None,
+                    help="another tree's query/csrc/consolidate_grid.cu (a parent commit "
+                         "unpacked beside this checkout): [query] times its B-1 in turns with "
+                         "this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2004,7 +2136,9 @@ def main() -> int:
     log(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    parent_build = build_parent_b1(args.parent_b1) if args.parent_b1 else None
     _build.build_all()
+    parent_b1 = load_parent_b1(*parent_build) if parent_build else None
     log(f"[build] {', '.join(_build.SOURCES)} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
@@ -2018,7 +2152,7 @@ def main() -> int:
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
-    b1 = phase_query(dev, kernels, temporal_err)
+    b1 = phase_query(dev, kernels, temporal_err, parent_b1)
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
 

@@ -111,10 +111,14 @@ SOURCES = {
         _COMMON + ("-ftz=true",),
         {
             # ts, bits, point_is_float, mult, valid, s, p, lo, hi, grid, t,
-            # lookback, out values, out counts, stream
+            # lookback, out values, out counts, tile, run, stream
             "m3_consolidate_grid": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I64, _I64,
-                                    _P, _P, _P],
-            # -> the most records a block stages at once
+                                    _P, _P, _I, _I, _P],
+            # s, p, t, tile, run, out int64[8]: warps a block, resident
+            # blocks, shared memory a block, registers, grid in shared
+            # memory, tile, run, blocks launched
+            "m3_consolidate_grid_shape": [_I64, _I64, _I64, _I, _I, _P],
+            # -> the most records a warp stages at once
             "m3_consolidate_grid_tile_records": [],
         },
     ),

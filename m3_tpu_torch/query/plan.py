@@ -155,21 +155,33 @@ def consolidate_grid(res: D.DecodeResult, lo: int, hi: int, grid, lookback: int)
     (``query/csrc/consolidate_grid.cu``; raises if the build or the launch
     fails), a CPU tensor runs the twin. Nothing is read back: callers sum
     the counts after their own readback."""
+    if res.ts.device.type == "cpu":
+        return consolidate_grid_reference(res, lo, hi, grid, lookback)
+    return launch_consolidate_grid(res, lo, hi, grid, lookback)
+
+
+def launch_consolidate_grid(res: D.DecodeResult, lo: int, hi: int, grid, lookback: int,
+                            tile: int = 0, run: int = 0):
+    """Kernel B-1's launch behind ``consolidate_grid``: ``tile`` records a
+    warp stages at once (0: the row, up to ``m3_consolidate_grid_tile_records``)
+    and ``run`` steps a lane takes a pass (0: ceil(T / 32), up to 24). The
+    card tests force both to reach the kernel's tiles and passes."""
     global LAUNCHES
     dev = res.ts.device
-    if dev.type == "cpu":
-        return consolidate_grid_reference(res, lo, hi, grid, lookback)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     s, p = res.ts.shape
-    g = torch.as_tensor(np.asarray(grid, np.int64) if not isinstance(grid, torch.Tensor)
-                        else grid, dtype=torch.int64).to(dev).contiguous()
+    if isinstance(grid, torch.Tensor):
+        g = grid.to(device=dev, dtype=torch.int64).contiguous()
+    else:  # through pinned memory: a pageable copy would wait for the card first
+        g = torch.from_numpy(np.ascontiguousarray(grid, np.int64)).pin_memory().to(
+            dev, non_blocking=True)
     t = g.numel()
     values = torch.empty((s, t), dtype=torch.float64, device=dev)
-    counts = torch.zeros(s, dtype=torch.int32, device=dev)
     if s == 0 or p == 0:
         values.fill_(torch.nan)
-        return values, counts
+        return values, torch.zeros(s, dtype=torch.int32, device=dev)
+    counts = torch.empty(s, dtype=torch.int32, device=dev)  # the kernel writes every row's
     if p > 0x7FFFFFFF:
         raise ValueError(f"consolidate_grid: {p} records a row exceed 2**31")
     want = {"ts": torch.int64, "bits": torch.int64, "point_is_float": torch.bool,
@@ -187,12 +199,31 @@ def consolidate_grid(res: D.DecodeResult, lo: int, hi: int, grid, lookback: int)
         rc = lib.m3_consolidate_grid(
             ins["ts"].data_ptr(), ins["bits"].data_ptr(), ins["point_is_float"].data_ptr(),
             ins["mult"].data_ptr(), ins["valid"].data_ptr(), s, p, int(lo), int(hi),
-            g.data_ptr(), t, int(lookback), values.data_ptr(), counts.data_ptr(), stream,
+            g.data_ptr(), t, int(lookback), values.data_ptr(), counts.data_ptr(), int(tile),
+            int(run), stream,
         )
     if rc != 0:
         raise launch_error("consolidate_grid", rc, **ins, grid=g, values=values, counts=counts)
     LAUNCHES += 1
     return values, counts
+
+
+def consolidate_grid_shape(s: int, p: int, t: int, tile: int = 0, run: int = 0,
+                           device="cuda") -> dict:
+    """How kernel B-1 runs [s, p] records onto t steps: warps a block, the
+    blocks the card holds at once and those the launch starts, shared
+    memory a block, registers a thread, whether the grid sits in shared
+    memory, records a tile and steps a lane takes a pass."""
+    import ctypes
+
+    out = (ctypes.c_int64 * 8)()
+    with device_guard(torch.device(device)):
+        rc = load_library("consolidate_grid").m3_consolidate_grid_shape(s, p, t, tile, run, out)
+    if rc != 0:
+        raise RuntimeError(f"consolidate_grid_shape({s}, {p}, {t}): CUDA error {rc}")
+    keys = ("warps", "resident_blocks", "smem_bytes", "registers", "grid_in_smem", "tile", "run",
+            "blocks")
+    return dict(zip(keys, (int(x) for x in out)))
 
 
 def consolidate_grid_reference(res: D.DecodeResult, lo: int, hi: int, grid, lookback: int):

@@ -20,7 +20,7 @@ import torch
 from m3_tpu_torch.codec.m3tsz import encode_series
 from m3_tpu_torch.ops import chunked, fused
 from m3_tpu_torch.utils.synthetic import synthetic_mixed_streams, synthetic_streams
-from torch_streams import group_streams
+from torch_streams import CONSOLIDATION_CASES, group_streams
 
 T0 = 1_600_000_000 * 10**9
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -932,6 +932,102 @@ def test_cuda_consolidate_grid_matches_twin(s, p):
     want, want_counts = qplan.consolidate_grid_reference(res, lo, hi, grid, lookback)
     assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
     assert torch.equal(got_counts.cpu(), want_counts)
+
+
+def _b1_on_card(rec, offset=0):
+    """A DecodeResult on the card over seeded numpy records; offset > 0
+    places each plane `offset` elements past its storage's start (a
+    contiguous view whose rows start off a 16-byte boundary)."""
+    from m3_tpu_torch.ops import decode as D
+
+    planes = {}
+    for k, v in rec.items():
+        x = torch.from_numpy(np.ascontiguousarray(v))
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")
+        planes[k] = buf[offset:].view(x.shape)
+        planes[k].copy_(x)
+    return D.DecodeResult(err=torch.zeros(rec["ts"].shape[0], dtype=torch.bool, device="cuda"),
+                          **planes)
+
+
+def _b1_twin(rec, lo, hi, grid, lookback):
+    from m3_tpu_torch.ops import decode as D
+    from m3_tpu_torch.query import plan as qplan
+
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in rec.items()}
+    res = D.DecodeResult(err=torch.zeros(rec["ts"].shape[0], dtype=torch.bool), **host)
+    return qplan.consolidate_grid_reference(res, lo, hi, grid, lookback)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,run", [(0, 0), (256, 0), (0, 3), (256, 1)])
+@pytest.mark.parametrize("case", CONSOLIDATION_CASES)
+def test_cuda_consolidate_grid_cases_match_twin(case, tile, run):
+    """Kernel B-1 == its twin bit for bit on the adversarial cases
+    (torch_streams.consolidation_case), at the kernel's own tile and run
+    and forced to tiles of 256 records (several tiles a row, equal
+    timestamps across a tile boundary) and to runs of 3 and 1 steps (many
+    passes a row, many lanes' runs across each equal run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query import plan as qplan
+    from torch_streams import consolidation_case
+
+    rec, grid, lo, hi, lookback = consolidation_case(case, seed=5)
+    before = qplan.LAUNCHES
+    got, got_counts = qplan.launch_consolidate_grid(_b1_on_card(rec), lo, hi, grid, lookback,
+                                                    tile=tile, run=run)
+    assert qplan.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want, want_counts = _b1_twin(rec, lo, hi, grid, lookback)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+    assert torch.equal(got_counts.cpu(), want_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,t,offset", [(720, 726, 0), (517, 301, 3), (720, 2500, 1)])
+def test_cuda_consolidate_grid_rows_past_the_warps(p, t, offset):
+    """Kernel B-1 with more rows than the card's resident warps and a row
+    count that is not a multiple of the warps a block (each warp walks
+    several rows, its next row's copies in flight), == its twin bit for
+    bit: at the query's P = 720, T = 726; at a ragged P = 517 with planes
+    placed off a 16-byte boundary; at a grid too long for shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query import plan as qplan
+    from torch_streams import consolidation_records
+
+    shape = qplan.consolidate_grid_shape(10**6, p, t)
+    warps = shape["warps"]
+    s = shape["resident_blocks"] * warps * 2 + warps // 2 + 1
+    assert qplan.consolidate_grid_shape(s, p, t)["warps"] == warps
+    assert s % warps != 0 and shape["registers"] > 0
+    assert shape["grid_in_smem"] == (1 if t <= 2048 else 0)
+    rec, grid, lo, hi, lookback = consolidation_records(s, p, seed=t)
+    grid = np.linspace(grid[0], grid[-1], t).astype(np.int64)
+    got, got_counts = qplan.consolidate_grid(_b1_on_card(rec, offset), lo, hi, grid, lookback)
+    torch.cuda.synchronize()
+    want, want_counts = _b1_twin(rec, lo, hi, grid, lookback)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+    assert torch.equal(got_counts.cpu(), want_counts)
+
+
+@pytest.mark.cuda
+def test_cuda_consolidate_grid_refuses_bad_arguments():
+    """A tile past the kernel's or a run past 24 steps is refused by the
+    entry and raised by the wrapper; nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query import plan as qplan
+    from torch_streams import consolidation_records
+
+    rec, grid, lo, hi, lookback = consolidation_records(4, 40)
+    res = _b1_on_card(rec)
+    before = qplan.LAUNCHES
+    for tile, run in ((8193, 0), (0, 25)):
+        with pytest.raises(RuntimeError, match="consolidate_grid kernel launch failed"):
+            qplan.launch_consolidate_grid(res, lo, hi, grid, lookback, tile=tile, run=run)
+    assert qplan.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -8,7 +8,12 @@ kernels' twins).
   record, records only outside the window, steps before the first record
   and exactly ``lookback`` after one, equal timestamps, NaN / +-0 / +-inf /
   subnormal float points, int points at every mult), at P = 1, 720,
-  2 * 720 + 24 and one past a shared-memory tile.
+  2 * 720 + 24 and one past a shared-memory tile; and on the adversarial
+  cases of ``torch_streams.consolidation_case`` (equal timestamps across a
+  lane's run of steps and across a tile, repeated steps, a grid that steps
+  back, T = 1, 31, 33, 77, empty rows between full ones, P = 1 and one past
+  a tile), the host build at its own tile and at tiles of 256, and with
+  other lane counts and runs, which move the merge walk's partition.
 - ``Engine.query_range`` over the port's ``M3Storage`` through its
   ``Planner`` against ``m3_tpu``'s fused path (one query shape: the
   reference compiles one XLA program a shape) and against the port's own
@@ -49,7 +54,7 @@ from m3_tpu_torch.storage.database import Database as _Database
 from m3_tpu_torch.storage.database import NamespaceOptions
 from m3_tpu_torch.storage.fs import FilesetID, write_fileset
 from m3_tpu_torch.utils.serialize import encode_tags
-from torch_streams import consolidation_records
+from torch_streams import CONSOLIDATION_CASES, consolidation_case, consolidation_records
 
 NANOS = 1_000_000_000
 HOUR = 3600 * NANOS
@@ -147,15 +152,16 @@ def host_b1(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # ts, bits, pif, mult, valid, s, p, lo, hi, grid, t, lookback, values, counts, tile
+    # ts, bits, pif, mult, valid, s, p, lo, hi, grid, t, lookback, values, counts, tile,
+    # lanes, run
     lib.m3_consolidate_grid_host.argtypes = [P, P, P, P, P, I64, I64, I64, I64, P, I64, I64,
-                                             P, P, I]
+                                             P, P, I, I, I]
     lib.m3_consolidate_grid_host.restype = I
     lib.m3_consolidate_grid_tile_records.restype = I
     return lib
 
 
-def _run_host(lib, rec, grid, lo, hi, lookback, tile):
+def _run_host(lib, rec, grid, lo, hi, lookback, tile, lanes=32, run=0):
     s, p = rec["ts"].shape
     values = np.empty((s, len(grid)), np.float64)
     counts = np.empty(s, np.int32)
@@ -164,7 +170,7 @@ def _run_host(lib, rec, grid, lo, hi, lookback, tile):
     rc = lib.m3_consolidate_grid_host(
         a["ts"].ctypes.data, a["bits"].ctypes.data, a["point_is_float"].ctypes.data,
         a["mult"].ctypes.data, a["valid"].ctypes.data, s, p, lo, hi, grid.ctypes.data,
-        len(grid), lookback, values.ctypes.data, counts.ctypes.data, tile)
+        len(grid), lookback, values.ctypes.data, counts.ctypes.data, tile, lanes, run)
     assert rc == 0
     return values, counts
 
@@ -172,9 +178,10 @@ def _run_host(lib, rec, grid, lo, hi, lookback, tile):
 @pytest.mark.parametrize("tile", [0, 256])
 @pytest.mark.parametrize("s,p", SHAPES)
 def test_b1_source_host_build_matches_twin(host_b1, s, p, tile):
-    """B-1's host build (the kernel's tile walk and compaction order, one
-    thread) == the twin bit for bit, at the kernel's own tile (0) and at
-    tiles of 256 records, which split every row past 256 records."""
+    """B-1's host build (the kernel's tile walk, compaction order and merge
+    walk over 32 lanes' runs of steps, one thread) == the twin bit for bit,
+    at the kernel's own tile (0) and at tiles of 256 records, which split
+    every row past 256 records."""
     rec, grid, lo, hi, lookback = consolidation_records(s, p, seed=p + 1)
     if p == 8193:
         assert p == host_b1.m3_consolidate_grid_tile_records() + 1
@@ -183,6 +190,62 @@ def test_b1_source_host_build_matches_twin(host_b1, s, p, tile):
                                                          lookback)
     assert _same_bits(got, want.numpy())
     np.testing.assert_array_equal(got_counts, want_counts.numpy())
+
+
+@pytest.mark.parametrize("case", CONSOLIDATION_CASES)
+def test_b1_twin_cases_match_consolidate_row(case):
+    """The twin == the port's and the reference's consolidate_row on B-1's
+    adversarial cases, bit for bit, counts too."""
+    rec, grid, lo, hi, lookback = consolidation_case(case, seed=3)
+    values, counts = qplan.consolidate_grid(_decode_result(rec), lo, hi, grid, lookback)
+    counted = rec["valid"] & (rec["ts"] >= lo) & (rec["ts"] < hi)
+    np.testing.assert_array_equal(counts.numpy(), counted.sum(axis=1))
+    for rule in (tengine.consolidate_row, jengine.consolidate_row):
+        assert _same_bits(values.numpy(), _host_grid(rec, grid, lo, hi, lookback, rule))
+
+
+@pytest.mark.parametrize("tile", [0, 256])
+@pytest.mark.parametrize("case", CONSOLIDATION_CASES)
+def test_b1_host_build_cases_match_twin(host_b1, case, tile):
+    """B-1's host build == the twin bit for bit on the adversarial cases, at
+    the kernel's tile and at tiles of 256 (equal timestamps across a tile
+    boundary, a row one past a tile)."""
+    rec, grid, lo, hi, lookback = consolidation_case(case, seed=4)
+    got, got_counts = _run_host(host_b1, rec, grid, lo, hi, lookback, tile)
+    want, want_counts = qplan.consolidate_grid_reference(_decode_result(rec), lo, hi, grid,
+                                                         lookback)
+    assert _same_bits(got, want.numpy())
+    np.testing.assert_array_equal(got_counts, want_counts.numpy())
+
+
+@pytest.mark.parametrize("lanes,run", [(1, 0), (7, 0), (7, 5), (32, 1)])
+@pytest.mark.parametrize("s,p", SHAPES)
+def test_b1_host_build_partitions_match_twin(host_b1, s, p, lanes, run):
+    """The merge walk over other partitions of the grid == the twin: one
+    lane walking every step, 7 lanes (runs not a divisor of T), runs of 5
+    steps (many passes) and runs of one step (every step searched)."""
+    rec, grid, lo, hi, lookback = consolidation_records(s, p, seed=p + 2)
+    got, got_counts = _run_host(host_b1, rec, grid, lo, hi, lookback, 0, lanes, run)
+    want, want_counts = qplan.consolidate_grid_reference(_decode_result(rec), lo, hi, grid,
+                                                         lookback)
+    assert _same_bits(got, want.numpy())
+    np.testing.assert_array_equal(got_counts, want_counts.numpy())
+
+
+def test_b1_host_build_refuses_bad_arguments(host_b1):
+    """The host entry returns 1 for what the kernel does not take: a tile
+    past the kernel's, no lanes, a run past the most a lane takes."""
+    rec, grid, lo, hi, lookback = consolidation_records(2, 8)
+    a = {k: np.ascontiguousarray(v) for k, v in rec.items()}
+    values = np.empty((2, len(grid)), np.float64)
+    counts = np.empty(2, np.int32)
+    g = np.ascontiguousarray(grid, np.int64)
+    for tile, lanes, run in ((host_b1.m3_consolidate_grid_tile_records() + 1, 32, 0),
+                             (0, 0, 0), (0, 32, 25), (-1, 32, 0)):
+        assert host_b1.m3_consolidate_grid_host(
+            a["ts"].ctypes.data, a["bits"].ctypes.data, a["point_is_float"].ctypes.data,
+            a["mult"].ctypes.data, a["valid"].ctypes.data, 2, 8, lo, hi, g.ctypes.data,
+            len(g), lookback, values.ctypes.data, counts.ctypes.data, tile, lanes, run) == 1
 
 
 def test_b1_cpu_tensor_runs_the_twin():

@@ -70,3 +70,99 @@ def consolidation_records(s, p, seed=0, step=10):
     grid = T0 + np.arange(-3 * step, span + 4 * step, step, dtype=np.int64)
     records = dict(ts=ts.astype(np.int64), bits=bits, point_is_float=pif, mult=mult, valid=valid)
     return records, grid, lo, hi, 3 * step
+
+
+def _lattice_records(ts_rows, valid_rows, seed):
+    """Records over the given timestamp and valid rows (equal lengths), with
+    the point mix of ``consolidation_records``: float points (some
+    ``F64_SPECIALS``) and int points at every mult."""
+    rng = np.random.default_rng(seed)
+    ts = np.asarray(ts_rows, np.int64)
+    valid = np.asarray(valid_rows, bool)
+    shape = ts.shape
+    ts = np.where(valid, ts, rng.integers(-(1 << 62), 1 << 62, shape))
+    pif = rng.random(shape) < 0.5
+    fbits = np.where(rng.random(shape) < 0.3, rng.choice(F64_SPECIALS, shape),
+                     rng.normal(0, 1e3, shape).view(np.int64))
+    bits = np.where(pif, fbits, rng.integers(-10**9, 10**9, shape)).astype(np.int64)
+    mult = rng.integers(0, 7, shape).astype(np.uint8)
+    return dict(ts=ts.astype(np.int64), bits=bits, point_is_float=pif, mult=mult, valid=valid)
+
+
+CONSOLIDATION_CASES = ("equal_run_lane", "equal_run_tile", "repeated_steps", "grid_back",
+                       "coarse_steps", "steps_1", "steps_31", "steps_33", "steps_77",
+                       "empty_rows", "records_1", "records_past_tile")
+
+
+def consolidation_case(name, seed=0, step=10):
+    """One of B-1's adversarial inputs, as ``consolidation_records`` gives
+    them (records, grid, lo, hi, lookback):
+
+    - equal_run_lane: runs of 2-5 equal timestamps at the last step of
+      every run of 4 steps (B-1's lane runs at T = 100), the next step with
+      no record of its own, so a lane's first step picks the last of the run
+      before it;
+    - equal_run_tile: rows of 600 records with runs of 16 equal timestamps
+      across records 256 and 512 (the boundaries of tiles of 256);
+    - repeated_steps: every grid step three times;
+    - grid_back: a grid that steps back, then runs backwards, then forwards;
+    - coarse_steps: steps 4 record spacings apart and 7 off the records'
+      lattice, wider than the lookback, so one step passes several records
+      and the last of them decides the lookback test;
+    - steps_1 / steps_31 / steps_33 / steps_77: grids of 1, 31, 33 and 77
+      steps;
+    - empty_rows: rows with no valid record (runs of them, and two of every
+      five) between rows whose records are all counted, as the plan's
+      padded rows are;
+    - records_1: one record a row; records_past_tile: 257 records a row,
+      one past a tile of 256."""
+    lookback = 3 * step
+    if name == "equal_run_lane":
+        rows = []
+        for r in range(8):
+            ts = []
+            for k in range(100):
+                if k % 4 == 0 and k > 0:
+                    continue  # the run before this step is its pick
+                reps = 2 + (k // 4 + r) % 4 if k % 4 == 3 else 1
+                ts += [T0 + k * step] * reps
+            rows.append(ts[:300] + [ts[-1]] * (300 - len(ts[:300])))
+        grid = T0 + np.arange(100, dtype=np.int64) * step
+        rec = _lattice_records(rows, np.ones((8, 300), bool), seed)
+        return rec, grid, T0 - step, T0 + 100 * step, lookback
+    if name == "equal_run_tile":
+        j = np.arange(600)
+        idx = j.copy()
+        idx[248:264] = 248
+        idx[505:521] = 505
+        ts = np.tile(T0 + idx * step, (6, 1))
+        ts[1::2] += 5 * step  # half the rows shifted past a few steps
+        grid = T0 + np.arange(-2, 620, dtype=np.int64) * step
+        rec = _lattice_records(ts, np.ones((6, 600), bool), seed)
+        return rec, grid, T0 - step, T0 + 700 * step, lookback
+    if name.startswith("records_"):
+        s, p = (20, 1) if name == "records_1" else (9, 257)
+        return consolidation_records(s, p, seed=seed, step=step)
+    if name == "empty_rows":
+        s, p = 45, 300
+        empty = (np.arange(s) % 5 >= 3) | ((np.arange(s) >= 20) & (np.arange(s) < 30))
+        gaps = np.random.default_rng(seed).choice([step, step, 2 * step, 5 * step], (s, p))
+        ts = T0 + np.cumsum(gaps, axis=1)
+        valid = np.repeat(~empty[:, None], p, axis=1)
+        grid = T0 + np.arange(0, int(gaps.sum(axis=1).max()) + 4 * step, step, dtype=np.int64)
+        rec = _lattice_records(ts, valid, seed)
+        return rec, grid, T0, T0 + (1 << 40), lookback
+    rec, grid, lo, hi, lookback = consolidation_records(12, 150, seed=seed, step=step)
+    if name == "repeated_steps":
+        grid = np.repeat(grid, 3)
+    elif name == "grid_back":
+        grid = np.concatenate([grid[:40], grid[10:60][::-1], grid[25:]])
+    elif name == "coarse_steps":
+        grid = grid[::4] + 7 * step // 10
+    elif name.startswith("steps_"):
+        t = int(name.split("_")[1])
+        mid = len(grid) // 3
+        grid = grid[mid : mid + t]
+    else:
+        raise ValueError(f"no consolidation case {name!r}")
+    return rec, grid, lo, hi, lookback
