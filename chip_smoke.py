@@ -82,6 +82,23 @@ Phases (any failure exits non-zero):
              report. With --parent-b1 (another tree's consolidate_grid.cu)
              that tree's B-1 is built beside this one and timed in turns
              with it (parent, new, new, parent) on the same inputs.
+  promql   — the rest of PromQL over [query]'s BlockStorage (the same
+             100,000 series, 10 s step): predict_linear(m3_scan[1h], 14400)
+             < 0, deriv(m3_scan[5m]), holt_winters(m3_scan[10m], 0.3, 0.6)
+             and quantile_over_time(0.99, m3_scan[5m]) (kernel B-7 at W =
+             361, 31, 61, 31), a many-to-one ratio (group_left), topk and
+             quantile by (job), a subquery and @ end(). B-7 must launch once
+             a query. Each query's result equals Engine(device="cpu") over a
+             CPU copy of the card's fetched grid (metas, dtype, NaN pattern,
+             values within 1e-4 abs + rel): on all 100,000 series, but the
+             predict_linear and holt_winters queries on the fan-out
+             matcher's 11,111 (their twins take over a minute on the CPU at
+             100,000 series). Then each query's host
+             time end to end (median of 10) and device time (torch.profiler),
+             and B-7 == its twin on the card bit for bit on every row at each
+             window, timed single and back to back beside its bound (max of
+             the bytes and its f32 operations over the window's valid slots),
+             the twin and, for the quantile, unfold(...).nanquantile.
   index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
              x 10 cpu fields = 1,000,000 series, each with __name__ and
              TSBS's 10 host tags, values drawn from --seed over TSBS's value
@@ -822,9 +839,13 @@ def ptxas_report(lib: str, kernel: str) -> str:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             cur = None
-            if kernel in name:  # a template instantiation's mangled name: <true> is ILb1E
-                cur = kernel + ("<true>" if "ILb1E" in name else "<false>" if "ILb0E" in name
-                                else "")
+            if kernel in name:  # a template instantiation's mangled name: <true> is ILb1E,
+                # an int argument n is ILin
+                args = [a for a in name.split("I", 1)[-1].split("E") if a.startswith("Li")]
+                flag = ("true" if "ILb1E" in name or "Lb1E" in name else
+                        "false" if "ILb0E" in name or "Lb0E" in name else "")
+                parts = [a[2:] for a in args] + ([flag] if flag else [])
+                cur = kernel + (f"<{','.join(parts)}>" if parts else "")
                 entries[cur] = []
         elif cur is not None and ("Used" in line or "spill" in line):
             entries[cur].append(line.split(":", 1)[-1].strip())
@@ -1375,7 +1396,7 @@ def phase_query(dev, kernels: list, temporal_err: float, parent_b1=None) -> dict
         "bound_by": k3["10 groups"]["bound_by"],
         "library_ms": k3["10 groups"]["lib_ms"],
     }]
-    return b1
+    return b1, storage
 
 
 def sm_clock_hz() -> float:
@@ -1702,10 +1723,11 @@ def tiled_packed_scan(streams: list[bytes], n_series: int, k: int, dev):
     return chunked_scan_aggregate_packed(packed, s=s_pad, c=batch.num_chunks, k=k)
 
 
-def profiled(fn) -> dict:
+def profiled(fn, top: int = 0) -> dict:
     """One fn() under torch.profiler: the device-to-host copies the card
     ran, the device time of its kernels and copies (the device-side events
-    only) and the host-clock time, ending in a synchronize."""
+    only) and the host-clock time, ending in a synchronize; with ``top``,
+    the ``top`` device events that took the most time (name, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1717,10 +1739,12 @@ def profiled(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_key = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
     return {"dtoh": sum(1 for e in dev if "DtoH" in e.name),
-            "device_ms": sum(e.self_device_time_total for e in prof.key_averages()
-                             if e.device_type == DeviceType.CUDA) / 1e3,
-            "wall_ms": wall * 1e3}
+            "device_ms": sum(ms for _, ms in by_key),
+            "wall_ms": wall * 1e3,
+            "top": sorted(by_key, key=lambda x: -x[1])[:top]}
 
 
 def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> None:
@@ -2112,6 +2136,229 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
     })
 
 
+# [promql]: the queries, each with the scope of its check against the CPU
+# engine: all 100,000 series where the CPU finishes within a minute, else
+# the fan-out matcher's 11,111 (the twins of predict_linear at W = 361 and
+# holt_winters at W = 61 take longer on 8 cores; 99 s for holt_winters on
+# the card's host, PERF.md)
+PROMQL_QUERIES = [
+    ("predict_linear", "predict_linear({sel}[1h], 14400) < 0", "fan-out"),
+    ("deriv", "deriv({sel}[5m])", "all"),
+    ("holt_winters", "holt_winters({sel}[10m], 0.3, 0.6)", "fan-out"),
+    ("quantile_over_time", "quantile_over_time(0.99, {sel}[5m])", "all"),
+    ("group_left", "rate({sel}[1m]) / on(job) group_left sum by (job) (rate({sel}[1m]))", "all"),
+    ("topk", "topk(5, rate({sel}[1m]))", "all"),
+    ("quantile", "quantile by (job) (0.9, rate({sel}[1m]))", "all"),
+    ("subquery", "max_over_time(rate({sel}[1m])[10m:1m])", "all"),
+    ("at", "{sel} @ end()", "all"),
+]
+FANOUT_SEL = 'm3_scan{host=~"h1.*"}'
+# B-7 at the phase's windows: (function, window, parameters)
+B7_RUNS = [("predict_linear", 361, (14400.0,)), ("deriv", 31, ()),
+           ("holt_winters", 61, (0.3, 0.6)), ("quantile_over_time", 31, (0.99,))]
+# f32 operations a valid window slot costs (linreg: 5 adds, d*d, d*v;
+# holt_winters: trend 4, level 4; the quantile: one comparison a value)
+B7_SLOT_OPS = {"predict_linear": 7, "deriv": 7, "holt_winters": 8, "quantile_over_time": 1}
+
+
+class CpuGrid:
+    """A storage adapter handing the CPU engine a CPU copy of the card
+    storage's fetched grid."""
+
+    def __init__(self, storage):
+        self.storage = storage
+
+    def fetch_grid(self, matchers, start, end, grid, lookback):
+        metas, values, datapoints = self.storage.fetch_grid(matchers, start, end, grid, lookback)
+        return metas, values.cpu(), datapoints
+
+    def fetch(self, matchers, start, end):
+        raise AssertionError("the CPU check runs on the card's fetched grid only")
+
+
+def compare_results(got, want, what: str) -> float:
+    """Card result vs the CPU engine's: metas, dtype and NaN pattern equal,
+    infinities equal, values within 1e-4 abs + 1e-4 rel. Returns the
+    largest absolute difference."""
+    import torch
+
+    if [m.tags for m in got.metas] != [m.tags for m in want.metas] or got.scalar != want.scalar:
+        raise AssertionError(f"{what}: metas differ from the CPU engine's")
+    g, w = got.values.cpu(), want.values
+    if g.dtype != w.dtype or g.shape != w.shape:
+        raise AssertionError(f"{what}: {g.dtype} {tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+    if not torch.equal(g.isnan(), w.isnan()) or not torch.equal(g[w.isinf()], w[w.isinf()]):
+        raise AssertionError(f"{what}: NaN or infinity pattern differs from the CPU engine's")
+    ok = ~w.isnan() & ~w.isinf()
+    diff = (g[ok].double() - w[ok].double()).abs()
+    if bool((diff > 1e-4 + 1e-4 * w[ok].double().abs()).any()):
+        raise AssertionError(f"{what}: {int((diff > 1e-4).sum())} values beyond 1e-4 abs + rel")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def b7_valid_slots(x, window: int) -> int:
+    """Valid samples summed over every output step's window of x [S, T]."""
+    import torch
+
+    c = torch.nn.functional.pad((~x.isnan()).to(torch.float64).cumsum(dim=1), (window, 0))
+    return int((c[:, window:] - c[:, :-window]).sum())
+
+
+def phase_promql(dev, kernels: list, storage) -> None:
+    import torch
+
+    from m3_tpu_torch.block.core import Bounds
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.ops import chunked
+    from m3_tpu_torch.query import engine as E
+    from m3_tpu_torch.query import plan as qplan
+    from m3_tpu_torch.query.functions import aggregation as A
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+    from m3_tpu_torch.query.functions import temporal_window as TW
+    from m3_tpu_torch.query.promql import Matcher
+
+    t_phase = time.perf_counter()
+    eng = E.Engine(storage, device=dev)
+    start, end = T0, T0 + (N_POINTS - 1) * STEP
+    full = {label: q.format(sel="m3_scan") for label, q, _ in PROMQL_QUERIES}
+
+    # the main path, counted: every query once
+    counts = {"temporal_window": TW, "temporal_fused": TF, "grouped_reduce": A,
+              "consolidate_grid": qplan, "decode_records": chunked}
+    for mod in counts.values():
+        mod.LAUNCHES = 0
+    for k in IK.LAUNCHES:
+        IK.LAUNCHES[k] = 0
+    results, b7_by_query = {}, {}
+    for label, q in full.items():
+        before = TW.LAUNCHES
+        results[label] = eng.query_range(q, start, end, STEP)
+        b7_by_query[label] = TW.LAUNCHES - before
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in counts.items()}
+    launches.update({"index_match_terms": IK.LAUNCHES["match_terms"],
+                     "index_bitmap": IK.LAUNCHES["bitmap_from_spans"]})
+    log(f"[promql] launches on the main path ({len(full)} queries): {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"[promql] the path did not launch {name}")
+    want_b7 = {label: int(label in TW.FUNCTIONS) for label in full}
+    if b7_by_query != want_b7:
+        raise AssertionError(f"[promql] B-7 launches by query {b7_by_query}, want {want_b7}")
+
+    # each query against the CPU engine over a CPU copy of the card's grid
+    cpu_eng = E.Engine(CpuGrid(storage), device="cpu")
+    for label, q, scope in PROMQL_QUERIES:
+        if scope == "all":
+            card, text = results[label], full[label]
+        else:
+            text = q.format(sel=FANOUT_SEL)
+            card = eng.query_range(text, start, end, STEP)
+        t0 = time.perf_counter()
+        want = cpu_eng.query_range(text, start, end, STEP)
+        cpu_s = time.perf_counter() - t0
+        err = compare_results(card, want, text)
+        finite = int((~card.values.isnan()).sum())
+        log(f"[promql] {text}: [{card.values.shape[0]}, {card.values.shape[1]}] "
+            f"{str(card.values.dtype).split('.')[-1]}, {finite} non-NaN, == the CPU engine on "
+            f"{'all' if scope == 'all' else 'the fan-out matcher' + chr(39) + 's'} "
+            f"{len(card.metas) if scope == 'all' or 'topk' in q else len(want.metas)} series "
+            f"(metas, NaN pattern, max abs diff {err:.3g}; CPU {cpu_s:.1f}s)")
+    log("[promql] predict_linear and holt_winters are checked on the fan-out matcher's series: "
+        "their twins take over a minute on the CPU at 100,000 series (B-7 == its twin on the "
+        "card on every row below)")
+
+    # per query: the host clock end to end (median of 10) and the device time
+    for label, q in full.items():
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.query_range(q, start, end, STEP).values.cpu()
+            times.append(time.perf_counter() - t0)
+        prof = profiled(lambda q=q: eng.query_range(q, start, end, STEP).values.cpu(), top=3)
+        shape = tuple(results[label].values.shape)
+        log(f"[promql] end to end {q}: {statistics.median(times) * 1e3:.3f} ms (median of 10, "
+            f"host clock, ending in a host copy; {list(shape)}); device time "
+            f"{prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (torch.profiler), the most: "
+            + ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
+
+    # B-7 against its twin on the card, bit for bit on every row, and timed
+    b7 = {}
+    matchers = [Matcher("__name__", "=", "m3_scan")]
+    for name, window, args in B7_RUNS:
+        b = Bounds(start - (window - 1) * STEP, STEP, N_POINTS + window - 1)
+        _, values, _ = storage.fetch_grid(matchers, b.start_nanos - eng.lookback,
+                                          start + STEP * N_POINTS, b.timestamps(), eng.lookback)
+        x = values.to(torch.float32)
+        run = lambda x=x, name=name, window=window, args=args: TW.temporal_window(
+            name, x, window, STEP / 1e9, *args)
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = TW.FUNCTIONS[name](x, window, STEP / 1e9, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not same_bits(got, want):
+            raise AssertionError(f"B-7 {name} w={window} differs from its twin on the card")
+        ms = statistics.median(cuda_ms(run, 10))
+        b2b = per_launch_ms(run)
+        rows, cols = x.shape
+        nbytes = 2 * rows * cols * 4
+        slots = b7_valid_slots(x, window)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (slots * B7_SLOT_OPS[name] + rows * cols * 12) / F32_FLOP_PER_S * 1e3
+        lib_ms = None
+        lib_note = "none: no PyTorch call computes it"
+        if name == "quantile_over_time":
+            pad = torch.nn.functional.pad(x, (window - 1, 0), value=float("nan"))
+            lib = lambda: pad.unfold(1, window, 1).nanquantile(args[0], dim=-1)
+            lib_out = lib()
+            lib_ms = statistics.median(cuda_ms(lib, 5))
+            ok = ~want.isnan()
+            lib_diff = float((lib_out[ok] - want[ok]).abs().max())
+            same_nan = bool(torch.equal(lib_out.isnan(), want.isnan()))
+            lib_note = (f"unfold(1, {window}, 1).nanquantile({args[0]}, dim=-1) over the matrix "
+                        f"left-padded with NaN {lib_ms:.3f} ms (median of 5): torch.lerp's "
+                        f"interpolation (max abs diff {lib_diff:.3g} vs B-7, NaN pattern "
+                        f"{'equal' if same_nan else 'NOT equal'}), and no -inf/+inf for q "
+                        f"outside [0, 1] (it raises)")
+            del pad, lib_out
+        shape = TW.launch_shape(name, rows, cols, window)
+        b7[name] = {"window": window, "ms": ms, "b2b": b2b, "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "library_ms": lib_ms}
+        log(f"[promql] B-7 (temporal_window) {name} [{rows}, {cols}] w={window}: {ms:.3f} ms "
+            f"(median of 10, CUDA events; back-to-back {b2b:.3f} ms); bound "
+            f"{b7[name]['bound_ms']:.3f} ms = max(bytes {bytes_ms:.3f} ms: {nbytes / 1e9:.3f} GB "
+            f"at 3.35 TB/s, operations {ops_ms:.3f} ms: {slots} valid window slots x "
+            f"{B7_SLOT_OPS[name]} + 12 a column, f32 at 67 TFLOP/s) = "
+            f"{b7[name]['bound_ms'] / ms:.1%} of it; {b7_by_query[name]} launch on the path (its "
+            f"query's); twin on the card {plain_ms:.1f} ms; == twin "
+            f"bit for bit on all {rows} rows; launch {shape['blocks']} blocks of "
+            f"{shape['threads']} threads, {shape['smem_bytes']} B shared memory, run "
+            f"{shape['run']}; library: {lib_note}")
+        del x, values, got, want
+    log(f"[promql] ptxas: {ptxas_report('temporal_window', 'temporal_window_kernel')}")
+    check_no_unaligned_copies("promql")
+    log(f"[promql] phase {time.perf_counter() - t_phase:.1f}s")
+    main = b7["predict_linear"]
+    kernels.append({
+        "name": "temporal_window",
+        "route": "cuda",
+        "source": "m3_tpu_torch/query/functions/csrc/temporal_window.cu",
+        "replaces": "m3_tpu/query/functions/temporal.py:419",
+        "launches": launches["temporal_window"],
+        "max_abs_err": 0.0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "functions": b7,
+    })
+
+
 def main() -> int:
     import argparse
 
@@ -2152,7 +2399,9 @@ def main() -> int:
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
-    b1 = phase_query(dev, kernels, temporal_err, parent_b1)
+    b1, storage = phase_query(dev, kernels, temporal_err, parent_b1)
+    phase_promql(dev, kernels, storage)
+    del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
 

@@ -30,7 +30,7 @@ _COMMON = (
 # headers the sources include (by a path relative to each source)
 HEADERS = (PKG / "csrc" / "launch.cuh",)
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # library -> (source, nvcc flags, {entry: argtypes}). The flags are part of
 # each kernel's contract with the reference's f32 arithmetic (see the note at
@@ -68,6 +68,20 @@ SOURCES = {
             "m3_temporal_fused": [_P, _I64, _I, _I, ctypes.c_double, _P, _P, _I, _P, _I64, _P],
             # rows, cols, window, fns, nfn -> bytes of device scratch (int64)
             "m3_temporal_fused_scratch_bytes": [_I64, _I, _I, _P, _I],
+        },
+    ),
+    "temporal_window": (
+        PKG / "query" / "functions" / "csrc" / "temporal_window.cu",
+        _COMMON,
+        {
+            # x, rows, cols, window, fn, a, b, c, d, run, force_global, out,
+            # scratch, scratch_bytes, stream
+            "m3_temporal_window": [_P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P, _I64, _P],
+            # rows, cols, window, fn, run, force_global -> bytes of device scratch (int64)
+            "m3_temporal_window_scratch_bytes": [_I64, _I, _I, _I, _I, _I],
+            # rows, cols, window, fn, run, force_global, out int64[6]: threads,
+            # run, staged, shared memory a block, blocks, scratch bytes
+            "m3_temporal_window_shape": [_I64, _I, _I, _I, _I, _I, _P],
         },
     ),
     "index_kernels": (

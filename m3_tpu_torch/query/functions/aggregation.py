@@ -19,7 +19,11 @@ NaN semantics (M3's aggregation/function.go):
   avg/stddev/var: NaN iff count == 0 (population variance)
 Signed zeros: min and max order -0 below +0 (XLA's min and max), so a zero
 min is -0 when a member is -0 and a zero max is +0 when a member is +0.
-``topk``, ``bottomk``, ``quantile`` and ``count_values`` are not ported yet.
+
+``absent``, ``grouped_quantile``, ``topk`` / ``bottomk`` (take.go) and
+``count_values`` are torch copies of the reference's jnp code, float32 on
+the values' device; ``count_values``, whose output cardinality depends on
+the data, runs on the host as the reference's does.
 """
 
 from __future__ import annotations
@@ -222,3 +226,82 @@ def grouped_stdvar(values, layout: GroupLayout):
 
 def grouped_stddev(values, layout: GroupLayout):
     return grouped_reduce(values, layout, "stddev")
+
+
+def absent(values, layout: GroupLayout | None = None):
+    """absentFn (function.go:46-55): per step, 1 if no series has a value."""
+    v = torch.as_tensor(values)
+    any_present = (~torch.isnan(v)).any(dim=0)
+    return torch.where(any_present, torch.nan, 1.0).to(torch.float32)[None, :]
+
+
+def _padded(values, layout: GroupLayout):
+    """[G, M, T] group-major f32 view, NaN at padding."""
+    v = torch.as_tensor(values).to(torch.float32)
+    idx = torch.as_tensor(np.asarray(layout.pad_index, np.int64), device=v.device)
+    g = v[idx.clamp(0, v.shape[0] - 1)]
+    return torch.where((idx < 0)[:, :, None], torch.nan, g)
+
+
+def grouped_quantile(values, layout: GroupLayout, q: float):
+    """Same interpolation as quantile_over_time (aggregation.go:265-297)."""
+    p = _padded(values, layout)  # [G, M, T]
+    m = p.shape[1]
+    sw = torch.sort(p, dim=1).values  # NaN to the end of axis 1
+    n = (~torch.isnan(p)).sum(dim=1)  # [G, T]
+    if q < 0 or q > 1:
+        return torch.where(n > 0, -torch.inf if q < 0 else torch.inf, torch.nan).to(torch.float32)
+    rank = torch.tensor(q, dtype=torch.float32, device=p.device) * (n - 1).to(torch.float32)
+    lo = torch.floor(rank).to(torch.int64).clamp(0, m - 1)
+    hi = torch.minimum((lo + 1).clamp(0, m - 1), (n - 1).clamp(min=0))
+    frac = rank - lo.to(torch.float32)
+    vlo = torch.gather(sw, 1, lo[:, None, :])[:, 0, :]
+    vhi = torch.gather(sw, 1, hi[:, None, :])[:, 0, :]
+    out = vlo + (vhi - vlo) * frac
+    return torch.where(n > 0, out, torch.nan)
+
+
+def _take(values, layout: GroupLayout, k: int, largest: bool):
+    """topk/bottomk (take.go): keep k best per group per step, NaN the rest.
+    Stable rank (ties broken by series order) like the reference heap."""
+    v = torch.as_tensor(values).to(torch.float32)
+    p = _padded(v, layout)  # [G, M, T]
+    key = torch.where(torch.isnan(p), -torch.inf if largest else torch.inf, p)
+    if largest:
+        key = -key  # argsort ascending == descending on value
+    order = torch.argsort(key, dim=1, stable=True)  # [G, M, T]
+    ranks = torch.argsort(order, dim=1, stable=True)  # rank of each slot
+    keep_padded = (ranks < k) & ~torch.isnan(p)
+    # scatter back to [S, T]: each series sits in one slot; padding slots
+    # (clipped to row 0) add nothing, so an int sum is the reference's max
+    s, t = v.shape
+    idx = torch.as_tensor(np.asarray(layout.pad_index, np.int64).reshape(-1), device=v.device)
+    src = keep_padded.reshape(-1, t) & (idx >= 0)[:, None]
+    keep = torch.zeros((s, t), dtype=torch.int32, device=v.device)
+    keep.index_add_(0, idx.clamp(0, s - 1), src.to(torch.int32))
+    return torch.where(keep > 0, v, torch.nan)
+
+
+def topk(values, layout: GroupLayout, k: int):
+    return _take(values, layout, k, largest=True)
+
+
+def bottomk(values, layout: GroupLayout, k: int):
+    return _take(values, layout, k, largest=False)
+
+
+def count_values(values, series: list[SeriesMeta], label: bytes):
+    """count_values (count_values.go): per step, count series sharing each
+    distinct value. On the host, as the reference does it: the output's
+    cardinality depends on the data. Returns (f64 values[G, T] on the
+    values' device, metas)."""
+    t = torch.as_tensor(values)
+    vals = t.cpu().numpy()
+    uniq = np.unique(vals[~np.isnan(vals)])
+    out = np.full((len(uniq), vals.shape[1]), np.nan)
+    metas = []
+    for i, u in enumerate(uniq):
+        cnt = np.sum(vals == u, axis=0).astype(np.float64)
+        out[i] = np.where(cnt > 0, cnt, np.nan)
+        metas.append(SeriesMeta(tags=((label, repr(float(u)).encode()),)))
+    return torch.from_numpy(out).to(t.device), metas

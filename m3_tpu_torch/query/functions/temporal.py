@@ -1,17 +1,22 @@
-"""Temporal (windowed, per-series) functions in plain PyTorch: B2's twin.
+"""Temporal (windowed, per-series) functions in plain PyTorch: the twins
+of kernels B2 and B-7.
 
-Port of the 15 ``FUSABLE`` functions of ``m3_tpu/query/functions/
-temporal.py`` and their helpers, with the same operation order as the jnp
-code (the doubling trees of ``_win_reduce`` / ``_win_reduce_tuple``,
-``_ffill``, ``_prev_valid`` and ``_pair_event_window_sum``), so on the CPU
-the twin matches the jnp formulas to rounding. ``chip_smoke.py`` holds the
-CUDA kernel (``temporal_fused.py``) against it on the card.
+Port of ``m3_tpu/query/functions/temporal.py``. The 15 ``FUSABLE``
+functions (B2's twin) keep the jnp code's operation order (the doubling
+trees of ``_win_reduce`` / ``_win_reduce_tuple``, ``_ffill``,
+``_prev_valid`` and ``_pair_event_window_sum``), so on the CPU they match
+the jnp formulas to rounding. ``deriv``, ``predict_linear``,
+``holt_winters`` and ``quantile_over_time`` (B-7's twin,
+``temporal_window.py``) work on chunks of ``chunk`` output steps, as the
+reference's do, and fold each window's slots one at a time in slot order:
+that order is B-7's, which the card holds to these functions bit for bit;
+no output depends on ``chunk``. ``chip_smoke.py`` holds both kernels
+against their twins on the card.
 
 Conventions (as the reference's): ``values`` is float32 [S, T] on a
 regular step grid, NaN = missing; ``window`` counts grid steps, inclusive
 of both ends; output[t] covers input steps [t - window + 1, t], clipped at
-the left edge. ``deriv``, ``predict_linear``, ``holt_winters`` and
-``quantile_over_time`` are not fusable and are not ported yet.
+the left edge.
 """
 
 from __future__ import annotations
@@ -343,3 +348,141 @@ def resets(values, window):
 
 def changes(values, window):
     return _count_pairs(values, window, lambda c, p: c != p)
+
+
+# ---------------------------------------------------------------------------
+# B-7's twin: linear regression (temporal/linear_regression.go:145-190),
+# holt_winters (temporal/holt_winters.go:77-141) and quantile_over_time
+# ---------------------------------------------------------------------------
+
+
+def _const(x: float, like):
+    """``x`` rounded to float32, a 0-dim tensor on ``like``'s device (an
+    operand of tensor ops, so no op divides by a host scalar)."""
+    return torch.tensor(x, dtype=F32, device=like.device)
+
+
+def _chunks(values, window: int, chunk: int):
+    """(t0, slot) per chunk of output steps [t0, t0 + chunk): slot(j) is
+    the [S, chunk] matrix of the windows' slot j (input step t - window + 1
+    + j for output step t; NaN before step 0 and past the last)."""
+    s, t = values.shape
+    nchunks = -(-t // chunk)
+    pad_l = torch.full((s, window - 1), torch.nan, dtype=F32, device=values.device)
+    pad_r = torch.full((s, nchunks * chunk - t), torch.nan, dtype=F32, device=values.device)
+    vp = torch.cat([pad_l, values.to(F32), pad_r], dim=1)
+    for c in range(nchunks):
+        t0 = c * chunk
+        yield t0, lambda j, t0=t0: vp[:, t0 + j: t0 + j + chunk]
+
+
+def _gather_windows(values, window, t0, chunk):
+    """[S, chunk, W] windows ending at steps t0..t0+chunk-1 (NaN left-pad)."""
+    values = torch.as_tensor(values)
+    s, t = values.shape
+    ends = t0 + torch.arange(chunk, device=values.device)
+    offs = torch.arange(window, device=values.device) - (window - 1)
+    idx = ends[:, None] + offs[None, :]  # [chunk, W]
+    g = values[:, idx.clamp(0, t - 1)]  # [S, chunk, W]
+    return torch.where((idx < 0)[None, :, :], torch.nan, g)
+
+
+def _linreg_sums(values, window, step_seconds, chunk: int = 128):
+    """Windowed least squares with timeDiff relative to the window end — the
+    reference's interceptTime == evaluationTime (linear_regression.go:136),
+    exact per-window recentering: the sums n, sum v, sum d, sum d^2 and
+    sum d*v over the window's slots, folded in slot order (B-7's order)."""
+    v = torch.as_tensor(values).to(F32)
+    s, t = v.shape
+    # time diff of window slot j (0..W-1) from the window end, in seconds
+    d = (torch.arange(window, dtype=F32, device=v.device) - (window - 1)) * _const(step_seconds, v)
+    dd = d * d
+    slopes, intercepts = [], []
+    for _, slot in _chunks(v, window, chunk):
+        z = torch.zeros((s, chunk), dtype=F32, device=v.device)
+        n, sv, sd, sdd, sdv = z, z, z, z, z
+        for j in range(window):
+            w = slot(j)
+            ok = ~torch.isnan(w)
+            x = torch.where(ok, w, 0.0)
+            vi = ok.to(F32)
+            n = n + vi
+            sv = sv + x
+            sd = sd + d[j] * vi
+            sdd = sdd + dd[j] * vi
+            sdv = sdv + d[j] * x
+        nn = torch.clamp(n, min=1)
+        cov = sdv - sd * sv / nn
+        var = sdd - sd * sd / nn
+        slope = cov / torch.where(var == 0, 1.0, var)
+        intercept = sv / nn - slope * sd / nn
+        good = n >= 2
+        slopes.append(torch.where(good, slope, torch.nan))
+        intercepts.append(torch.where(good, intercept, torch.nan))
+    return torch.cat(slopes, dim=1)[:, :t], torch.cat(intercepts, dim=1)[:, :t]
+
+
+def deriv(values, window, step_seconds, chunk: int = 128):
+    slope, _ = _linreg_sums(values, window, step_seconds, chunk)
+    return slope
+
+
+def predict_linear(values, window, step_seconds, predict_seconds, chunk: int = 128):
+    slope, intercept = _linreg_sums(values, window, step_seconds, chunk)
+    return slope * _const(predict_seconds, slope) + intercept
+
+
+def holt_winters(values, window, sf: float, tf: float, chunk: int = 128):
+    """Double exponential smoothing over each window's valid samples in
+    slot order (holt_winters.go:77-141): the trend is set on the second
+    valid sample; NaN below two."""
+    v = torch.as_tensor(values).to(F32)
+    s, t = v.shape
+    sf32, omsf, tf32, omtf = (_const(x, v) for x in (sf, 1 - sf, tf, 1 - tf))
+    outs = []
+    for _, slot in _chunks(v, window, chunk):
+        z = torch.zeros((s, chunk), dtype=F32, device=v.device)
+        no = torch.zeros((s, chunk), dtype=torch.bool, device=v.device)
+        found1, found2, prev, curr, trend = no, no, z, z, z
+        idx = torch.zeros((s, chunk), dtype=torch.int32, device=v.device)
+        for j in range(window):
+            x = slot(j)
+            nan = torch.isnan(x)
+            take1 = ~nan & ~found1
+            take2 = ~nan & found1 & ~found2
+            trend0 = torch.where(take2, x - curr, trend)
+            upd = ~nan & found1
+            trend_new = torch.where(idx - 1 == 0, trend0, tf32 * (curr - prev) + omtf * trend0)
+            new_curr = sf32 * x + omsf * (curr + trend_new)
+            curr, prev = torch.where(take1, x, torch.where(upd, new_curr, curr)), torch.where(upd, curr, prev)
+            trend = torch.where(upd, trend_new, trend0)
+            idx = torch.where(~nan, idx + 1, idx)
+            found1 = found1 | ~nan
+            found2 = found2 | take2
+        outs.append(torch.where(found2, curr, torch.nan))
+    return torch.cat(outs, dim=1)[:, :t]
+
+
+def quantile_over_time(values, window, q: float, chunk: int = 128):
+    """quantile over valid samples in window (aggregation.go:239-280): sort
+    the gathered window (NaNs sort to the end), linear interpolate."""
+    v = torch.as_tensor(values).to(F32)
+    s, t = v.shape
+    if q < 0 or q > 1:
+        c = _win_sum(_valid(v).to(F32), window)
+        return torch.where(c > 0, -torch.inf if q < 0 else torch.inf, torch.nan).to(F32)
+    qf = _const(q, v)
+    outs = []
+    for t0 in range(0, t, chunk):
+        w = _gather_windows(v, window, t0, chunk)  # [S, chunk, W]
+        sw = torch.sort(w, dim=-1).values  # NaNs to the end
+        n = (~torch.isnan(w)).sum(dim=-1)  # [S, chunk]
+        rank = qf * (n - 1).to(F32)
+        lo = torch.floor(rank).to(torch.int64).clamp(0, window - 1)
+        hi = torch.minimum((lo + 1).clamp(0, window - 1), (n - 1).clamp(min=0))
+        frac = rank - lo.to(F32)
+        vlo = torch.gather(sw, -1, lo[..., None])[..., 0]
+        vhi = torch.gather(sw, -1, hi[..., None])[..., 0]
+        out = vlo + (vhi - vlo) * frac
+        outs.append(torch.where(n > 0, out, torch.nan))
+    return torch.cat(outs, dim=1)[:, :t]

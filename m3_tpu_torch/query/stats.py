@@ -4,18 +4,22 @@ The subset of ``m3_tpu/query/stats.py`` that the storage node and
 ``M3Storage`` record into. One ``QueryStats`` record rides a thread-local
 through engine → storage adapter → database for the duration of a query:
 
-- per-stage wall seconds (``index_resolve``, ``decode``, ...);
+- per-stage wall seconds (``parse``, ``index_resolve``, ``fetch``,
+  ``decode``, ...; ``exec``, added at ``finish``, is the total minus fetch
+  minus parse);
 - series / datapoints / bytes scanned, decoded-block cache hits and misses,
   resident hits and misses;
 - the query plan's (``query/plan.py``) hits, misses, fallbacks and
   coalesced fetches, and the plan-served fetches' device dispatches;
 - with ``record_routing`` on, one entry per resident-vs-streamed routing
-  decision (the record EXPLAIN renders).
+  decision (the record EXPLAIN renders, ``Engine.explain``);
+- the namespace the engine serves and the cost-limit scope that rejected
+  the query, if one did (``limit_exceeded``).
 
 Completed records charge the process counters; ``to_dict`` is the record
-under the reference's names (``planHits``, ...). EXPLAIN's rendering, the
-slow-query ring, the histograms, tenants, SLO objectives and the
-scheduler's fields wait for the rest of the query layer (ROADMAP §A5).
+under the reference's names (``planHits``, ...). The slow-query ring, the
+active-query registry, the histograms, tenants, SLO objectives and the
+scheduler's fields wait for ROADMAP §A5b.
 """
 
 from __future__ import annotations
@@ -36,7 +40,12 @@ class QueryStats:
     start_unix_nanos: int = 0
     duration_secs: float = 0.0
     stages: dict = field(default_factory=dict)  # stage -> seconds
+    # the namespace the owning engine serves (its storage's ``namespace``)
+    namespace: str = ""
     current_stage: str | None = None
+    # the enforcer-chain scope that rejected the query (query / global),
+    # None when no cost limit tripped
+    limit_exceeded: str | None = None
     series_scanned: int = 0
     datapoints_scanned: int = 0
     bytes_scanned: int = 0
@@ -75,9 +84,12 @@ class QueryStats:
 
     def to_dict(self) -> dict:
         """The record under the reference's names (the fields the port
-        keeps; tenants, the scheduler's and the index's wait for §A5)."""
+        keeps; tenants', the scheduler's and the index tier's wait for
+        §A5b)."""
         out = {
             "query": self.query,
+            "namespace": self.namespace,
+            "limitExceeded": self.limit_exceeded,
             "startUnixNanos": self.start_unix_nanos,
             "durationSecs": self.duration_secs,
             "stages": dict(self.stages),
@@ -152,6 +164,9 @@ def finish(st: QueryStats, duration_secs: float, error: str | None = None) -> No
     st.current_stage = None
     st.duration_secs = duration_secs
     st.error = error
+    fetch = st.stages.get("fetch", 0.0)
+    parse = st.stages.get("parse", 0.0)
+    st.add_stage("exec", max(duration_secs - fetch - parse, 0.0))
     METRICS.counter("query_total", "completed queries").inc()
     if error is not None:
         METRICS.counter("query_errors_total", "failed queries").inc()

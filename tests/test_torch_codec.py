@@ -102,6 +102,9 @@ def test_port_imports_neither_jax_nor_m3_tpu():
     covered = {p.relative_to(root).parts[0] for p in files if p.is_relative_to(root)}
     assert {"block", "codec", "ops", "parallel", "query", "utils"} <= covered
     assert root / "query" / "functions" / "temporal_fused.py" in files
+    for name in ("binary.py", "linear.py", "temporal_window.py"):
+        assert root / "query" / "functions" / name in files
+    assert root / "query" / "cost.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -1079,3 +1079,92 @@ def test_cuda_plan_matches_force_staged(tmp_path):
         for x in (got.values, again.values):
             assert torch.equal(x.cpu().view(bits), want.values.cpu().view(bits))
     db.close()
+
+
+# --- kernel B-7: deriv, predict_linear, holt_winters, quantile_over_time ---
+
+B7_CALLS = [("deriv", ()), ("predict_linear", (600.0,)), ("holt_winters", (0.3, 0.6)),
+            ("holt_winters", (0.9, 0.1))] + [("quantile_over_time", (q,))
+                                             for q in (-0.5, 0.0, 0.5, 0.9, 1.0, 1.5)]
+
+
+def _b7_input(rows, cols, seed=7):
+    """Trending rows with 25% NaN, an empty row, a strided row, and a row of
+    infinities, signed zeros and repeats."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = np.cumsum(rng.normal(1.0, 5.0, (rows, cols)), axis=1).astype(np.float32)
+    v[rng.random(v.shape) < 0.25] = np.nan
+    v[min(2, rows - 1)] = np.nan
+    if rows > 3:
+        v[3, ::2] = np.nan
+    if rows > 4:
+        pool = np.asarray([np.inf, -np.inf, 0.0, -0.0, 1.5, 1.5, np.nan], np.float32)
+        v[4] = pool[rng.integers(0, len(pool), cols)]
+    return torch.from_numpy(v)
+
+
+def _assert_b7_bits(got, want, what):
+    g, w = got.cpu(), want.cpu()
+    same = (g.view(torch.int32) == w.view(torch.int32)) | (torch.isnan(g) & torch.isnan(w))
+    assert bool(same.all()), f"{what}: {int((~same).sum())} values differ from the twin"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 5, 16, 61])
+@pytest.mark.parametrize("name,args", B7_CALLS)
+def test_cuda_b7_matches_twin(name, args, window):
+    """B-7 == its twin bit for bit at the CPU tests' sizes (7 x 60, windows
+    up to one longer than the row), through the shared-memory route and the
+    device-memory route, at quantile runs of 1, 3, 100 and the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    x = _b7_input(7, 60)
+    want = TW.temporal_window(name, x, window, 10.0, *args)
+    runs = (0, 1, 3, 100) if name == "quantile_over_time" else (0,)
+    for force_global in (False, True):
+        for run in runs:
+            before = TW.LAUNCHES
+            got = TW.temporal_window(name, x.cuda(), window, 10.0, *args, run=run,
+                                     force_global=force_global)
+            assert TW.LAUNCHES == before + 1
+            torch.cuda.synchronize()
+            _assert_b7_bits(got, want, f"{name}{args} w={window} run={run} global={force_global}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args", B7_CALLS[:3] + [("quantile_over_time", (0.99,))])
+def test_cuda_b7_long_rows_use_device_memory(name, args):
+    """Rows too long for shared memory (70,000 columns) are read from device
+    memory, the quantile's windows kept in a device scratch buffer; and a
+    block of the query's shape, [1,000, 1,080] at W = 361, against the twin
+    on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    x = _b7_input(3, 70_000, seed=9)
+    shape = TW.launch_shape(name, 3, 70_000, 31)
+    assert shape["staged"] == 0
+    got = TW.temporal_window(name, x.cuda(), 31, 10.0, *args)
+    _assert_b7_bits(got, TW.temporal_window(name, x, 31, 10.0, *args), f"{name} long rows")
+    x = _b7_input(1000, 1080, seed=10).cuda()
+    assert TW.launch_shape(name, 1000, 1080, 361)["staged"] == 1
+    got = TW.temporal_window(name, x, 361, 10.0, *args)
+    _assert_b7_bits(got, TW.FUNCTIONS[name](x, 361, 10.0, *args), f"{name} [1000, 1080] w=361")
+
+
+@pytest.mark.cuda
+def test_cuda_b7_empty_and_error():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    before = TW.LAUNCHES
+    assert TW.temporal_window("deriv", torch.zeros((0, 5), device="cuda"), 3, 10.0).shape == (0, 5)
+    assert TW.LAUNCHES == before
+    with pytest.raises(ValueError):
+        TW.temporal_window("deriv", torch.zeros(5, device="cuda"), 3, 10.0)

@@ -19,6 +19,21 @@ stddev/stdvar formula (E[x^2] - mean^2 about the row's mean) is
 ill-conditioned on trending rows, where any change of summation order
 moves it beyond the bound (TOLERANCE.md: "degraded when stddev << |mean|"),
 so those two are held on the gauge rows only.
+
+Kernel B-7 (``temporal_window.py``: deriv, predict_linear, holt_winters,
+quantile_over_time):
+
+- Its twin (``temporal.py``) equals m3_tpu's functions within 1e-4 abs +
+  1e-4 rel with an identical NaN pattern (infinities equal) on the data of
+  tests/test_temporal.py (7 x 60, 25% NaN, an empty row, a strided row),
+  at windows 1, 5, 16 and 61 (longer than the row), q in {-0.5, 0, 0.5,
+  0.9, 1, 1.5}, and a chunk of 16 (not a divisor of 60) beside the default.
+  The twin folds each window in slot order, the reference's XLA sums in
+  its own: the linear regression differs by at most 4.9e-6 abs on deriv
+  and 3.1e-3 abs on predict_linear values of ~1e3 here (measured).
+- B-7's source, compiled as host C++, equals the twin bit for bit on the
+  same data and on rows of infinities, signed zeros and repeated values,
+  at quantile runs of 1, 3, 100 and the kernel's own.
 """
 
 import ctypes
@@ -31,9 +46,11 @@ import numpy as np
 import pytest
 import torch
 
+from m3_tpu.query.functions import temporal as jt
 from m3_tpu.query.functions import temporal_fused as jtf
 from m3_tpu_torch.ops import _build
 from m3_tpu_torch.query.functions import temporal_fused as TF
+from m3_tpu_torch.query.functions import temporal_window as TW
 
 WINDOWS = [1, 5, 7, 200]
 STEP = 10.0
@@ -214,3 +231,131 @@ def test_kernel_source_host_build_matches_twin(host_b2, kind, window):
     for name, got, want in zip(names, outs, twin):
         atol = 5e-3 if name.startswith("std") else 1e-4
         _assert_close(got, want.numpy(), atol, 1e-4, f"{name} w={window}")
+
+
+# ---------------------------------------------------------------------------
+# kernel B-7: deriv, predict_linear, holt_winters, quantile_over_time
+# ---------------------------------------------------------------------------
+
+B7_WINDOWS = [1, 5, 16, 61]
+B7_QS = [-0.5, 0.0, 0.5, 0.9, 1.0, 1.5]
+B7_CALLS = ([("deriv", ()), ("predict_linear", (600.0,)), ("predict_linear", (-45.0,)),
+             ("holt_winters", (0.3, 0.6)), ("holt_winters", (0.9, 0.1))]
+            + [("quantile_over_time", (q,)) for q in B7_QS])
+
+
+def _b7_data():
+    """tests/test_temporal.py's data: 7 x 60, 25% NaN, an empty row (2), a
+    strided row (3), a counter-like row (0)."""
+    rng = np.random.default_rng(42)
+    vals = np.cumsum(rng.normal(1.0, 5.0, (7, 60)), axis=1).astype(np.float32)
+    vals[0] = np.abs(vals[0])
+    vals[rng.random(vals.shape) < 0.25] = np.nan
+    vals[2, :] = np.nan
+    vals[3, ::2] = np.nan
+    return np.ascontiguousarray(vals)
+
+
+def _b7_specials():
+    """Rows of infinities, signed zeros and repeated values, with NaN."""
+    rng = np.random.default_rng(19)
+    pool = np.asarray([np.inf, -np.inf, 0.0, -0.0, 1.5, 1.5, -2.0, 3e38, -3e38, 1e-40, np.nan],
+                      np.float32)
+    v = pool[rng.integers(0, len(pool), (9, 53))]
+    v[0] = np.where(np.arange(53) % 2, 0.0, -0.0)
+    v[1, :30] = np.nan
+    return np.ascontiguousarray(v.astype(np.float32))
+
+
+def _jax_b7(name, v, w, args, chunk):
+    x = jnp.asarray(v)
+    if name == "deriv":
+        return jt.deriv(x, w, STEP)
+    if name == "predict_linear":
+        return jt.predict_linear(x, w, STEP, *args)
+    if name == "holt_winters":
+        return jt.holt_winters(x, w, *args, chunk=chunk)
+    return jt.quantile_over_time(x, w, *args, chunk=chunk)
+
+
+def _twin_b7(name, v, w, args, chunk):
+    x = torch.from_numpy(v)
+    if name == "deriv":
+        return TW.T.deriv(x, w, STEP, chunk)
+    if name == "predict_linear":
+        return TW.T.predict_linear(x, w, STEP, *args, chunk)
+    if name == "holt_winters":
+        return TW.T.holt_winters(x, w, *args, chunk)
+    return TW.T.quantile_over_time(x, w, *args, chunk)
+
+
+def _assert_close_inf(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    inf = np.isinf(want)
+    assert np.array_equal(got[inf], want[inf]), f"{what}: infinities differ"
+    _assert_close(np.where(inf, 0, got), np.where(inf, 0, want), 1e-4, 1e-4, what)
+
+
+@pytest.mark.parametrize("chunk", [16, 128])
+@pytest.mark.parametrize("w", B7_WINDOWS)
+@pytest.mark.parametrize("name,args", B7_CALLS)
+def test_b7_twin_matches_jnp(name, args, w, chunk):
+    v = _b7_data()
+    want = _jax_b7(name, v, w, args, chunk)
+    got = _twin_b7(name, v, w, args, chunk)
+    assert got.dtype == torch.float32 and got.shape == v.shape
+    _assert_close_inf(got.numpy(), want, f"{name}{args} w={w} chunk={chunk}")
+    # no output depends on the chunk
+    other = _twin_b7(name, v, w, args, 7)
+    assert _bits_equal(other.numpy(), got.numpy())
+
+
+def test_b7_wrapper_on_the_cpu_runs_the_twin():
+    v = torch.from_numpy(_b7_data())
+    assert torch.equal(TW.temporal_window("deriv", v.double(), 5, STEP).nan_to_num(),
+                       TW.T.deriv(v, 5, STEP).nan_to_num())
+    got = TW.temporal_window("holt_winters", v, 5, STEP, 0.3, 0.6)
+    assert torch.equal(got.nan_to_num(), TW.T.holt_winters(v, 5, 0.3, 0.6).nan_to_num())
+    for bad in [("rate", v, 5, STEP), ("deriv", v, 0, STEP), ("deriv", v[0], 5, STEP),
+                ("holt_winters", v, 5, STEP, 0.3), ("quantile_over_time", v, 5, STEP)]:
+        with pytest.raises(ValueError):
+            TW.temporal_window(*bad)
+
+
+@pytest.fixture(scope="module")
+def host_b7():
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
+    out = tempfile.mkdtemp(prefix="b7_host_") + "/temporal_window_host.so"
+    subprocess.run(
+        [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", out, str(_build.SOURCES["temporal_window"][0])],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(out)
+    fn = lib.m3_temporal_window_host
+    F = ctypes.c_float
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   F, F, F, F, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bits_equal(got, want):
+    return ((got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))).all()
+
+
+@pytest.mark.parametrize("data", ["temporal", "specials"])
+@pytest.mark.parametrize("w", B7_WINDOWS + [3, 200])
+@pytest.mark.parametrize("name,args", B7_CALLS)
+def test_b7_host_build_matches_twin(host_b7, name, args, w, data):
+    v = _b7_data() if data == "temporal" else _b7_specials()
+    want = _twin_b7(name, v, w, args, 128).numpy()
+    params = TW._params(name, STEP, args)
+    runs = (0, 1, 3, 100) if name == "quantile_over_time" else (0,)
+    for run in runs:
+        out = np.zeros_like(v)
+        assert host_b7(v.ctypes.data, v.shape[0], v.shape[1], w, TW._FN_ID[name], *params, run,
+                       out.ctypes.data) == 0
+        assert _bits_equal(out, want), f"{name}{args} w={w} run={run}: differs from the twin"
