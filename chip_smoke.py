@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--parent-b1 TREE/m3_tpu_torch/query/csrc/consolidate_grid.cu]
+        [--parent-b7 TREE/m3_tpu_torch/query/functions/csrc/temporal_window.cu]
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
@@ -95,10 +96,26 @@ Phases (any failure exits non-zero):
              matcher's 11,111 (their twins take over a minute on the CPU at
              100,000 series). Then each query's host
              time end to end (median of 10) and device time (torch.profiler),
-             and B-7 == its twin on the card bit for bit on every row at each
-             window, timed single and back to back beside its bound (max of
-             the bytes and its f32 operations over the window's valid slots),
-             the twin and, for the quantile, unfold(...).nanquantile.
+             and B-7 as the engine calls it (the kept columns, first = W - 1)
+             == its twin sliced at first on the card bit for bit on every row
+             at each window, timed single and back to back beside its bound
+             (max of the bytes, the input read once and the kept columns
+             written once, and its f32 operations over the kept windows'
+             valid slots, B7_OPS: 3 a slot of the linear functions where the
+             window holds its samples in one run at its end, 7 elsewhere,
+             and the slope's 7 (predict_linear's 13) a window; 8n - 11 for
+             holt_winters), the no-FMA ceiling (half the f32 rate),
+             its launch shape, the twin and, for the quantile,
+             unfold(...).nanquantile and the quantile's time at runs of 23,
+             45, 90 and 180 columns a lane; and the quantile at W = 361 on
+             the predict_linear grid and on it with every window full, at
+             the kernel's layout and at runs of 23 to 360 columns a lane.
+             With --parent-b7 (another tree's
+             temporal_window.cu, whose entry computes every column) that
+             tree's B-7 is built beside this one and timed in turns with it
+             (parent, new, new, parent) on each input, and the four B-7
+             queries run end to end in turns with each (new, parent,
+             parent, new).
   index    — the inverted index at the TSBS devops cpu scale: 100,000 hosts
              x 10 cpu fields = 1,000,000 series, each with __name__ and
              TSBS's 10 host tags, values drawn from --seed over TSBS's value
@@ -852,22 +869,24 @@ def ptxas_report(lib: str, kernel: str) -> str:
     return "; ".join(f"{name}: {', '.join(info)}" for name, info in entries.items()) or "none"
 
 
-def build_parent_b1(source: str):
-    """Starts nvcc on another tree's B-1 source (``--parent-b1``: the
-    parent commit's ``consolidate_grid.cu``, unpacked beside this checkout
-    in a directory .gitignore lists), with this checkout's flags, into
-    build/kernels. Returns (process, library path)."""
+def build_parent(source: str, lib: str):
+    """Starts nvcc on another tree's source of library ``lib``
+    (``--parent-b1`` / ``--parent-b7``: the parent commit's source,
+    unpacked beside this checkout in a directory .gitignore lists), with
+    this checkout's flags, into build/kernels. Returns (process, library
+    path)."""
     import hashlib
     from pathlib import Path
 
     from m3_tpu_torch.ops import _build
 
     src = Path(source).resolve()
-    flags = _build.SOURCES["consolidate_grid"][1]
-    header = src.parents[2] / "csrc" / "launch.cuh"
+    flags = _build.SOURCES[lib][1]
+    header = next(d / "csrc" / "launch.cuh" for d in src.parents
+                  if (d / "csrc" / "launch.cuh").exists())
     digest = hashlib.sha256(src.read_bytes() + header.read_bytes()).hexdigest()[:16]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"parent_consolidate_grid_{digest}.so"
+    out = _build.BUILD_DIR / f"parent_{lib}_{digest}.so"
     proc = subprocess.Popen([_build.nvcc_path(), *flags, "-o", str(out), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, out
@@ -880,14 +899,36 @@ def load_parent_b1(proc, out):
     lookback, values, counts, stream)."""
     import ctypes
 
-    log_text, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"the parent's B-1 did not build:\n{log_text}")
-    fn = ctypes.CDLL(str(out)).m3_consolidate_grid
+    fn = ctypes.CDLL(str(built(proc, out, "B-1"))).m3_consolidate_grid
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [P, P, P, P, P, I64, I64, I64, I64, P, I64, I64, P, P, P]
     fn.restype = ctypes.c_int
     return fn
+
+
+def built(proc, out, what: str):
+    """The library ``out`` once its nvcc process is done (raises if it
+    failed)."""
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's {what} did not build:\n{log_text}")
+    return out
+
+
+def load_parent_b7(proc, out):
+    """The parent's ``m3_temporal_window`` and its scratch query once its
+    build is done: its entry takes the arguments of this one's but
+    ``first`` (it computes every column): x, rows, cols, window, fn, a, b,
+    c, d, run, force_global, out, scratch, scratch_bytes, stream."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(built(proc, out, "B-7")))
+    P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.m3_temporal_window.argtypes = [P, I64, I, I, I, F, F, F, F, I, I, P, P, I64, P]
+    lib.m3_temporal_window.restype = I
+    lib.m3_temporal_window_scratch_bytes.argtypes = [I64, I, I, I, I, I]
+    lib.m3_temporal_window_scratch_bytes.restype = I64
+    return lib
 
 
 def b1_turns(parent, rec, lo: int, hi: int, grid, lookback: int) -> list:
@@ -2156,9 +2197,20 @@ FANOUT_SEL = 'm3_scan{host=~"h1.*"}'
 # B-7 at the phase's windows: (function, window, parameters)
 B7_RUNS = [("predict_linear", 361, (14400.0,)), ("deriv", 31, ()),
            ("holt_winters", 61, (0.3, 0.6)), ("quantile_over_time", 31, (0.99,))]
-# f32 operations a valid window slot costs (linreg: 5 adds, d*d, d*v;
-# holt_winters: trend 4, level 4; the quantile: one comparison a value)
-B7_SLOT_OPS = {"predict_linear": 7, "deriv": 7, "holt_winters": 8, "quantile_over_time": 1}
+# The fewest f32 adds, multiplies and divisions B-7's parity contract
+# leaves, counted over the windows that compute a value: (a valid slot of a
+# window holding its samples in one run at its end, a valid slot of any
+# other window, each such window's own, the samples a window needs to
+# compute a value). The linear functions: 3 a slot (sum v, d*v and its add:
+# sum d and sum d^2 are the same fold in every such window, a table entry)
+# or 7 (n, sum v, sum d, d*d and its add, d*v and its add); a window's
+# slope is 7 (cov 3, var 3, their quotient), predict_linear's intercept 4
+# and prediction 2 more. holt_winters: trend 4 and level 4 a slot, but
+# nothing on a window's first sample and 5 on its second (x - curr, then
+# the level), 8n - 11. The quantile: one comparison a value, and the
+# interpolation's 5 a window.
+B7_OPS = {"predict_linear": (3, 7, 13, 2), "deriv": (3, 7, 7, 2), "holt_winters": (8, 8, -11, 2),
+          "quantile_over_time": (1, 1, 5, 1)}
 
 
 class CpuGrid:
@@ -2196,15 +2248,288 @@ def compare_results(got, want, what: str) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def b7_valid_slots(x, window: int) -> int:
-    """Valid samples summed over every output step's window of x [S, T]."""
+def b7_window_slots(x, window: int, first: int, least: int) -> tuple[int, int, int]:
+    """Over the windows of output columns first .. T-1 of x [S, T] that hold
+    at least `least` samples: their valid samples summed, the samples of
+    those that hold theirs in one run at the window's end (a fully valid
+    window included), and the windows."""
     import torch
 
-    c = torch.nn.functional.pad((~x.isnan()).to(torch.float64).cumsum(dim=1), (window, 0))
-    return int((c[:, window:] - c[:, :-window]).sum())
+    rows, cols = x.shape
+    p = torch.nn.functional.pad((~x.isnan()).to(torch.int32).cumsum(1, dtype=torch.int32),
+                                (1, 0))  # p[:, i]: samples in columns [0, i)
+    t = torch.arange(first, cols, device=x.device)
+    lo, hi = (t - window + 1).clamp(min=0), t + 1
+    n = p[:, hi] - p[:, lo]
+    at_end = p[:, hi] - p.gather(1, (hi[None, :] - n).long()) == n
+    n = n.to(torch.int64)
+    counted = n >= least
+    return int(n[counted].sum()), int(n[counted & at_end].sum()), int(counted.sum())
 
 
-def phase_promql(dev, kernels: list, storage) -> None:
+def b7_bound(x, name: str, window: int, first: int) -> dict:
+    """B-7's bound over the kept columns of x: bytes (the input read once,
+    the output written once) at 3.35 TB/s, B7_OPS's operations at 67 TFLOP/s
+    and, beside it, at the no-FMA 33.5 TFLOP/s."""
+    rows, cols = x.shape
+    nbytes = (rows * cols + rows * (cols - first)) * 4
+    few, many, each, least = B7_OPS[name]
+    slots, run_slots, windows = b7_window_slots(x, window, first, least)
+    ops = run_slots * few + (slots - run_slots) * many + windows * each
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "slots": slots, "run_slots": run_slots,
+            "windows": windows, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # adds and multiplies without FMA: one a lane a cycle
+            "no_fma_ceiling_ms": max(bytes_ms, 2 * ops_ms)}
+
+
+def b7_bound_text(bd: dict, name: str) -> str:
+    few, many, each, least = B7_OPS[name]
+    return (f"bound {bd['bound_ms']:.3f} ms = max(bytes {bd['bytes_ms']:.3f} ms: "
+            f"{bd['bytes'] / 1e9:.3f} GB at 3.35 TB/s, operations {bd['ops_ms']:.3f} ms: "
+            f"{bd['slots']} valid slots of the {bd['windows']} kept windows with >= {least} "
+            f"samples, {bd['run_slots']} of them in windows holding their samples in one run at "
+            f"the end, x {few} (those) / {many} (the rest) {each:+d} a window = {bd['ops']} f32 "
+            f"operations at 67 TFLOP/s); no-FMA ceiling (the operations at 33.5 TFLOP/s, "
+            f"-fmad=false) {bd['no_fma_ceiling_ms']:.3f} ms")
+
+
+def b7_turns(parent, x, name: str, window: int, first: int, args, iters: int = 10,
+             b2b: int = 20) -> list:
+    """The parent commit's B-7 (every column, what the engine's call cost
+    before) and this one's (the kept columns) in turns (parent, new, new,
+    parent) on the same input, each through its C entry into an output
+    allocated once: a median of `iters` single launches and a back-to-back
+    run of `b2b` (CUDA events). The parent's kept columns must equal this
+    one's bit for bit."""
+    import torch
+
+    from m3_tpu_torch.ops._build import load_library
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    rows, cols = x.shape
+    fid, params = TW._FN_ID[name], TW._params(name, STEP / 1e9, args)
+    new = load_library("temporal_window")
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {"parent": torch.empty_like(x), "new": x.new_empty((rows, cols - first))}
+    sizes = {"parent": parent.m3_temporal_window_scratch_bytes(rows, cols, window, fid, 0, 0),
+             "new": new.m3_temporal_window_scratch_bytes(rows, cols, window, first, fid, 0, 0)}
+    scratch = {k: torch.empty(max(n // 4, 1), dtype=torch.float32, device=x.device)
+               for k, n in sizes.items()}
+
+    def call(who):
+        o, sc, n = outs[who].data_ptr(), scratch[who].data_ptr(), sizes[who]
+        if who == "parent":
+            rc = parent.m3_temporal_window(x.data_ptr(), rows, cols, window, fid, *params, 0, 0,
+                                           o, sc, n, stream)
+        else:
+            rc = new.m3_temporal_window(x.data_ptr(), rows, cols, window, first, fid, *params, 0,
+                                        0, o, sc, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"the {who} B-7 launch failed: CUDA error {rc}")
+
+    call("parent")
+    call("new")
+    torch.cuda.synchronize()
+    if not same_bits(outs["parent"][:, first:].contiguous(), outs["new"]):
+        raise AssertionError(f"the parent's B-7 {name} and this one's differ")
+    turns = []
+    for who in ("parent", "new", "new", "parent"):
+        f = lambda who=who: call(who)
+        turns.append((who, statistics.median(cuda_ms(f, iters)), per_launch_ms(f, b2b)))
+    return turns
+
+
+def b7_quantile_long(x, parent_b7=None) -> dict:
+    """quantile_over_time(0.99, m3_scan[1h]) as the engine calls it
+    (first = W - 1) on the W = 361 grid x, whose series start inside the
+    first windows, and on the same grid with its first 360 columns a copy
+    of columns 360 .. 719 (every window full: series with an hour of
+    history): == the twin on the card bit for bit, timed at the kernel's
+    layout and at runs of 23, 45, 90, 180 and 360 columns a lane, beside
+    the bound; and the parent's B-7 in turns."""
+    import torch
+
+    from m3_tpu_torch.query.functions import temporal as T
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    name, window, args = "quantile_over_time", 361, (0.99,)
+    first = window - 1
+    grids = {"series start inside": x,
+             "full windows": torch.cat([x[:, first:2 * first], x[:, first:]], dim=1)}
+    out = {}
+    for label, g in grids.items():
+        rows, cols = g.shape
+        want = T.quantile_over_time(g, window, args[0], chunk=16)[:, first:]
+        bd = b7_bound(g, name, window, first)
+        res = {"bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "runs": {}}
+        for run in (0, 23, 45, 90, 180, 360):
+            f = lambda run=run: TW.temporal_window(name, g, window, STEP / 1e9, *args,
+                                                   first=first, run=run)
+            if not same_bits(f(), want):
+                raise AssertionError(f"B-7 {name} w={window} run={run} ({label}) differs from "
+                                     f"its twin on the card")
+            sh = TW.launch_shape(name, rows, cols, window, first=first, run=run)
+            ms = statistics.median(cuda_ms(f, 5))
+            res["runs"][run] = (ms, per_launch_ms(f, 5), sh)
+        log(f"[promql] B-7 {name} w={window} first={first} [{rows}, {cols}] ({label}; == twin "
+            f"bit for bit on all {rows} rows): {b7_bound_text(bd, name)}; by run (0: the "
+            f"kernel's), median of 5 [back to back]: "
+            + "; ".join(f"run {r} ({sh['run']} columns, {sh['lanes_per_row']} lanes a row, "
+                        f"{sh['rows_per_warp']} rows a warp, {sh['threads']} threads, "
+                        f"{sh['blocks']} blocks, {sh['smem_bytes']} B): {a:.3f} [{b:.3f}] ms = "
+                        f"{bd['bound_ms'] / a:.1%}"
+                        for r, (a, b, sh) in res["runs"].items()))
+        if parent_b7 is not None:
+            turns = b7_turns(parent_b7, g, name, window, first, args, iters=3, b2b=3)
+            res["parent_turns"] = turns
+            log(f"[promql] B-7 {name} w={window} ({label}) in turns, the parent (every column) "
+                f"and this one (the kept columns), median of 3 [back to back]: "
+                + ", ".join(f"{who} {a:.3f} [{c:.3f}]" for who, a, c in turns) + " ms")
+        res["runs"] = {r: (a, b) for r, (a, b, _) in res["runs"].items()}
+        out[label] = res
+        del want
+    return out
+
+
+def b7_e2e_turns(eng, queries: dict, start: int, end: int, parent) -> None:
+    """[promql]'s four B-7 queries end to end (host clock, ending in a host
+    copy, median of 10) with this B-7 and with the parent's swapped into the
+    wrapper (it computes every column, the engine then keeps its W-1 on, as
+    before), in turns (new, parent, parent, new), and the device time of
+    each (torch.profiler)."""
+    import torch
+
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    own = TW._launch
+
+    def parent_launch(name, v, window, first, params, run, force_global):
+        rows, cols = v.shape
+        fid = TW._FN_ID[name]
+        out = torch.empty_like(v)
+        nb = parent.m3_temporal_window_scratch_bytes(rows, cols, window, fid, run,
+                                                     int(force_global))
+        scratch = torch.empty(max(nb // 4, 1), dtype=torch.float32, device=v.device)
+        rc = parent.m3_temporal_window(v.data_ptr(), rows, cols, window, fid, *params, run,
+                                       int(force_global), out.data_ptr(), scratch.data_ptr(), nb,
+                                       torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B-7 launch failed: CUDA error {rc}")
+        return out[:, first:]
+
+    for label, q in queries.items():
+        turns = []
+        for who in ("new", "parent", "parent", "new"):
+            TW._launch = parent_launch if who == "parent" else own
+            try:
+                times = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    eng.query_range(q, start, end, STEP).values.cpu()
+                    times.append(time.perf_counter() - t0)
+                prof = profiled(lambda q=q: eng.query_range(q, start, end, STEP).values.cpu())
+            finally:
+                TW._launch = own
+            turns.append(f"{who} {statistics.median(times) * 1e3:.3f} ms (device "
+                         f"{prof['device_ms']:.3f})")
+        log(f"[promql] end to end in turns, this B-7 and the parent's: {q}: " + ", ".join(turns))
+
+
+def b7_times(storage, lookback: int, b7_by_query: dict, parent_b7=None) -> dict:
+    """B-7 as the engine calls it (the kept columns, first = W - 1) on the
+    grids of [promql]'s four windowed queries: == its twin on the card
+    sliced at first, bit for bit on every row, timed beside its bound, the
+    no-FMA ceiling, the twin and the library yardstick (and the
+    parent's B-7 in turns)."""
+    import torch
+
+    from m3_tpu_torch.block.core import Bounds
+    from m3_tpu_torch.query.functions import temporal_window as TW
+    from m3_tpu_torch.query.promql import Matcher
+
+    start = T0
+    b7 = {}
+    matchers = [Matcher("__name__", "=", "m3_scan")]
+    for name, window, args in B7_RUNS:
+        b = Bounds(start - (window - 1) * STEP, STEP, N_POINTS + window - 1)
+        _, values, _ = storage.fetch_grid(matchers, b.start_nanos - lookback,
+                                          start + STEP * N_POINTS, b.timestamps(), lookback)
+        x = values.to(torch.float32)
+        first = window - 1
+        run = lambda x=x, name=name, window=window, args=args, first=first: TW.temporal_window(
+            name, x, window, STEP / 1e9, *args, first=first)
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = TW.FUNCTIONS[name](x, window, STEP / 1e9, *args)[:, first:]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not same_bits(got, want):
+            raise AssertionError(f"B-7 {name} w={window} differs from its twin on the card")
+        ms = statistics.median(cuda_ms(run, 10))
+        b2b = per_launch_ms(run)
+        rows, cols = x.shape
+        n_out = cols - first
+        bd = b7_bound(x, name, window, first)
+        lib_ms = None
+        lib_note = "none: no PyTorch call computes it"
+        if name == "quantile_over_time":
+            lib = lambda: x.unfold(1, window, 1).nanquantile(args[0], dim=-1)
+            lib_out = lib()
+            lib_ms = statistics.median(cuda_ms(lib, 5))
+            ok = ~want.isnan()
+            lib_diff = float((lib_out[ok] - want[ok]).abs().max())
+            same_nan = bool(torch.equal(lib_out.isnan(), want.isnan()))
+            lib_note = (f"unfold(1, {window}, 1).nanquantile({args[0]}, dim=-1) over the kept "
+                        f"columns' windows {lib_ms:.3f} ms (median of 5): torch.lerp's "
+                        f"interpolation (max abs diff {lib_diff:.3g} vs B-7, NaN pattern "
+                        f"{'equal' if same_nan else 'NOT equal'}), and no -inf/+inf for q "
+                        f"outside [0, 1] (it raises)")
+            del lib_out
+        shape = TW.launch_shape(name, rows, cols, window, first=first)
+        b7[name] = {"window": window, "first": first, "ms": ms, "b2b": b2b,
+                    "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                    "no_fma_ceiling_ms": bd["no_fma_ceiling_ms"], "library_ms": lib_ms}
+        log(f"[promql] B-7 (temporal_window) {name} [{rows}, {cols}] w={window} first={first} "
+            f"-> [{rows}, {n_out}]: {ms:.3f} ms (median of 10, CUDA events; back-to-back "
+            f"{b2b:.3f} ms); {b7_bound_text(bd, name)}; shares {bd['bound_ms'] / ms:.1%} and "
+            f"{bd['no_fma_ceiling_ms'] / ms:.1%}; {b7_by_query[name]} launch on the path (its "
+            f"query's); twin on the card {plain_ms:.1f} ms; == twin bit for bit on all {rows} "
+            f"rows; launch {shape}; library: {lib_note}")
+        if name == "quantile_over_time":
+            sweep = {}
+            for r in (23, 45, 90, 180):
+                f = lambda r=r: TW.temporal_window(name, x, window, STEP / 1e9, *args,
+                                                   first=first, run=r)
+                if not same_bits(f(), want):
+                    raise AssertionError(f"B-7 {name} run={r} differs from its twin on the card")
+                sweep[r] = (statistics.median(cuda_ms(f, 10)), per_launch_ms(f),
+                            TW.launch_shape(name, rows, cols, window, first=first, run=r))
+            b7[name]["runs"] = {r: t[:2] for r, t in sweep.items()}
+            log("[promql] B-7 quantile_over_time by run (columns a lane; == twin bit for bit): "
+                + "; ".join(f"run {r}: {a:.3f} [{c:.3f}] ms, {sh['lanes_per_row']} lanes a row, "
+                            f"{sh['rows_per_warp']} rows a warp, {sh['threads']} threads, "
+                            f"{sh['blocks']} blocks, {sh['smem_bytes']} B"
+                            for r, (a, c, sh) in sweep.items()))
+        if window == 361:
+            b7[name]["quantile_w361"] = b7_quantile_long(x, parent_b7)
+        if parent_b7 is not None:
+            turns = b7_turns(parent_b7, x, name, window, first, args)
+            b7[name]["parent_turns"] = turns
+            log(f"[promql] B-7 {name} in turns, the parent (every column) and this one (the "
+                f"kept columns), C entries on the same input, median of 10 [back to back]: "
+                + ", ".join(f"{who} {a:.3f} [{c:.3f}]" for who, a, c in turns) + " ms")
+        del x, values, got, want
+    for kernel in ("window_staged_kernel", "quantile_staged_kernel", "window_global_kernel"):
+        log(f"[promql] ptxas: {ptxas_report('temporal_window', kernel)}")
+    return b7
+
+
+def phase_promql(dev, kernels: list, storage, parent_b7=None) -> None:
     import torch
 
     from m3_tpu_torch.block.core import Bounds
@@ -2282,64 +2607,9 @@ def phase_promql(dev, kernels: list, storage) -> None:
             f"{prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (torch.profiler), the most: "
             + ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
 
-    # B-7 against its twin on the card, bit for bit on every row, and timed
-    b7 = {}
-    matchers = [Matcher("__name__", "=", "m3_scan")]
-    for name, window, args in B7_RUNS:
-        b = Bounds(start - (window - 1) * STEP, STEP, N_POINTS + window - 1)
-        _, values, _ = storage.fetch_grid(matchers, b.start_nanos - eng.lookback,
-                                          start + STEP * N_POINTS, b.timestamps(), eng.lookback)
-        x = values.to(torch.float32)
-        run = lambda x=x, name=name, window=window, args=args: TW.temporal_window(
-            name, x, window, STEP / 1e9, *args)
-        got = run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = TW.FUNCTIONS[name](x, window, STEP / 1e9, *args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not same_bits(got, want):
-            raise AssertionError(f"B-7 {name} w={window} differs from its twin on the card")
-        ms = statistics.median(cuda_ms(run, 10))
-        b2b = per_launch_ms(run)
-        rows, cols = x.shape
-        nbytes = 2 * rows * cols * 4
-        slots = b7_valid_slots(x, window)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = (slots * B7_SLOT_OPS[name] + rows * cols * 12) / F32_FLOP_PER_S * 1e3
-        lib_ms = None
-        lib_note = "none: no PyTorch call computes it"
-        if name == "quantile_over_time":
-            pad = torch.nn.functional.pad(x, (window - 1, 0), value=float("nan"))
-            lib = lambda: pad.unfold(1, window, 1).nanquantile(args[0], dim=-1)
-            lib_out = lib()
-            lib_ms = statistics.median(cuda_ms(lib, 5))
-            ok = ~want.isnan()
-            lib_diff = float((lib_out[ok] - want[ok]).abs().max())
-            same_nan = bool(torch.equal(lib_out.isnan(), want.isnan()))
-            lib_note = (f"unfold(1, {window}, 1).nanquantile({args[0]}, dim=-1) over the matrix "
-                        f"left-padded with NaN {lib_ms:.3f} ms (median of 5): torch.lerp's "
-                        f"interpolation (max abs diff {lib_diff:.3g} vs B-7, NaN pattern "
-                        f"{'equal' if same_nan else 'NOT equal'}), and no -inf/+inf for q "
-                        f"outside [0, 1] (it raises)")
-            del pad, lib_out
-        shape = TW.launch_shape(name, rows, cols, window)
-        b7[name] = {"window": window, "ms": ms, "b2b": b2b, "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "library_ms": lib_ms}
-        log(f"[promql] B-7 (temporal_window) {name} [{rows}, {cols}] w={window}: {ms:.3f} ms "
-            f"(median of 10, CUDA events; back-to-back {b2b:.3f} ms); bound "
-            f"{b7[name]['bound_ms']:.3f} ms = max(bytes {bytes_ms:.3f} ms: {nbytes / 1e9:.3f} GB "
-            f"at 3.35 TB/s, operations {ops_ms:.3f} ms: {slots} valid window slots x "
-            f"{B7_SLOT_OPS[name]} + 12 a column, f32 at 67 TFLOP/s) = "
-            f"{b7[name]['bound_ms'] / ms:.1%} of it; {b7_by_query[name]} launch on the path (its "
-            f"query's); twin on the card {plain_ms:.1f} ms; == twin "
-            f"bit for bit on all {rows} rows; launch {shape['blocks']} blocks of "
-            f"{shape['threads']} threads, {shape['smem_bytes']} B shared memory, run "
-            f"{shape['run']}; library: {lib_note}")
-        del x, values, got, want
-    log(f"[promql] ptxas: {ptxas_report('temporal_window', 'temporal_window_kernel')}")
+    if parent_b7 is not None:
+        b7_e2e_turns(eng, {label: full[label] for label in TW.FUNCTIONS}, start, end, parent_b7)
+    b7 = b7_times(storage, eng.lookback, b7_by_query, parent_b7)
     check_no_unaligned_copies("promql")
     log(f"[promql] phase {time.perf_counter() - t_phase:.1f}s")
     main = b7["predict_linear"]
@@ -2370,6 +2640,10 @@ def main() -> int:
                     help="another tree's query/csrc/consolidate_grid.cu (a parent commit "
                          "unpacked beside this checkout): [query] times its B-1 in turns with "
                          "this one's")
+    ap.add_argument("--parent-b7", metavar="CU", default=None,
+                    help="another tree's query/functions/csrc/temporal_window.cu (a parent "
+                         "commit unpacked beside this checkout): [promql] times its B-7 in "
+                         "turns with this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2383,9 +2657,11 @@ def main() -> int:
     log(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    parent_build = build_parent_b1(args.parent_b1) if args.parent_b1 else None
+    parent_build = build_parent(args.parent_b1, "consolidate_grid") if args.parent_b1 else None
+    parent_b7_build = build_parent(args.parent_b7, "temporal_window") if args.parent_b7 else None
     _build.build_all()
     parent_b1 = load_parent_b1(*parent_build) if parent_build else None
+    parent_b7 = load_parent_b7(*parent_b7_build) if parent_b7_build else None
     log(f"[build] {', '.join(_build.SOURCES)} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
@@ -2400,7 +2676,7 @@ def main() -> int:
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))
     b1, storage = phase_query(dev, kernels, temporal_err, parent_b1)
-    phase_promql(dev, kernels, storage)
+    phase_promql(dev, kernels, storage, parent_b7)
     del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)

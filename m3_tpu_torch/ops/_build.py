@@ -74,14 +74,17 @@ SOURCES = {
         PKG / "query" / "functions" / "csrc" / "temporal_window.cu",
         _COMMON,
         {
-            # x, rows, cols, window, fn, a, b, c, d, run, force_global, out,
-            # scratch, scratch_bytes, stream
-            "m3_temporal_window": [_P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P, _I64, _P],
-            # rows, cols, window, fn, run, force_global -> bytes of device scratch (int64)
-            "m3_temporal_window_scratch_bytes": [_I64, _I, _I, _I, _I, _I],
-            # rows, cols, window, fn, run, force_global, out int64[6]: threads,
-            # run, staged, shared memory a block, blocks, scratch bytes
-            "m3_temporal_window_shape": [_I64, _I, _I, _I, _I, _I, _P],
+            # x, rows, cols, window, first, fn, a, b, c, d, run, force_global,
+            # out, scratch, scratch_bytes, stream
+            "m3_temporal_window": [_P, _I64, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P, _I64,
+                                   _P],
+            # rows, cols, window, first, fn, run, force_global -> bytes of device
+            # scratch (int64)
+            "m3_temporal_window_scratch_bytes": [_I64, _I, _I, _I, _I, _I, _I],
+            # rows, cols, window, first, fn, run, force_global, out int64[9]:
+            # threads, run, staged, shared memory a block, blocks, scratch bytes,
+            # rows a warp, lanes a row, tables
+            "m3_temporal_window_shape": [_I64, _I, _I, _I, _I, _I, _I, _P],
         },
     ),
     "index_kernels": (

@@ -421,8 +421,8 @@ class Engine:
             else:
                 args, rng = tuple(_number(a) for a in e.args[1:]), e.args[0]
             vals, metas, w, step_s, post = self._range_arg(rng, bounds)
-            out = TW.temporal_window(name, vals, w, step_s, *args)
-            return Result(post(out[:, w - 1:]), metas)
+            out = TW.temporal_window(name, vals, w, step_s, *args, first=w - 1)
+            return Result(post(out), metas)
         if name == "label_replace":
             return self._label_replace(e, bounds)
         if name == "label_join":

@@ -20,7 +20,7 @@ import torch
 from m3_tpu_torch.codec.m3tsz import encode_series
 from m3_tpu_torch.ops import chunked, fused
 from m3_tpu_torch.utils.synthetic import synthetic_mixed_streams, synthetic_streams
-from torch_streams import CONSOLIDATION_CASES, group_streams
+from torch_streams import CONSOLIDATION_CASES, b7_patterns, group_streams
 
 T0 = 1_600_000_000 * 10**9
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -1117,7 +1117,8 @@ def _assert_b7_bits(got, want, what):
 def test_cuda_b7_matches_twin(name, args, window):
     """B-7 == its twin bit for bit at the CPU tests' sizes (7 x 60, windows
     up to one longer than the row), through the shared-memory route and the
-    device-memory route, at quantile runs of 1, 3, 100 and the kernel's."""
+    device-memory route, at quantile runs of 1, 3, 100 and the kernel's,
+    over all columns and over the engine's (first = W - 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.query.functions import temporal_window as TW
@@ -1125,14 +1126,17 @@ def test_cuda_b7_matches_twin(name, args, window):
     x = _b7_input(7, 60)
     want = TW.temporal_window(name, x, window, 10.0, *args)
     runs = (0, 1, 3, 100) if name == "quantile_over_time" else (0,)
-    for force_global in (False, True):
-        for run in runs:
-            before = TW.LAUNCHES
-            got = TW.temporal_window(name, x.cuda(), window, 10.0, *args, run=run,
-                                     force_global=force_global)
-            assert TW.LAUNCHES == before + 1
-            torch.cuda.synchronize()
-            _assert_b7_bits(got, want, f"{name}{args} w={window} run={run} global={force_global}")
+    for first in sorted({0, min(window - 1, 59)}):
+        for force_global in (False, True):
+            for run in runs:
+                before = TW.LAUNCHES
+                got = TW.temporal_window(name, x.cuda(), window, 10.0, *args, first=first,
+                                         run=run, force_global=force_global)
+                assert TW.LAUNCHES == before + 1
+                torch.cuda.synchronize()
+                _assert_b7_bits(got, want[:, first:],
+                                f"{name}{args} w={window} first={first} run={run} "
+                                f"global={force_global}")
 
 
 @pytest.mark.cuda
@@ -1168,3 +1172,104 @@ def test_cuda_b7_empty_and_error():
     assert TW.LAUNCHES == before
     with pytest.raises(ValueError):
         TW.temporal_window("deriv", torch.zeros(5, device="cuda"), 3, 10.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 3, 31, 61, 200])
+@pytest.mark.parametrize("name,args", B7_CALLS)
+def test_cuda_b7_validity_patterns(name, args, w):
+    """The host-build tests' validity patterns on the card (fold tables,
+    the bit walk, interleaved holt_winters recurrences, the one-shift
+    slide, NaN without a walk), == the twin sliced at first, bit for bit,
+    through both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    names, v = b7_patterns(w)
+    x = torch.from_numpy(v)
+    want = TW.temporal_window(name, x, w, 10.0, *args)
+    cols = v.shape[1]
+    runs = (0, 1, 7) if name == "quantile_over_time" else (0,)
+    for first in sorted({0, min(w - 1, cols), cols - 1}):
+        for force_global in (False, True):
+            for run in runs:
+                got = TW.temporal_window(name, x.cuda(), w, 10.0, *args, first=first, run=run,
+                                         force_global=force_global).cpu()
+                for i, row in enumerate(names):
+                    _assert_b7_bits(got[i], want[i, first:],
+                                    f"{name}{args} w={w} first={first} run={run} "
+                                    f"global={force_global} {row}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args", B7_CALLS[:3] + [("quantile_over_time", (0.9,))])
+def test_cuda_b7_long_window(name, args):
+    """W = 1,100, beyond the fold tables (every linear window folds sum d
+    and sum d^2 with the flags) and the register sort (insertion), staged,
+    == the twin on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    x = _b7_input(64, 1300, seed=11).cuda()
+    shape = TW.launch_shape(name, 64, 1300, 1100, first=1099)
+    assert shape["staged"] == 1 and shape["tables"] == 0
+    got = TW.temporal_window(name, x, 1100, 10.0, *args, first=1099)
+    _assert_b7_bits(got, TW.FUNCTIONS[name](x, 1100, 10.0, *args)[:, 1099:], f"{name} W=1100")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [0, 23, 90, 360])
+def test_cuda_b7_quantile_long_window_layouts(run):
+    """quantile_over_time at W = 361 over [1,000, 1,080], first = 360, at
+    the kernel's layout (two lanes of 360 columns, two rows a warp: idle
+    lanes take no window memory) and at shorter runs (32, 8 and 2 lanes a
+    row), on series that start inside the first windows and on full
+    windows, == the twin on the card sliced at first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal as T
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    rng = np.random.default_rng(361)
+    v = np.cumsum(rng.normal(0.5, 3.0, (1000, 1080)), axis=1).astype(np.float32)
+    v[rng.random(v.shape) < 0.02] = np.nan
+    for late in (False, True):
+        if late:
+            v[:, :360] = np.nan
+        x = torch.from_numpy(v).cuda()
+        shape = TW.launch_shape("quantile_over_time", 1000, 1080, 361, first=360, run=run)
+        assert shape["staged"] == 1
+        assert shape["rows_per_warp"] * shape["lanes_per_row"] <= 32
+        got = TW.temporal_window("quantile_over_time", x, 361, 10.0, 0.9, first=360, run=run)
+        want = T.quantile_over_time(x, 361, 0.9, chunk=32)[:, 360:]
+        _assert_b7_bits(got, want, f"W=361 run={run} late={late} {shape}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,window,args", [
+    ("predict_linear", 361, (14400.0,)), ("deriv", 31, ()), ("holt_winters", 61, (0.3, 0.6)),
+    ("quantile_over_time", 31, (0.99,))])
+def test_cuda_b7_promql_shapes(name, window, args):
+    """[promql]'s four B-7 calls at 1,000 rows: 720 steps behind W - 1 NaN
+    columns (the series start inside the first windows), first = W - 1 as
+    the engine calls it, staged, == the twin on the card sliced at first;
+    and 5% NaN inside the data (windows with gaps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.query.functions import temporal_window as TW
+
+    rng = np.random.default_rng(window)
+    v = np.cumsum(rng.normal(0.5, 3.0, (1000, 720 + window - 1)), axis=1).astype(np.float32)
+    v[:, :window - 1] = np.nan
+    for gaps in (False, True):
+        if gaps:
+            v[rng.random(v.shape) < 0.05] = np.nan
+        x = torch.from_numpy(v).cuda()
+        shape = TW.launch_shape(name, *x.shape, window, first=window - 1)
+        assert shape["staged"] == 1
+        got = TW.temporal_window(name, x, window, 10.0, *args, first=window - 1)
+        assert got.shape == (1000, 720)
+        want = TW.FUNCTIONS[name](x, window, 10.0, *args)[:, window - 1:]
+        _assert_b7_bits(got, want, f"{name} [1000, {x.shape[1]}] w={window} gaps={gaps}")

@@ -33,7 +33,16 @@ quantile_over_time):
   and 3.1e-3 abs on predict_linear values of ~1e3 here (measured).
 - B-7's source, compiled as host C++, equals the twin bit for bit on the
   same data and on rows of infinities, signed zeros and repeated values,
-  at quantile runs of 1, 3, 100 and the kernel's own.
+  at quantile runs of 1, 3, 100 and the kernel's own, through the staged
+  route and the device-memory route.
+- The host build equals the twin, sliced at ``first``, bit for bit on rows
+  whose validity reaches every path of the staged route (fully valid rows,
+  a NaN prefix of 0, 1, W-1 and more than W columns, NaN suffixes, every
+  other slot NaN, all NaN, a gap, 25% NaN, the specials), at W = 1, 2, 3,
+  31, 61 and 200 (longer than the row) and first = 0, W-1 and T-1.
+- ``temporal_window(..., first=k)`` on the CPU is the twin's output sliced
+  at k, and the port's Engine equals the JAX Engine on B-7 queries over
+  series that start late, stop early or have gaps.
 """
 
 import ctypes
@@ -51,6 +60,7 @@ from m3_tpu.query.functions import temporal_fused as jtf
 from m3_tpu_torch.ops import _build
 from m3_tpu_torch.query.functions import temporal_fused as TF
 from m3_tpu_torch.query.functions import temporal_window as TW
+from torch_streams import b7_patterns
 
 WINDOWS = [1, 5, 7, 200]
 STEP = 10.0
@@ -323,7 +333,7 @@ def test_b7_wrapper_on_the_cpu_runs_the_twin():
 
 
 @pytest.fixture(scope="module")
-def host_b7():
+def host_b7_lib():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source for the CPU")
@@ -334,10 +344,20 @@ def host_b7():
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(out)
-    fn = lib.m3_temporal_window_host
+    # rows, cols, window, first, fn, run, force_global, out int64[9]
+    lib.m3_temporal_window_shape.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.m3_temporal_window_shape.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_b7(host_b7_lib):
+    fn = host_b7_lib.m3_temporal_window_host
     F = ctypes.c_float
+    # x, rows, cols, window, first, fn, a, b, c, d, run, force_global, out
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   F, F, F, F, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, F, F, F, F, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -354,8 +374,140 @@ def test_b7_host_build_matches_twin(host_b7, name, args, w, data):
     want = _twin_b7(name, v, w, args, 128).numpy()
     params = TW._params(name, STEP, args)
     runs = (0, 1, 3, 100) if name == "quantile_over_time" else (0,)
-    for run in runs:
-        out = np.zeros_like(v)
-        assert host_b7(v.ctypes.data, v.shape[0], v.shape[1], w, TW._FN_ID[name], *params, run,
+    for force_global in (0, 1):
+        for run in runs:
+            out = np.zeros_like(v)
+            assert host_b7(v.ctypes.data, v.shape[0], v.shape[1], w, 0, TW._FN_ID[name], *params,
+                           run, force_global, out.ctypes.data) == 0
+            assert _bits_equal(out, want), (
+                f"{name}{args} w={w} run={run} global={force_global}: differs from the twin")
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 31, 61, 200])
+@pytest.mark.parametrize("name,args", B7_CALLS)
+def test_b7_host_build_matches_twin_on_validity_patterns(host_b7, name, args, w):
+    """The staged route's paths (fold tables for windows whose samples are
+    their last ones, the flag fold for any other window, the
+    interleaved holt_winters recurrences, the quantile's one-shift slide,
+    NaN without a walk) and the device-memory route, each == the twin
+    sliced at first, bit for bit."""
+    names, v = b7_patterns(w)
+    cols = v.shape[1]
+    want = _twin_b7(name, v, w, args, 128).numpy()
+    params = TW._params(name, STEP, args)
+    runs = (0, 1, 7) if name == "quantile_over_time" else (0,)
+    for first in sorted({0, min(w - 1, cols), cols - 1}):
+        for force_global in (0, 1):
+            for run in runs:
+                out = np.zeros((v.shape[0], cols - first), np.float32)
+                assert host_b7(v.ctypes.data, v.shape[0], cols, w, first, TW._FN_ID[name],
+                               *params, run, force_global, out.ctypes.data) == 0
+                for i, row in enumerate(names):
+                    assert _bits_equal(out[i], want[i, first:]), (
+                        f"{name}{args} w={w} first={first} run={run} global={force_global}: "
+                        f"{row} differs from the twin")
+
+
+@pytest.mark.parametrize("name,args", B7_CALLS[:4] + [("quantile_over_time", (0.9,))])
+def test_b7_host_build_long_window(host_b7, name, args):
+    """A window longer than the fold tables' (W = 1,100 > 1,024: every
+    linear window folds sum d and sum d^2 with the flags) and than the
+    register sort's (the quantile's first windows by insertion), staged."""
+    rng = np.random.default_rng(37)
+    v = np.cumsum(rng.normal(0.5, 3.0, (3, 1300)), axis=1).astype(np.float32)
+    v[1, :1150] = np.nan
+    v[2, rng.random(1300) < 0.1] = np.nan
+    want = _twin_b7(name, v, 1100, args, 128).numpy()
+    params = TW._params(name, STEP, args)
+    for first in (0, 1099):
+        out = np.zeros((3, 1300 - first), np.float32)
+        assert host_b7(v.ctypes.data, 3, 1300, 1100, first, TW._FN_ID[name], *params, 0, 0,
                        out.ctypes.data) == 0
-        assert _bits_equal(out, want), f"{name}{args} w={w} run={run}: differs from the twin"
+        assert _bits_equal(out, want[:, first:]), f"{name}{args} first={first}"
+
+
+@pytest.mark.parametrize("cols,w", [(750, 31), (1080, 361), (961, 120), (1080, 200),
+                                    (60, 5), (1300, 1100), (5000, 361), (4000, 2000)])
+def test_b7_quantile_layout_keeps_runs_of_half_a_window(host_b7_lib, cols, w):
+    """The staged quantile's layout at the engine's first = W - 1: runs of
+    at least W/2 columns (the whole row where it is shorter), as many runs
+    as a power of two allows, at most 32 lanes a warp, and rows a warp
+    dropped (idle lanes) rather than runs shortened where shared memory
+    holds fewer rows: so [promql]'s W = 31 keeps 32 lanes of 23 columns and
+    W = 361 over 720 columns two lanes of 360."""
+    out = np.zeros(9, np.int64)
+    first = w - 1
+    n_out = cols - first
+    assert host_b7_lib.m3_temporal_window_shape(100_000, cols, w, first, TW._FN_ID[
+        "quantile_over_time"], 0, 0, out.ctypes.data) == 0
+    shape = dict(zip(("threads", "run", "staged", "smem_bytes", "blocks", "scratch_bytes",
+                      "rows_per_warp", "lanes_per_row", "tables"), (int(x) for x in out)))
+    lanes, rows, run = shape["lanes_per_row"], shape["rows_per_warp"], shape["run"]
+    assert shape["staged"] == 1
+    assert run >= min(n_out, (w + 1) // 2), shape
+    assert lanes * run >= n_out, shape
+    assert lanes & (lanes - 1) == 0 and lanes * rows <= 32, shape
+    assert lanes == 32 or 2 * lanes * (w + 1) > n_out, shape  # no more runs fit
+    # each warp: its rows' slots and windows, in kQuantWarpBytes unless one row overflows it
+    warp = rows * (-(-(n_out + w - 1) // 4) * 4 + lanes * w) * 4
+    assert shape["smem_bytes"] == shape["threads"] // 32 * warp, shape
+    assert rows == 1 or warp <= 16384, shape
+    assert rows * 2 * lanes > 32 or 2 * warp > 16384, shape  # no more rows fit
+    if (cols, w) == (750, 31):
+        assert (lanes, rows, run) == (32, 1, 23)
+    if (cols, w) == (1080, 361):
+        assert (lanes, rows, run) == (2, 2, 360)
+
+
+@pytest.mark.parametrize("name,args", B7_CALLS[:4] + [("quantile_over_time", (0.9,))])
+def test_b7_wrapper_first_slices_the_twin(name, args):
+    v = torch.from_numpy(_b7_data())
+    full = TW.temporal_window(name, v, 16, STEP, *args)
+    assert full.shape == v.shape
+    for first in (0, 1, 15, 59, 60):
+        got = TW.temporal_window(name, v, 16, STEP, *args, first=first)
+        assert got.shape == (v.shape[0], v.shape[1] - first)
+        assert _bits_equal(got.numpy(), full[:, first:].numpy())
+    for bad in (-1, 61):
+        with pytest.raises(ValueError):
+            TW.temporal_window(name, v, 16, STEP, *args, first=bad)
+
+
+def _b7_engine_series():
+    """Gauges that start late, stop early, have a gap, and a full one, 120
+    points at 10 s."""
+    from m3_tpu_torch.block.core import make_tags
+
+    from test_torch_promql import STEP as QSTEP
+    from test_torch_promql import T0
+
+    rng = np.random.default_rng(31)
+    out = []
+    for i, (lo, hi, gap) in enumerate([(0, 120, None), (45, 120, None), (0, 70, None),
+                                       (0, 120, (30, 52)), (90, 120, (100, 104))]):
+        keep = np.zeros(120, bool)
+        keep[lo:hi] = True
+        if gap:
+            keep[gap[0]:gap[1]] = False
+        ts = T0 + QSTEP * np.flatnonzero(keep).astype(np.int64)
+        vs = np.cumsum(rng.normal(0.5, 3.0, 120))[keep]
+        out.append((make_tags({"__name__": "g", "host": f"h{i}"}), ts, vs))
+    return out
+
+
+@pytest.mark.parametrize("query", [
+    "predict_linear(g[5m], 600)", "deriv(g[2m])", "holt_winters(g[3m], 0.3, 0.6)",
+    "quantile_over_time(0.9, g[3m])", "quantile_over_time(0.25, g[30s])",
+    "predict_linear(g[30m], 3600) < 0",
+])
+def test_b7_engine_matches_jax_engine(query):
+    """The engine's B-7 call (first = W - 1) against the JAX Engine."""
+    from m3_tpu.query import engine as jengine
+
+    from test_torch_promql import T0, _assert_results, _both, _RawStorage
+    from test_torch_promql import STEP as QSTEP
+
+    raw = _RawStorage(_b7_engine_series())
+    got, want = _both((raw, raw), query, T0 + 20 * QSTEP, T0 + 119 * QSTEP, QSTEP,
+                      jengine.DEFAULT_LOOKBACK)
+    _assert_results(got, want, query)

@@ -1,7 +1,9 @@
 """Streams shared by the port's kernel tests: the host-build tests on the
 CPU (tests/test_torch_records.py, tests/test_torch_fields.py) and the card
-tests (tests/test_torch_cuda.py) decode the same warp mixes. Imports numpy
-and the port only, so the card tests run without JAX."""
+tests (tests/test_torch_cuda.py) decode the same warp mixes; B-7's
+host-build tests (tests/test_torch_temporal.py) and card tests take the
+same validity patterns. Imports numpy and the port only, so the card tests
+run without JAX."""
 
 import numpy as np
 
@@ -166,3 +168,39 @@ def consolidation_case(name, seed=0, step=10):
     else:
         raise ValueError(f"no consolidation case {name!r}")
     return rec, grid, lo, hi, lookback
+
+
+def b7_patterns(w, cols=97):
+    """Rows whose validity reaches every path of B-7's staged route, named:
+    the series starts (a NaN prefix), ends (a NaN suffix), has gaps, holds
+    no sample, and the special values."""
+    rng = np.random.default_rng(23)
+    base = np.cumsum(rng.normal(1.0, 5.0, cols)).astype(np.float32)
+    rows = {}
+    for k in sorted({0, 1, w - 1, w + 5}):
+        r = base.copy()
+        r[:k] = np.nan
+        rows[f"NaN prefix {k}"] = r
+    for k in (1, 7, w + 3):
+        r = base.copy()
+        r[max(cols - k, 0):] = np.nan
+        rows[f"NaN suffix {k}"] = r
+    r = base.copy()
+    r[::2] = np.nan
+    rows["every other slot NaN"] = r
+    rows["all NaN"] = np.full(cols, np.nan, np.float32)
+    r = base.copy()
+    r[:3] = np.nan
+    r[40:47] = np.nan
+    rows["a prefix and a gap"] = r
+    r = base.copy()
+    r[rng.random(cols) < 0.25] = np.nan
+    rows["25% NaN"] = r
+    pool = np.asarray([np.inf, -np.inf, 0.0, -0.0, 1.5, 1.5, -2.0, 3e38, -3e38, 1e-40],
+                      np.float32)
+    r = pool[rng.integers(0, len(pool), cols)]
+    rows["specials"] = r.copy()
+    r[:w // 2] = np.nan
+    rows["specials after a NaN prefix"] = r
+    rows["signed zeros"] = np.where(np.arange(cols) % 3, 0.0, -0.0).astype(np.float32)
+    return list(rows), np.ascontiguousarray(np.stack(list(rows.values())))
