@@ -166,6 +166,29 @@ Phases (any failure exits non-zero):
              times, B-2's
              time beside its bound, its twin's and the series its direct
              route took, and the node's resident and index stats.
+  aggregator — the aggregator tier at BASELINE config 4 (10,000,000 active
+             series, 10 s points rolled up into 1 m windows): the datapoints
+             as bench_suite.py builds them (6 a series, lognormal values,
+             seed 2) densified on the host (window_keys + pack_dense_groups,
+             timed) into f32 [10,000,000, 6]; B-5a (the eight rollup fields)
+             over all groups and B-5b (p50/p95/p99) over the 10% timer slice
+             and over all groups, each == its twin on the card bit for bit,
+             timed single and back to back beside its bytes bound, its twin
+             and (B-5b) torch.nanquantile; the same on a flush's shard
+             (62,501 rows) widened to 33, 100 and 1,000 slots by one timer's
+             batch, where B-5b takes its block route and B-5a its window
+             tree. Then an Aggregator (16 shards,
+             1m:40d) end to end through add_timed_batch and flush at a tenth
+             of config 4 (1,000,000 series: 90% counters and gauges, 10%
+             timers with their 11 default aggregations; the reference's
+             ingest is a per-row host loop), plus one untimed timer batching
+             33, 100 and 1,000 values in shards 0-2 (the block route):
+             2,000,033 metrics == the same
+             buffered state flushed by an Aggregator on the CPU, exactly, one
+             B-5a and one B-5b launch a shard, and the ingest, densify,
+             device, readback and emit seconds. Last a Downsampler (a
+             mapping rule and a per_second rollup by dc over 100 hosts, two
+             flushes) == the same on the CPU.
 Prints the card as nvidia-smi reports it, a {"kernels": [...]} line, and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -187,6 +210,15 @@ CHAIN_CYCLES = 4  # latency of a dependent f32 add on Hopper: K3's row-order fol
 PARITY_SERIES, MAIN_SERIES, N_POINTS, K, N_UNIQUE = 4096, 1 << 20, 720, 24, 64
 QUERY_SERIES, QUERY_JOBS, STEP = 100_000, 10, 10 * 10**9
 INDEX_HOSTS, INDEX_SECOND_BLOCK_HOSTS, HOUR = 100_000, 10_000, 3600 * 10**9
+# BASELINE config 4: 10M active series, 10 s points rolled up into 1 m windows
+AGG_SERIES, AGG_POINTS, AGG_E2E_SERIES = 10_000_000, 6, 1_000_000
+AGG_T0 = 1_600_000_020 * 10**9  # a minute boundary
+AGG_QS = (0.5, 0.95, 0.99)  # the timers' default quantiles (median, p50, p95, p99)
+# a timer batching more than 32 values widens every row of its shard past the
+# warp route (pack_dense_groups pads to the widest group): the batch sizes of
+# the wide shards, and a shard's rows in the end-to-end flush (16 shards)
+AGG_WIDE_P = (33, 100, 1000)
+AGG_SHARD_ROWS = AGG_E2E_SERIES // 16
 # TSBS devops: the cpu measurement's fields and the host tags' value sets
 # (pkg/data/usecases/devops/host.go)
 CPU_FIELDS = ["usage_user", "usage_system", "usage_idle", "usage_nice", "usage_iowait",
@@ -2629,6 +2661,290 @@ def phase_promql(dev, kernels: list, storage, parent_b7=None) -> None:
     })
 
 
+def config4_points(n_series: int, seed: int = 2):
+    """BASELINE config 4's datapoints as bench_suite.py builds them: AGG_POINTS
+    a series at 10 s spacing with a random offset inside each 10 s, all in
+    the minute from AGG_T0, lognormal values. (ids i64, times i64, values
+    f32), series-major."""
+    n = n_series * AGG_POINTS
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(n_series, dtype=np.int64), AGG_POINTS)
+    times = (AGG_T0 + np.tile(np.arange(AGG_POINTS, dtype=np.int64) * 10 * 10**9, n_series)
+             + rng.integers(0, 10 * 10**9, n))
+    return ids, times, rng.lognormal(0, 1, n).astype(np.float32)
+
+
+def wide_shard(batch: int, seed: int = 3):
+    """One shard of the end-to-end flush in which a timer batched `batch`
+    values into the window: config 4's points for AGG_SHARD_ROWS series
+    plus the timer's, densified as `_flush_policy` densifies them. (vals,
+    torder, valid) [AGG_SHARD_ROWS + 1, batch]."""
+    from m3_tpu_torch.aggregator import kernels as K
+
+    rng = np.random.default_rng(seed)
+    ids, times, values = config4_points(AGG_SHARD_ROWS)
+    ids = np.concatenate([ids, np.full(batch, AGG_SHARD_ROWS, np.int64)])
+    times = np.concatenate([times, AGG_T0 + rng.integers(0, 60 * 10**9, batch)])
+    values = np.concatenate([values, rng.lognormal(0, 1, batch).astype(np.float32)])
+    keys, _, torder = K.window_keys(ids, times, AGG_T0, 60 * 10**9, 1)
+    return K.pack_dense_groups(keys, values, torder, AGG_SHARD_ROWS + 1)
+
+
+def rollup_times(run, twin, bound_ms: float, library=None) -> dict:
+    """A rollup kernel's time (median of 10 single launches, CUDA events),
+    back to back, its twin's and the library call's, beside its bound."""
+    out = {"ms": statistics.median(cuda_ms(run, 10)), "b2b": per_launch_ms(run),
+           "plain_ms": statistics.median(cuda_ms(twin, 3)), "bound_ms": bound_ms,
+           "library_ms": None if library is None else statistics.median(cuda_ms(library, 5))}
+    out["share"] = bound_ms / out["ms"]
+    return out
+
+
+def phase_aggregator(dev, kernels: list) -> None:
+    """The aggregator tier: B-5a and B-5b at BASELINE config 4's full size,
+    the Aggregator end to end at a tenth of it, and the Downsampler."""
+    import copy
+    import itertools
+
+    import torch
+
+    from m3_tpu_torch.aggregator import kernels as K
+    from m3_tpu_torch.aggregator.aggregator import Aggregator
+    from m3_tpu_torch.aggregator.downsampler import Downsampler
+    from m3_tpu_torch.block.core import make_tags
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import AggregationType, MetricType, Untimed
+    from m3_tpu_torch.rules.filters import TagsFilter
+    from m3_tpu_torch.rules.rules import (MappingRule, RollupRule, RollupTarget, RuleSet,
+                                          TransformationType)
+
+    t_phase = time.perf_counter()
+    minute = 60 * 10**9
+    # 1. the kernels at config 4's full width
+    ids, times, values = config4_points(AGG_SERIES)
+    t0 = time.perf_counter()
+    keys, _, torder = K.window_keys(ids, times, AGG_T0, minute, 1)
+    vals, tor, valid = K.pack_dense_groups(keys, values, torder, AGG_SERIES)
+    densify_s = time.perf_counter() - t0
+    del ids, times, values, keys, torder
+    if vals.shape != (AGG_SERIES, AGG_POINTS) or not valid.all():
+        raise AssertionError(f"config 4 densified to {vals.shape}, want [{AGG_SERIES}, 6] full")
+    log(f"[aggregator] config 4: {AGG_SERIES:,} series x {AGG_POINTS} points into one 1 m "
+        f"window; host densify (window_keys + pack_dense_groups) {densify_s:.3f} s")
+    v, t, ok = (torch.from_numpy(a).to(dev) for a in (vals, tor, valid))
+    del vals, tor, valid
+    g, p = v.shape
+    got = K.aggregate_dense_fields(v, t, ok)
+    if not same_bits(got, K.aggregate_dense_reference(v, t, ok)):
+        raise AssertionError("B-5a differs from its twin at config 4's full size")
+    if not torch.equal(got[1].cpu(), torch.full((g,), float(p))):
+        raise AssertionError("B-5a's counts are not config 4's 6 a group")
+    b5a_bytes = g * p * (4 + 4 + 1) + len(K.FIELDS) * g * 4
+    b5a = rollup_times(lambda: K.launch_aggregate_dense(v, t, ok),
+                       lambda: K.aggregate_dense_reference(v, t, ok),
+                       b5a_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[aggregator] B-5a [{g:,}, {p}] -> [8, {g:,}]: {b5a['ms']:.3f} ms [{b5a['b2b']:.3f}] "
+        f"(CUDA events; == twin bit for bit), bound {b5a['bound_ms']:.3f} ms (bytes: "
+        f"{b5a_bytes / 1e6:.0f} MB at 3.35 TB/s, {b5a['share']:.1%}), twin on the card "
+        f"{b5a['plain_ms']:.3f} ms, library none")
+    b5b = {}
+    for what, rows in (("timer slice", AGG_SERIES // 10), ("all groups", AGG_SERIES)):
+        vq, okq = v[:rows], ok[:rows]
+        if not same_bits(K.dense_quantiles(vq, okq, AGG_QS),
+                         K.dense_quantiles_reference(vq, okq, AGG_QS)):
+            raise AssertionError(f"B-5b differs from its twin over the {what}")
+        qt = torch.tensor(AGG_QS, dtype=torch.float32, device=dev)
+        lib = torch.nanquantile(vq, qt, dim=1, interpolation="linear")
+        lib_err = float((lib - K.dense_quantiles(vq, okq, AGG_QS)).abs().max())
+        nbytes = rows * p * (4 + 1) + len(AGG_QS) * rows * 4
+        b5b[what] = rollup_times(
+            lambda: K.launch_dense_quantiles(vq, okq, AGG_QS),
+            lambda: K.dense_quantiles_reference(vq, okq, AGG_QS),
+            nbytes / HBM_BYTES_PER_S * 1e3,
+            lambda: torch.nanquantile(vq, qt, dim=1, interpolation="linear"))
+        r = b5b[what]
+        log(f"[aggregator] B-5b {what} [{rows:,}, {p}] -> [{len(AGG_QS)}, {rows:,}] "
+            f"p50/p95/p99: {r['ms']:.3f} ms [{r['b2b']:.3f}] (== twin bit for bit), bound "
+            f"{r['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.0f} MB, {r['share']:.1%}), twin "
+            f"{r['plain_ms']:.3f} ms, torch.nanquantile {r['library_ms']:.3f} ms (max abs "
+            f"{lib_err:.3g} from B-5b: lerp's rounding)")
+    del v, t, ok, got, vq, okq, lib
+    # the block route (a radix select a row) and B-5a's window tree, on a
+    # shard widened by one timer's batch; bytes counted for this data: every
+    # valid flag, and the values (and time orders) of valid slots only
+    wide = {}
+    for batch in AGG_WIDE_P:
+        v, t, ok = (torch.from_numpy(a).to(dev) for a in wide_shard(batch))
+        g, p = v.shape
+        if p != batch:
+            raise AssertionError(f"a timer batching {batch} values widened its shard to {p}")
+        n_valid = int(ok.sum())
+        if not same_bits(K.aggregate_dense_fields(v, t, ok), K.aggregate_dense_reference(v, t, ok)):
+            raise AssertionError(f"B-5a differs from its twin on the [{g}, {p}] wide shard")
+        if not same_bits(K.dense_quantiles(v, ok, AGG_QS),
+                         K.dense_quantiles_reference(v, ok, AGG_QS)):
+            raise AssertionError(f"B-5b differs from its twin on the [{g}, {p}] wide shard")
+        qt = torch.tensor(AGG_QS, dtype=torch.float32, device=dev)
+        a_bytes = g * p + n_valid * 8 + len(K.FIELDS) * g * 4
+        q_bytes = g * p + n_valid * 4 + len(AGG_QS) * g * 4
+        wide[batch] = {
+            "shape": [g, p],
+            "aggregate_dense": rollup_times(lambda: K.launch_aggregate_dense(v, t, ok),
+                                            lambda: K.aggregate_dense_reference(v, t, ok),
+                                            a_bytes / HBM_BYTES_PER_S * 1e3),
+            "dense_quantiles": rollup_times(
+                lambda: K.launch_dense_quantiles(v, ok, AGG_QS),
+                lambda: K.dense_quantiles_reference(v, ok, AGG_QS),
+                q_bytes / HBM_BYTES_PER_S * 1e3,
+                lambda: torch.nanquantile(v, qt, dim=1, interpolation="linear")),
+        }
+        a, q = wide[batch]["aggregate_dense"], wide[batch]["dense_quantiles"]
+        log(f"[aggregator] wide shard [{g:,}, {p}] (one timer batched {batch} values, the rest "
+            f"6): B-5a (window tree) {a['ms']:.3f} ms [{a['b2b']:.3f}], bound "
+            f"{a['bound_ms']:.4f} ms ({a_bytes / 1e6:.1f} MB, {a['share']:.1%}), twin "
+            f"{a['plain_ms']:.3f} ms; B-5b block route p50/p95/p99 {q['ms']:.3f} ms "
+            f"[{q['b2b']:.3f}], bound {q['bound_ms']:.4f} ms ({q_bytes / 1e6:.1f} MB, "
+            f"{q['share']:.1%}), twin {q['plain_ms']:.3f} ms, torch.nanquantile "
+            f"{q['library_ms']:.3f} ms; both == twin bit for bit")
+        del v, t, ok
+    torch.cuda.empty_cache()
+
+    # 2. the Aggregator end to end, config 4 cut to a tenth
+    n = AGG_E2E_SERIES
+    pol = (StoragePolicy.parse("1m:40d"),)
+    mids = [b"m3agg.series.%d" % i for i in range(n)]
+    kinds = [MetricType.TIMER if i % 10 == 0 else MetricType.COUNTER if i % 2 else
+             MetricType.GAUGE for i in range(n)]
+    _, times, values = config4_points(n)
+    rep = lambda xs: [x for x in xs for _ in range(AGG_POINTS)]
+    rows = list(zip(rep(mids), rep(kinds), times.tolist(), values.tolist(),
+                    itertools.repeat(pol), itertools.repeat(None)))
+    agg = Aggregator(num_shards=16, default_policies=pol, device=dev)
+    # one timer batching AGG_WIDE_P[k] values in shard k: those shards take
+    # B-5b's block route, the other 13 its warp route
+    batched = {}
+    for k in itertools.count():
+        mid = b"m3agg.batch.%d" % k
+        shard = agg.shard_for(mid)
+        if shard < len(AGG_WIDE_P):
+            batched.setdefault(shard, mid)
+        if len(batched) == len(AGG_WIDE_P):
+            break
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    agg.add_timed_batch(rows)
+    for shard, mid in sorted(batched.items()):
+        agg.add_untimed(Untimed(type=MetricType.TIMER, id=mid, batch_timer_values=rng.lognormal(
+            0, 1, AGG_WIDE_P[shard]).tolist()), AGG_T0 + 30 * 10**9)
+    ingest_s = time.perf_counter() - t0
+    del rows
+    cpu = Aggregator(num_shards=16, default_policies=pol, device="cpu")
+    cpu.shards = copy.deepcopy(agg.shards)  # the same buffered state
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    # B-5b's widths in this flush, read where its wrapper launches it
+    widths = []
+    launch = K.launch_dense_quantiles
+
+    def launch_and_note(vals, valid, qs):
+        widths.append(vals.shape[1])
+        return launch(vals, valid, qs)
+
+    K.launch_dense_quantiles = launch_and_note
+    t0 = time.perf_counter()
+    try:
+        out = agg.flush(AGG_T0 + 2 * minute)
+    finally:
+        K.launch_dense_quantiles = launch
+    flush_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if launches != {"aggregate_dense": 16, "dense_quantiles": 16}:
+        raise AssertionError(f"the flush launched {launches}, want 16 of each (one a shard)")
+    if sorted(w for w in widths if w > 32) != sorted(AGG_WIDE_P):
+        raise AssertionError(f"B-5b's widths in the flush {widths}: want {AGG_WIDE_P} past 32")
+    want = cpu.flush(AGG_T0 + 2 * minute)
+    flat = lambda ms: [(m.id, m.time_nanos, int(m.agg_type), str(m.policy), m.value) for m in ms]
+    n_out = 2 * n + 11 * len(AGG_WIDE_P)
+    if len(out) != n_out or flat(out) != flat(want):
+        raise AssertionError(f"the flush on the card ({len(out)} metrics) differs from the CPU's "
+                             f"({len(want)}); want {n_out}")
+    st = agg.stage_seconds
+    log(f"[aggregator] Aggregator end to end, {n:,} series (config 4 cut to a tenth: the "
+        f"ingest is a per-row host loop), 90% counters and gauges, 10% timers (11 default "
+        f"aggregations), 1m:40d, plus {len(AGG_WIDE_P)} timers batching {AGG_WIDE_P} values "
+        f"(untimed): {len(out):,} metrics == the CPU Aggregator's exactly; launches "
+        f"{launches}; B-5b widths {sorted(widths)} (block route past 32)")
+    log(f"[aggregator] host seconds: ingest (add_timed_batch, {n * AGG_POINTS:,} rows) "
+        f"{ingest_s:.3f}, flush {flush_s:.3f} of it densify {st['densify']:.3f}, device "
+        f"(upload + B-5a + B-5b) {st['device']:.3f}, readback {st['readback']:.3f}, emit "
+        f"{st['emit']:.3f}; the CPU flush {sum(cpu.stage_seconds.values()):.3f}")
+    del agg, cpu, out, want
+
+    # 3. the Downsampler: a mapping rule, a rollup rule with a per_second
+    # pipeline, two flushes (the pipeline's carry spans them)
+    p10 = StoragePolicy.parse("10s:2d")
+    rs = RuleSet(
+        mapping_rules=[MappingRule("map", TagsFilter.parse("service:auth"), policies=(p10,))],
+        rollup_rules=[RollupRule("rollup", TagsFilter.parse("service:auth"), targets=(
+            RollupTarget(new_name=b"auth.total", group_by=(b"dc",),
+                         aggregations=(AggregationType.SUM,), policies=(p10,),
+                         pipeline=(TransformationType.PERSECOND,)),))])
+    card = Downsampler(ruleset=rs, aggregator=Aggregator(num_shards=4, device=dev))
+    host = Downsampler(ruleset=rs, aggregator=Aggregator(num_shards=4, device="cpu"))
+    before = dict(K.LAUNCHES)
+    flushed = []
+    for w0, w1, up_to in ((0, 3, 40), (3, 5, 60)):
+        batch = [(make_tags({"__name__": "req", "service": "auth", "dc": f"dc{h % 3}",
+                             "host": f"h{h}"}), AGG_T0 + (w * 10 + 1) * 10**9,
+                  float((w + 1) * (h + 1)), MetricType.COUNTER)
+                 for w in range(w0, w1) for h in range(100)]
+        card.write_batch(batch)
+        host.write_batch(batch)
+        got, want = card.flush(AGG_T0 + up_to * 10**9), host.flush(AGG_T0 + up_to * 10**9)
+        if flat(got) != flat(want):
+            raise AssertionError("the Downsampler on the card differs from the CPU's")
+        flushed += [m for m in got if b"auth.total" in m.id]
+    rates = sorted(m.value for m in flushed)
+    if K.LAUNCHES["aggregate_dense"] == before["aggregate_dense"] or len(rates) != 12:
+        raise AssertionError(f"the Downsampler's rollups: {len(rates)} rates, B-5a launches "
+                             f"{K.LAUNCHES['aggregate_dense'] - before['aggregate_dense']}")
+    log(f"[aggregator] Downsampler (mapping rule + per_second rollup by dc, 100 hosts, two "
+        f"flushes) == the CPU's exactly; {len(rates)} rollup rates, B-5a launched "
+        f"{K.LAUNCHES['aggregate_dense'] - before['aggregate_dense']} times")
+    log(f"[aggregator] phase {time.perf_counter() - t_phase:.1f}s")
+    main = b5b["all groups"]
+    kernels += [{
+        "name": "aggregate_dense",
+        "route": "cuda",
+        "source": "m3_tpu_torch/aggregator/csrc/rollup.cu",
+        "replaces": "m3_tpu/aggregator/kernels.py:183",
+        "launches": launches["aggregate_dense"],
+        "max_abs_err": 0.0,
+        "ms": b5a["ms"],
+        "plain_ms": b5a["plain_ms"],
+        "bound_ms": b5a["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "window_tree": {str(b): {"shape": w["shape"], **w["aggregate_dense"]}
+                        for b, w in wide.items()},
+    }, {
+        "name": "dense_quantiles",
+        "route": "cuda",
+        "source": "m3_tpu_torch/aggregator/csrc/rollup.cu",
+        "replaces": "m3_tpu/aggregator/kernels.py:224",
+        "launches": launches["dense_quantiles"],
+        "max_abs_err": 0.0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+        "timer_slice": b5b["timer slice"],
+        "block_route": {str(b): {"shape": w["shape"], **w["dense_quantiles"]}
+                        for b, w in wide.items()},
+    }]
+
+
 def main() -> int:
     import argparse
 
@@ -2680,6 +2996,7 @@ def main() -> int:
     del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
+    phase_aggregator(dev, kernels)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -35,8 +35,9 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # library -> (source, nvcc flags, {entry: argtypes}). The flags are part of
 # each kernel's contract with the reference's f32 arithmetic (see the note at
 # the top of each source): -fmad=false everywhere; -ftz=true for the lane
-# decode and the grouped reductions, whose reference flushes f32 subnormals
-# as XLA does, and for the consolidation (its f64 arithmetic is unaffected).
+# decode, the grouped reductions and the rollup reductions, whose reference
+# flushes f32 subnormals as XLA does, and for the consolidation (its f64
+# arithmetic is unaffected).
 SOURCES = {
     "lane_aggregates": (
         PKG / "ops" / "csrc" / "lane_aggregates.cu",
@@ -137,6 +138,16 @@ SOURCES = {
             "m3_consolidate_grid_shape": [_I64, _I64, _I64, _I, _I, _P],
             # -> the most records a warp stages at once
             "m3_consolidate_grid_tile_records": [],
+        },
+    ),
+    "rollup": (
+        PKG / "aggregator" / "csrc" / "rollup.cu",
+        _COMMON + ("-ftz=true",),
+        {
+            # vals, torder, valid, g, p, out, stream
+            "m3_aggregate_dense": [_P, _P, _P, _I64, _I64, _P, _P],
+            # vals, valid, g, p, qs (host f32 array), nq, out, stream
+            "m3_dense_quantiles": [_P, _P, _I64, _I64, _P, _I, _P, _P],
         },
     ),
 }

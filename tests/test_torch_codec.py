@@ -100,7 +100,8 @@ def test_port_imports_neither_jax_nor_m3_tpu():
     root = repo / "m3_tpu_torch"
     files = sorted(root.rglob("*.py")) + [repo / "chip_smoke.py"]
     covered = {p.relative_to(root).parts[0] for p in files if p.is_relative_to(root)}
-    assert {"block", "codec", "ops", "parallel", "query", "utils"} <= covered
+    assert {"aggregator", "block", "codec", "metrics", "ops", "parallel", "query", "rules",
+            "utils"} <= covered
     assert root / "query" / "functions" / "temporal_fused.py" in files
     for name in ("binary.py", "linear.py", "temporal_window.py"):
         assert root / "query" / "functions" / name in files

@@ -3,8 +3,9 @@ the lane-aggregate kernel (B1), the records decode (kernel R), the fused
 temporal kernel (B2), the per-field lane-aggregate kernel (B3), the
 resident scan that feeds B1, R and B3 from device residency, the index
 kernels K1 and K2 with the index's device tier, the grouped
-reductions K3, and the step-grid consolidation B-1 with the query plan
-over a Database on the card.
+reductions K3, the step-grid consolidation B-1 with the query plan
+over a Database on the card, and the aggregator tier's rollup reductions
+B-5a and B-5b with an Aggregator flush on the card.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -1273,3 +1274,134 @@ def test_cuda_b7_promql_shapes(name, window, args):
         assert got.shape == (1000, 720)
         want = TW.FUNCTIONS[name](x, window, 10.0, *args)[:, window - 1:]
         _assert_b7_bits(got, want, f"{name} [1000, {x.shape[1]}] w={window} gaps={gaps}")
+
+
+def _rollup_rows(kind: str, g: int, p: int, seed: int = 9):
+    """f32 vals, i32 torder, bool valid [g, p] for B-5a/B-5b: lognormal
+    values of both signs, 20% invalid slots, empty rows, and per kind
+    signed zeros, subnormals, infinities or NaN in valid slots."""
+    rng = np.random.default_rng(seed)
+    vals = (rng.lognormal(0, 1, (g, p)) * np.where(rng.random((g, p)) < 0.5, 1, -1)).astype(
+        np.float32)
+    valid = rng.random((g, p)) < 0.8
+    valid[: max(g // 10, 1)] = False
+    torder = rng.integers(0, 4, (g, p)).astype(np.int32)  # ties
+    roll = rng.random((g, p))
+    if kind == "specials":
+        for value, lo, hi in ((0.0, 0.0, 0.05), (-0.0, 0.05, 0.1), (1e-40, 0.1, 0.13),
+                              (-3e-39, 0.13, 0.15), (1e-20, 0.15, 0.18), (np.inf, 0.18, 0.22),
+                              (-np.inf, 0.22, 0.24), (3e38, 0.24, 0.26), (np.nan, 0.26, 0.28)):
+            vals[(roll >= lo) & (roll < hi)] = value
+    return vals, torder, valid
+
+
+def _assert_rollup_bits(got, want, what):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape, what
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+    assert bool(same.all()), f"{what}: {int((~same).sum())} values differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "specials"])
+@pytest.mark.parametrize("g,p", [(1000, 1), (100_003, 6), (2000, 32), (1000, 33), (257, 1000),
+                                 (3, 70_000)])
+def test_cuda_b5a_matches_twin(kind, g, p):
+    """B-5a == its twin on the card bit for bit: P = 1 (the reduce XLA
+    drops), 6 (config 4), 32 and 33 (either side of the window tree),
+    1,000 and 70,000 (three window levels); a ragged G."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.aggregator import kernels as K
+
+    vals, torder, valid = (torch.from_numpy(a).cuda() for a in _rollup_rows(kind, g, p))
+    before = K.LAUNCHES["aggregate_dense"]
+    got = K.aggregate_dense_fields(vals, torder, valid)
+    assert K.LAUNCHES["aggregate_dense"] == before + 1
+    torch.cuda.synchronize()
+    _assert_rollup_bits(got, K.aggregate_dense_reference(vals, torder, valid), f"{kind} [{g}, {p}]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "specials"])
+@pytest.mark.parametrize("g,p", [(1000, 1), (100_003, 6), (2000, 17), (2000, 32), (1000, 33),
+                                 (257, 1000), (3, 70_000)])
+def test_cuda_b5b_matches_twin(kind, g, p):
+    """B-5b == its twin on the card bit for bit, on the warp route (P <=
+    32) and on the block route (a radix select, P > 32), rows of 70,000
+    slots (longer than a block's shared memory) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.aggregator import kernels as K
+
+    vals, _, valid = (torch.from_numpy(a).cuda() for a in _rollup_rows(kind, g, p))
+    qs = (0.0, 0.1, 0.5, 0.95, 0.99, 0.999, 0.9999, 1.0)
+    before = K.LAUNCHES["dense_quantiles"]
+    got = K.launch_dense_quantiles(vals, valid, qs)
+    assert K.LAUNCHES["dense_quantiles"] == before + 1
+    torch.cuda.synchronize()
+    _assert_rollup_bits(got, K.dense_quantiles_reference(vals, valid, qs),
+                        f"{kind} [{g}, {p}]")
+
+
+@pytest.mark.cuda
+def test_cuda_b5_unaligned_and_strided_views():
+    """Inputs at an odd element offset (4-byte, not 16-byte, aligned) and
+    strided views (the wrappers copy them contiguous) give the twin's
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.aggregator import kernels as K
+
+    g, p = 4097, 6
+    vals, torder, valid = _rollup_rows("specials", g, p)
+    flat_v = torch.zeros(g * p + 1, dtype=torch.float32, device="cuda")
+    flat_t = torch.zeros(g * p + 1, dtype=torch.int32, device="cuda")
+    flat_b = torch.zeros(g * p + 1, dtype=torch.bool, device="cuda")
+    flat_v[1:] = torch.from_numpy(vals).flatten().cuda()
+    flat_t[1:] = torch.from_numpy(torder).flatten().cuda()
+    flat_b[1:] = torch.from_numpy(valid).flatten().cuda()
+    v, t, b = flat_v[1:].view(g, p), flat_t[1:].view(g, p), flat_b[1:].view(g, p)
+    assert v.data_ptr() % 16 == 4
+    want = K.aggregate_dense_reference(v, t, b)
+    _assert_rollup_bits(K.aggregate_dense_fields(v, t, b), want, "offset views")
+    wide = torch.zeros((g, 2 * p), dtype=torch.float32, device="cuda")
+    wide[:, ::2] = v
+    _assert_rollup_bits(K.aggregate_dense_fields(wide[:, ::2], t, b), want, "strided vals")
+    qs = (0.5, 0.99)
+    _assert_rollup_bits(K.dense_quantiles(wide[:, ::2], b, qs),
+                        K.dense_quantiles_reference(v, b, qs), "strided quantiles")
+
+
+@pytest.mark.cuda
+def test_cuda_aggregator_flush_matches_cpu():
+    """An Aggregator flushing on the card emits what the same one on the
+    CPU emits, exactly: counters, gauges and timers (default aggregations
+    and quantile overrides) over two policies and several windows; B-5a
+    launches once a shard and policy, B-5b where the shard holds a timer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.aggregator import kernels as K
+    from m3_tpu_torch.aggregator.aggregator import Aggregator
+    from m3_tpu_torch.metrics.policy import StoragePolicy
+    from m3_tpu_torch.metrics.types import AggregationType, MetricType
+
+    rng = np.random.default_rng(12)
+    pols = (StoragePolicy.parse("10s:2d"), StoragePolicy.parse("1m:40d"))
+    rows = []
+    for _ in range(20_000):
+        i = int(rng.integers(0, 2000))
+        aggs = (AggregationType.P999, AggregationType.MAX) if i % 31 == 0 else None
+        rows.append((f"m{i}".encode(), MetricType(1 + i % 3), T0 + int(rng.integers(0, 120 * 10**9)),
+                     float(np.float32(rng.lognormal(0, 2))), pols[: 1 + i % 2], aggs))
+    out = []
+    for device in ("cuda", "cpu"):
+        agg = Aggregator(num_shards=4, device=device)
+        agg.add_timed_batch(rows)
+        before = dict(K.LAUNCHES)
+        out.append([(m.id, m.time_nanos, int(m.agg_type), str(m.policy),
+                     np.float64(m.value).tobytes()) for m in agg.flush(T0 + 200 * 10**9)])
+        if device == "cuda":
+            assert K.LAUNCHES["aggregate_dense"] - before["aggregate_dense"] == 8
+            assert K.LAUNCHES["dense_quantiles"] - before["dense_quantiles"] == 8
+    assert out[0] == out[1] and len(out[0]) > 10_000
