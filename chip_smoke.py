@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent-b1 TREE/m3_tpu_torch/query/csrc/consolidate_grid.cu]
         [--parent-b7 TREE/m3_tpu_torch/query/functions/csrc/temporal_window.cu]
+        [--parent-b5 TREE/m3_tpu_torch/aggregator/csrc/rollup.cu]
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
@@ -173,16 +174,22 @@ Phases (any failure exits non-zero):
              timed) into f32 [10,000,000, 6]; B-5a (the eight rollup fields)
              over all groups and B-5b (p50/p95/p99) over the 10% timer slice
              and over all groups, each == its twin on the card bit for bit,
-             timed single and back to back beside its bytes bound, its twin
-             and (B-5b) torch.nanquantile; the same on a flush's shard
-             (62,501 rows) widened to 33, 100 and 1,000 slots by one timer's
-             batch, where B-5b takes its block route and B-5a its window
-             tree. Then an Aggregator (16 shards,
+             timed single and back to back beside its bytes bound, the launch
+             floor (an empty kernel), its twin and (B-5b) torch.nanquantile;
+             the same on a flush's shard (62,501 rows) widened to 33, 100 and
+             1,000 slots by one timer's batch: 62,500 rows of 6 valid slots
+             (a lane a row) and the timer's row (B-5b's long-row launch,
+             B-5a's window tree); and on a shard [62,500, 16] whose timers
+             each batched 16 values (their rows B-5b's warp route). With
+             --parent-b5 (another tree's rollup.cu) that tree's B-5a and
+             B-5b are built beside these and timed in turns with them
+             (parent, new, new, parent) on each of those inputs, outputs
+             equal bit for bit. Then an Aggregator (16 shards,
              1m:40d) end to end through add_timed_batch and flush at a tenth
              of config 4 (1,000,000 series: 90% counters and gauges, 10%
              timers with their 11 default aggregations; the reference's
              ingest is a per-row host loop), plus one untimed timer batching
-             33, 100 and 1,000 values in shards 0-2 (the block route):
+             33, 100 and 1,000 values in shards 0-2 (wide rows):
              2,000,033 metrics == the same
              buffered state flushed by an Aggregator on the CPU, exactly, one
              B-5a and one B-5b launch a shard, and the ingest, densify,
@@ -218,6 +225,9 @@ AGG_QS = (0.5, 0.95, 0.99)  # the timers' default quantiles (median, p50, p95, p
 # warp route (pack_dense_groups pads to the widest group): the batch sizes of
 # the wide shards, and a shard's rows in the end-to-end flush (16 shards)
 AGG_WIDE_P = (33, 100, 1000)
+# a shard whose timers (one series in ten) each batched this many values: the
+# timers' rows hold 8 < n <= 32 valid slots (B-5b's warp route), the rest 6
+AGG_TIMER_BATCH = 16
 AGG_SHARD_ROWS = AGG_E2E_SERIES // 16
 # TSBS devops: the cpu measurement's fields and the host tags' value sets
 # (pkg/data/usecases/devops/host.go)
@@ -903,7 +913,7 @@ def ptxas_report(lib: str, kernel: str) -> str:
 
 def build_parent(source: str, lib: str):
     """Starts nvcc on another tree's source of library ``lib``
-    (``--parent-b1`` / ``--parent-b7``: the parent commit's source,
+    (``--parent-b1`` / ``--parent-b5`` / ``--parent-b7``: the parent commit's source,
     unpacked beside this checkout in a directory .gitignore lists), with
     this checkout's flags, into build/kernels. Returns (process, library
     path)."""
@@ -963,6 +973,85 @@ def load_parent_b7(proc, out):
     return lib
 
 
+def load_parent_b5(proc, out):
+    """The parent's ``m3_aggregate_dense`` (this one's arguments) and
+    ``m3_dense_quantiles`` (no scratch: vals, valid, g, p, qs, nq, out,
+    stream) once its build is done."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(built(proc, out, "B-5")))
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.m3_aggregate_dense.argtypes = [P, P, P, I64, I64, P, P]
+    lib.m3_aggregate_dense.restype = I
+    lib.m3_dense_quantiles.argtypes = [P, P, I64, I64, P, I, P, P]
+    lib.m3_dense_quantiles.restype = I
+    return lib
+
+
+def b5_turns(parent, v, t, ok, qs=None) -> list:
+    """The parent commit's B-5a (qs None) or B-5b and this one's in turns
+    (parent, new, new, parent) on the same inputs, each through its C entry
+    into outputs (and B-5b's work list) allocated once: a median of 10
+    single launches and a back-to-back run of 20 (CUDA events). The
+    parent's outputs must equal this one's bit for bit."""
+    import ctypes
+
+    import torch
+
+    from m3_tpu_torch.ops._build import load_library
+
+    g, p = v.shape
+    new = load_library("rollup")
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = 8 if qs is None else len(qs)
+    outs = {who: torch.empty((rows, g), dtype=torch.float32, device=v.device)
+            for who in ("parent", "new")}
+    scratch = torch.empty(g + 1, dtype=torch.int64, device=v.device)
+    q = None if qs is None else (ctypes.c_float * len(qs))(*qs)
+
+    def call(who):
+        lib, out = (parent if who == "parent" else new), outs[who].data_ptr()
+        if qs is None:
+            rc = lib.m3_aggregate_dense(v.data_ptr(), t.data_ptr(), ok.data_ptr(), g, p, out, stream)
+        elif who == "parent":
+            rc = lib.m3_dense_quantiles(v.data_ptr(), ok.data_ptr(), g, p, q, len(qs), out, stream)
+        else:
+            rc = lib.m3_dense_quantiles(v.data_ptr(), ok.data_ptr(), g, p, q, len(qs),
+                                        scratch.data_ptr(), out, stream)
+        if rc != 0:
+            raise RuntimeError(f"the {who} B-5 launch failed: CUDA error {rc}")
+
+    return in_turns(call, lambda: same_bits(outs["parent"], outs["new"]),
+                     f"B-5{'a' if qs is None else 'b'} on [{g}, {p}]")
+
+
+def in_turns(call, same, what: str, iters: int = 10, b2b: int = 20,
+             profile: bool = False) -> list:
+    """The parent commit's kernel and this one's in turns (parent, new,
+    new, parent): ``call(who)`` launches one side into outputs of its own,
+    and after one launch each ``same()`` must hold (the outputs equal bit
+    for bit). A turn: (who, a median of `iters` single launches, a
+    back-to-back run of `b2b` (CUDA events), and with `profile` the device
+    time a launch (torch.profiler))."""
+    import torch
+
+    call("parent")
+    call("new")
+    torch.cuda.synchronize()
+    if not same():
+        raise AssertionError(f"the parent's {what} and this one's differ")
+    turns = []
+    for who in ("parent", "new", "new", "parent"):
+        f = lambda who=who: call(who)
+        turn = (who, statistics.median(cuda_ms(f, iters)), per_launch_ms(f, b2b))
+        turns.append(turn + ((sum(device_us(f).values()) / 1e3,) if profile else ()))
+    return turns
+
+
+def fmt_turns(turns: list) -> str:
+    return ", ".join(f"{who} {ms:.4f} [{b2b:.4f}]" for who, ms, b2b in turns)
+
+
 def b1_turns(parent, rec, lo: int, hi: int, grid, lookback: int) -> list:
     """The parent commit's B-1 and this one's in turns (parent, new, new,
     parent) on the same inputs, each through its C entry into outputs
@@ -990,18 +1079,10 @@ def b1_turns(parent, rec, lo: int, hi: int, grid, lookback: int) -> list:
         if rc != 0:
             raise RuntimeError(f"the {name} B-1 launch failed: CUDA error {rc}")
 
-    call("parent")
-    call("new")
-    torch.cuda.synchronize()
-    if not (torch.equal(outs["parent"][0].view(torch.int64), outs["new"][0].view(torch.int64))
-            and torch.equal(outs["parent"][1], outs["new"][1])):
-        raise AssertionError("the parent's B-1 and this one's differ")
-    turns = []
-    for name in ("parent", "new", "new", "parent"):
-        f = lambda name=name: call(name)
-        turns.append((name, statistics.median(cuda_ms(f, 10)), per_launch_ms(f),
-                      sum(device_us(f).values()) / 1e3))
-    return turns
+    same = lambda: (torch.equal(outs["parent"][0].view(torch.int64),
+                                outs["new"][0].view(torch.int64))
+                    and torch.equal(outs["parent"][1], outs["new"][1]))
+    return in_turns(call, same, "B-1", profile=True)
 
 
 def b2_check(plan, s_pad: int, tag: str) -> dict:
@@ -2363,16 +2444,8 @@ def b7_turns(parent, x, name: str, window: int, first: int, args, iters: int = 1
         if rc != 0:
             raise RuntimeError(f"the {who} B-7 launch failed: CUDA error {rc}")
 
-    call("parent")
-    call("new")
-    torch.cuda.synchronize()
-    if not same_bits(outs["parent"][:, first:].contiguous(), outs["new"]):
-        raise AssertionError(f"the parent's B-7 {name} and this one's differ")
-    turns = []
-    for who in ("parent", "new", "new", "parent"):
-        f = lambda who=who: call(who)
-        turns.append((who, statistics.median(cuda_ms(f, iters)), per_launch_ms(f, b2b)))
-    return turns
+    return in_turns(call, lambda: same_bits(outs["parent"][:, first:].contiguous(), outs["new"]),
+                    f"B-7 {name}", iters, b2b)
 
 
 def b7_quantile_long(x, parent_b7=None) -> dict:
@@ -2690,6 +2763,23 @@ def wide_shard(batch: int, seed: int = 3):
     return K.pack_dense_groups(keys, values, torder, AGG_SHARD_ROWS + 1)
 
 
+def timer_shard(batch: int, seed: int = 4):
+    """One shard of the end-to-end flush in which every timer (one series
+    in ten, as in the flush) batched `batch` values into the window
+    instead of AGG_POINTS, densified as `_flush_policy` densifies them.
+    (vals, torder, valid) [AGG_SHARD_ROWS, batch]."""
+    from m3_tpu_torch.aggregator import kernels as K
+
+    rng = np.random.default_rng(seed)
+    ids, times, values = config4_points(AGG_SHARD_ROWS)
+    extra = np.repeat(np.arange(0, AGG_SHARD_ROWS, 10, dtype=np.int64), batch - AGG_POINTS)
+    ids = np.concatenate([ids, extra])
+    times = np.concatenate([times, AGG_T0 + rng.integers(0, 60 * 10**9, len(extra))])
+    values = np.concatenate([values, rng.lognormal(0, 1, len(extra)).astype(np.float32)])
+    keys, _, torder = K.window_keys(ids, times, AGG_T0, 60 * 10**9, 1)
+    return K.pack_dense_groups(keys, values, torder, AGG_SHARD_ROWS)
+
+
 def rollup_times(run, twin, bound_ms: float, library=None) -> dict:
     """A rollup kernel's time (median of 10 single launches, CUDA events),
     back to back, its twin's and the library call's, beside its bound."""
@@ -2700,9 +2790,10 @@ def rollup_times(run, twin, bound_ms: float, library=None) -> dict:
     return out
 
 
-def phase_aggregator(dev, kernels: list) -> None:
-    """The aggregator tier: B-5a and B-5b at BASELINE config 4's full size,
-    the Aggregator end to end at a tenth of it, and the Downsampler."""
+def phase_aggregator(dev, kernels: list, parent_b5=None) -> None:
+    """The aggregator tier: B-5a and B-5b at BASELINE config 4's full size
+    (and in turns with the parent's, given ``parent_b5``), the Aggregator
+    end to end at a tenth of it, and the Downsampler."""
     import copy
     import itertools
 
@@ -2712,6 +2803,7 @@ def phase_aggregator(dev, kernels: list) -> None:
     from m3_tpu_torch.aggregator.aggregator import Aggregator
     from m3_tpu_torch.aggregator.downsampler import Downsampler
     from m3_tpu_torch.block.core import make_tags
+    from m3_tpu_torch.index.device import kernels as IK
     from m3_tpu_torch.metrics.policy import StoragePolicy
     from m3_tpu_torch.metrics.types import AggregationType, MetricType, Untimed
     from m3_tpu_torch.rules.filters import TagsFilter
@@ -2720,6 +2812,10 @@ def phase_aggregator(dev, kernels: list) -> None:
 
     t_phase = time.perf_counter()
     minute = 60 * 10**9
+    floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
+    floor_b2b = per_launch_ms(lambda: IK.launch_floor(dev))
+    log(f"[aggregator] launch floor (an empty kernel) {floor_ms:.4f} ms [{floor_b2b:.4f}]")
+    turns = {}  # the parent's B-5a / B-5b in turns with these, by input
     # 1. the kernels at config 4's full width
     ids, times, values = config4_points(AGG_SERIES)
     t0 = time.perf_counter()
@@ -2745,8 +2841,12 @@ def phase_aggregator(dev, kernels: list) -> None:
                        b5a_bytes / HBM_BYTES_PER_S * 1e3)
     log(f"[aggregator] B-5a [{g:,}, {p}] -> [8, {g:,}]: {b5a['ms']:.3f} ms [{b5a['b2b']:.3f}] "
         f"(CUDA events; == twin bit for bit), bound {b5a['bound_ms']:.3f} ms (bytes: "
-        f"{b5a_bytes / 1e6:.0f} MB at 3.35 TB/s, {b5a['share']:.1%}), twin on the card "
-        f"{b5a['plain_ms']:.3f} ms, library none")
+        f"{b5a_bytes / 1e6:.0f} MB at 3.35 TB/s, {b5a['share']:.1%}), launch floor "
+        f"{floor_ms:.4f} ms, twin on the card {b5a['plain_ms']:.3f} ms, library none")
+    if parent_b5 is not None:
+        key = f"aggregate_dense [{g:,}, {p}]"
+        turns[key] = b5_turns(parent_b5, v, t, ok)
+        log(f"[aggregator] B-5a [{g:,}, {p}] in turns (ms [back to back]): {fmt_turns(turns[key])}")
     b5b = {}
     for what, rows in (("timer slice", AGG_SERIES // 10), ("all groups", AGG_SERIES)):
         vq, okq = v[:rows], ok[:rows]
@@ -2765,16 +2865,26 @@ def phase_aggregator(dev, kernels: list) -> None:
         r = b5b[what]
         log(f"[aggregator] B-5b {what} [{rows:,}, {p}] -> [{len(AGG_QS)}, {rows:,}] "
             f"p50/p95/p99: {r['ms']:.3f} ms [{r['b2b']:.3f}] (== twin bit for bit), bound "
-            f"{r['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.0f} MB, {r['share']:.1%}), twin "
-            f"{r['plain_ms']:.3f} ms, torch.nanquantile {r['library_ms']:.3f} ms (max abs "
-            f"{lib_err:.3g} from B-5b: lerp's rounding)")
+            f"{r['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.0f} MB, {r['share']:.1%}), launch "
+            f"floor {floor_ms:.4f} ms, twin {r['plain_ms']:.3f} ms, torch.nanquantile "
+            f"{r['library_ms']:.3f} ms (max abs {lib_err:.3g} from B-5b: lerp's rounding)")
+        if parent_b5 is not None:
+            key = f"dense_quantiles {what} [{rows:,}, {p}]"
+            turns[key] = b5_turns(parent_b5, vq, None, okq, AGG_QS)
+            log(f"[aggregator] B-5b {what} in turns: {fmt_turns(turns[key])}")
     del v, t, ok, got, vq, okq, lib
-    # the block route (a radix select a row) and B-5a's window tree, on a
-    # shard widened by one timer's batch; bytes counted for this data: every
-    # valid flag, and the values (and time orders) of valid slots only
+    # a shard widened by one timer's batch: 62,500 rows of 6 valid slots (a
+    # lane a row) and the timer's long row; and a shard whose timers each
+    # batched AGG_TIMER_BATCH values (their rows a warp each). Bytes counted
+    # for this data: every valid flag, and the values (and time orders) of
+    # valid slots only
     wide = {}
-    for batch in AGG_WIDE_P:
-        v, t, ok = (torch.from_numpy(a).to(dev) for a in wide_shard(batch))
+    shards = [(str(b), f"one timer batched {b} values", b, lambda b=b: wide_shard(b))
+              for b in AGG_WIDE_P]
+    shards.append((f"timers_{AGG_TIMER_BATCH}", f"every timer batched {AGG_TIMER_BATCH} values",
+                   AGG_TIMER_BATCH, lambda: timer_shard(AGG_TIMER_BATCH)))
+    for key_w, label, batch, make in shards:
+        v, t, ok = (torch.from_numpy(a).to(dev) for a in make())
         g, p = v.shape
         if p != batch:
             raise AssertionError(f"a timer batching {batch} values widened its shard to {p}")
@@ -2787,7 +2897,7 @@ def phase_aggregator(dev, kernels: list) -> None:
         qt = torch.tensor(AGG_QS, dtype=torch.float32, device=dev)
         a_bytes = g * p + n_valid * 8 + len(K.FIELDS) * g * 4
         q_bytes = g * p + n_valid * 4 + len(AGG_QS) * g * 4
-        wide[batch] = {
+        wide[key_w] = {
             "shape": [g, p],
             "aggregate_dense": rollup_times(lambda: K.launch_aggregate_dense(v, t, ok),
                                             lambda: K.aggregate_dense_reference(v, t, ok),
@@ -2798,14 +2908,18 @@ def phase_aggregator(dev, kernels: list) -> None:
                 q_bytes / HBM_BYTES_PER_S * 1e3,
                 lambda: torch.nanquantile(v, qt, dim=1, interpolation="linear")),
         }
-        a, q = wide[batch]["aggregate_dense"], wide[batch]["dense_quantiles"]
-        log(f"[aggregator] wide shard [{g:,}, {p}] (one timer batched {batch} values, the rest "
-            f"6): B-5a (window tree) {a['ms']:.3f} ms [{a['b2b']:.3f}], bound "
-            f"{a['bound_ms']:.4f} ms ({a_bytes / 1e6:.1f} MB, {a['share']:.1%}), twin "
-            f"{a['plain_ms']:.3f} ms; B-5b block route p50/p95/p99 {q['ms']:.3f} ms "
-            f"[{q['b2b']:.3f}], bound {q['bound_ms']:.4f} ms ({q_bytes / 1e6:.1f} MB, "
+        a, q = wide[key_w]["aggregate_dense"], wide[key_w]["dense_quantiles"]
+        log(f"[aggregator] wide shard [{g:,}, {p}] ({label}, the rest 6): B-5a {a['ms']:.4f} ms "
+            f"[{a['b2b']:.4f}], bound {a['bound_ms']:.4f} ms ({a_bytes / 1e6:.1f} MB, {a['share']:.1%}), twin "
+            f"{a['plain_ms']:.3f} ms; B-5b p50/p95/p99 {q['ms']:.4f} ms "
+            f"[{q['b2b']:.4f}], bound {q['bound_ms']:.4f} ms ({q_bytes / 1e6:.1f} MB, "
             f"{q['share']:.1%}), twin {q['plain_ms']:.3f} ms, torch.nanquantile "
-            f"{q['library_ms']:.3f} ms; both == twin bit for bit")
+            f"{q['library_ms']:.3f} ms; launch floor {floor_ms:.4f} ms; both == twin bit for bit")
+        if parent_b5 is not None:
+            for name, qs in (("aggregate_dense", None), ("dense_quantiles", AGG_QS)):
+                key = f"{name} wide [{g:,}, {p}]"
+                turns[key] = b5_turns(parent_b5, v, t, ok, qs)
+                log(f"[aggregator] {key} in turns: {fmt_turns(turns[key])}")
         del v, t, ok
     torch.cuda.empty_cache()
 
@@ -2820,8 +2934,9 @@ def phase_aggregator(dev, kernels: list) -> None:
     rows = list(zip(rep(mids), rep(kinds), times.tolist(), values.tolist(),
                     itertools.repeat(pol), itertools.repeat(None)))
     agg = Aggregator(num_shards=16, default_policies=pol, device=dev)
-    # one timer batching AGG_WIDE_P[k] values in shard k: those shards take
-    # B-5b's block route, the other 13 its warp route
+    # one timer batching AGG_WIDE_P[k] values in shard k: those shards' rows
+    # are that wide (a warp a row, the timer's row a long row), the other
+    # 13 shards' rows 6 wide (a thread a row)
     batched = {}
     for k in itertools.count():
         mid = b"m3agg.batch.%d" % k
@@ -2873,7 +2988,7 @@ def phase_aggregator(dev, kernels: list) -> None:
         f"ingest is a per-row host loop), 90% counters and gauges, 10% timers (11 default "
         f"aggregations), 1m:40d, plus {len(AGG_WIDE_P)} timers batching {AGG_WIDE_P} values "
         f"(untimed): {len(out):,} metrics == the CPU Aggregator's exactly; launches "
-        f"{launches}; B-5b widths {sorted(widths)} (block route past 32)")
+        f"{launches}; B-5b widths {sorted(widths)}")
     log(f"[aggregator] host seconds: ingest (add_timed_batch, {n * AGG_POINTS:,} rows) "
         f"{ingest_s:.3f}, flush {flush_s:.3f} of it densify {st['densify']:.3f}, device "
         f"(upload + B-5a + B-5b) {st['device']:.3f}, readback {st['readback']:.3f}, emit "
@@ -2925,8 +3040,10 @@ def phase_aggregator(dev, kernels: list) -> None:
         "bound_ms": b5a["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "window_tree": {str(b): {"shape": w["shape"], **w["aggregate_dense"]}
-                        for b, w in wide.items()},
+        "launch_floor_ms": floor_ms,
+        "wide_shard": {b: {"shape": w["shape"], **w["aggregate_dense"]}
+                       for b, w in wide.items()},
+        "parent_turns": {k: v for k, v in turns.items() if k.startswith("aggregate_dense")},
     }, {
         "name": "dense_quantiles",
         "route": "cuda",
@@ -2939,9 +3056,11 @@ def phase_aggregator(dev, kernels: list) -> None:
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main["library_ms"],
+        "launch_floor_ms": floor_ms,
         "timer_slice": b5b["timer slice"],
-        "block_route": {str(b): {"shape": w["shape"], **w["dense_quantiles"]}
-                        for b, w in wide.items()},
+        "wide_shard": {b: {"shape": w["shape"], **w["dense_quantiles"]}
+                       for b, w in wide.items()},
+        "parent_turns": {k: v for k, v in turns.items() if k.startswith("dense_quantiles")},
     }]
 
 
@@ -2956,6 +3075,10 @@ def main() -> int:
                     help="another tree's query/csrc/consolidate_grid.cu (a parent commit "
                          "unpacked beside this checkout): [query] times its B-1 in turns with "
                          "this one's")
+    ap.add_argument("--parent-b5", metavar="CU", default=None,
+                    help="another tree's aggregator/csrc/rollup.cu (a parent commit unpacked "
+                         "beside this checkout): [aggregator] times its B-5a and B-5b in turns "
+                         "with this one's")
     ap.add_argument("--parent-b7", metavar="CU", default=None,
                     help="another tree's query/functions/csrc/temporal_window.cu (a parent "
                          "commit unpacked beside this checkout): [promql] times its B-7 in "
@@ -2975,9 +3098,11 @@ def main() -> int:
     t0 = time.perf_counter()
     parent_build = build_parent(args.parent_b1, "consolidate_grid") if args.parent_b1 else None
     parent_b7_build = build_parent(args.parent_b7, "temporal_window") if args.parent_b7 else None
+    parent_b5_build = build_parent(args.parent_b5, "rollup") if args.parent_b5 else None
     _build.build_all()
     parent_b1 = load_parent_b1(*parent_build) if parent_build else None
     parent_b7 = load_parent_b7(*parent_b7_build) if parent_b7_build else None
+    parent_b5 = load_parent_b5(*parent_b5_build) if parent_b5_build else None
     log(f"[build] {', '.join(_build.SOURCES)} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
@@ -2996,7 +3121,7 @@ def main() -> int:
     del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
-    phase_aggregator(dev, kernels)
+    phase_aggregator(dev, kernels, parent_b5)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -12,8 +12,9 @@ the reference agree bit for bit:
 - f32 subnormals flush to a zero of the same sign, operands and results;
 - a row sum over P <= 32 slots adds in slot order from +0; over P > 32 it
   is XLA's tree: 32-slot windows (the row padded by floor(pad / 2) slots
-  in front to a multiple of 32), each summed in slot order from +0, then
-  the window sums the same way until at most 32 are left;
+  in front to a multiple of 32; the last window ends at the row's last
+  slot, with no padding added behind it), each summed in slot order from
+  +0, then the window sums the same way until at most 32 are left;
 - XLA's CPU code fuses some multiply-adds: the plain row reduce of x * x
   (P <= 32) is acc = fma(x, x, acc) (the windowed one is not), the
   stdev's numerator is fma(c, sum_sq, -(sum * sum)) and the quantile's
@@ -135,7 +136,10 @@ def _like(x, dtype, vals):
 
 def _check_launch(vals, **others) -> None:
     """A launch's inputs: contiguous [G, P] tensors of their dtypes on one
-    card (vals f32; torder i32, valid bool)."""
+    card (vals f32; torder i32, valid bool). The kernels read the aligned
+    16-byte chunks that hold a tensor's first and last bytes whole (see
+    csrc/rollup.cu): tensors from torch's allocator, or buffers padded to
+    16 bytes, keep those reads inside an allocation."""
     dtypes = {"vals": F32, "torder": torch.int32, "valid": torch.bool}
     for name, t in {"vals": vals, **others}.items():
         if (t.dtype != dtypes[name] or not t.is_contiguous() or t.device != vals.device
@@ -206,22 +210,27 @@ def dense_quantiles(vals, valid, qs: tuple) -> torch.Tensor:
 
 def launch_dense_quantiles(vals, valid, qs: tuple) -> torch.Tensor:
     """B-5b on contiguous f32 vals and bool valid [G, P] on one card: f32
-    [len(qs), G]. Rows of P <= 32 slots take the warp route, longer rows
-    the block route (a radix select a row)."""
+    [len(qs), G]. A row of P <= 8 slots, or of at most 8 valid slots,
+    takes a thread; one of up to 32 valid slots a warp; a longer one a
+    block in a second launch, through a work list in scratch allocated
+    here."""
     qs = _check_quantiles(qs)
     _check_launch(vals, valid=valid)
     g, p = vals.shape
     out = torch.empty((len(qs), g), dtype=F32, device=vals.device)
     if g == 0:
         return out
+    # the long rows' work list: a count, then up to g rows (read only where rows are that long)
+    scratch = torch.empty(g + 1, dtype=torch.int64, device=vals.device)
     q = (ctypes.c_float * len(qs))(*qs)
     lib = load_library("rollup")
     with device_guard(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         rc = lib.m3_dense_quantiles(vals.data_ptr(), valid.data_ptr(), g, p, q, len(qs),
-                                    out.data_ptr(), stream)
+                                    scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
-        raise launch_error("dense_quantiles", rc, vals=vals, valid=valid, out=out)
+        raise launch_error("dense_quantiles", rc, vals=vals, valid=valid, scratch=scratch,
+                           out=out)
     LAUNCHES["dense_quantiles"] += 1
     return out
 
@@ -286,8 +295,10 @@ def _row_sum(x):
         padded[:, lo:lo + n] = x  # +0 slots: a window sum from +0 is never -0
         w = padded.view(g, m, _WINDOW)
         acc = torch.zeros((g, m), dtype=F32, device=x.device)
+        end = lo + n - (m - 1) * _WINDOW  # the last window ends at its last item
         for k in range(_WINDOW):
-            acc = _add(acc, w[:, :, k])
+            j = m if k < end else m - 1  # no back padding: it would turn a -0 sum to +0
+            acc[:, :j] = _add(acc[:, :j], w[:, :j, k])
         x, n = acc, m
     acc = torch.zeros(g, dtype=F32, device=x.device)
     for k in range(n):

@@ -146,8 +146,9 @@ SOURCES = {
         {
             # vals, torder, valid, g, p, out, stream
             "m3_aggregate_dense": [_P, _P, _P, _I64, _I64, _P, _P],
-            # vals, valid, g, p, qs (host f32 array), nq, out, stream
-            "m3_dense_quantiles": [_P, _P, _I64, _I64, _P, _I, _P, _P],
+            # vals, valid, g, p, qs (host f32 array), nq, scratch (the long
+            # rows' work list, int64 [g + 1]), out, stream
+            "m3_dense_quantiles": [_P, _P, _I64, _I64, _P, _I, _P, _P, _P],
         },
     ),
 }

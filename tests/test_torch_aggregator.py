@@ -5,12 +5,17 @@
   ``dense_quantiles`` on CPU tensors) equal ``m3_tpu``'s XLA programs bit
   for bit at P = 1, 6, 33 and 1,000 slots, on empty rows, tied time orders,
   signed zeros, subnormals and infinities, and at the 20,000 datapoints
-  into 700 groups of ``tests/test_aggregation.py``. One stated exception:
-  on subnormal inputs the reference's min and max leave some rows
-  unflushed (XLA's vectorized code), so there the twin is held to the
-  reference's values flushed.
-- ``rollup.cu`` built as host C++ equals the twins bit for bit (both B-5b
-  routes).
+  into 700 groups of ``tests/test_aggregation.py``; on wide rows of a few
+  valid slots (valid prefixes, or scattered across the window tree),
+  n = 32 and 33 valid slots, picks on valid NaNs, last's INT32_MIN tie
+  with an invalid slot 0, and sums that flush to -0 before skipped slots
+  or at a last window's last item (no padding is added behind it).
+  One stated exception: on subnormal inputs the reference's min and max
+  leave some rows unflushed (XLA's vectorized code), so there the twin is
+  held to the reference's values flushed.
+- ``rollup.cu`` built as host C++ equals the twins bit for bit on every
+  route (the tile route, a lane's and a warp's wide rows, the long rows'
+  select, in shared memory and past it).
 - ``window_keys`` and ``pack_dense_groups`` equal the reference's outputs.
 - The port's ``Aggregator`` (``device="cpu"``) flushes the same metrics as
   ``m3_tpu``'s (id, window end, type, policy, value bits) on the scenarios
@@ -45,6 +50,7 @@ NANOS = 1_000_000_000
 T0 = 1_600_000_000 * NANOS
 QS = (0.1, 0.5, 0.95, 0.99, 0.999, 0.9999)
 _TINY = np.finfo(np.float32).tiny
+_I32_MIN = np.iinfo(np.int32).min
 
 
 def _flushed(x):
@@ -95,13 +101,96 @@ def _case(name):
         vals[rng.random(g) < 0.2] = np.inf  # rows of +inf: inf - inf in the quantiles
     elif kind == "nan":
         vals[rng.random((g, p)) < 0.1] = np.nan  # NaN in valid slots propagates
+    elif kind == "prefix":
+        # the packer's layout of a shard widened by one batching timer: each
+        # row's valid slots first (1 to 8 of them), the last row full
+        valid = np.arange(p) < rng.integers(0, 9, g)[:, None]
+        valid[-1] = True
+    elif kind == "scattered":
+        # a few valid slots anywhere, across the tree's window boundaries,
+        # some NaN (picks past the non-NaN values: +inf for the invalid slots)
+        valid = rng.random((g, p)) < rng.integers(1, 41, g)[:, None] / p
+        vals[rng.random((g, p)) < 0.2] = np.nan
+    elif kind in ("count32", "count33"):
+        # exactly 32 or 33 valid slots: either side of the short rows' limit
+        valid = np.zeros((g, p), bool)
+        for row in valid:
+            row[rng.choice(p, int(kind[-2:]), replace=False)] = True
+        vals[rng.random((g, p)) < 0.05] = np.nan
+    elif kind == "nanpick":
+        # valid NaNs outnumber the invalid slots: high ranks pick a NaN
+        valid = rng.random((g, p)) < 0.9
+        vals[rng.random((g, p)) < 0.7] = np.nan
+    elif kind == "tmin":
+        # a valid slot of time order INT32_MIN after an invalid slot 0: it
+        # ties with the invalid slots, and last is slot 0's +0
+        valid[:, 0] = rng.random(g) < 0.3
+        torder[rng.random((g, p)) < 0.7] = _I32_MIN
+        torder[g // 2:] = _I32_MIN
+    elif kind == "negzero":
+        vals, valid = _negzero_rows(p, g, rng)
     return vals, torder, valid
+
+
+def _negzero_rows(p, g, rng, back_padding=False):
+    """Rows whose valid sums flush to -0 before invalid slots (or windows
+    without a valid slot): the reference then adds +0, which turns the -0
+    to +0. Each pattern at each place of the tree, then random rows. With
+    back_padding, only the rows whose sum is -0 where a last window's sum
+    flushes to -0 at its last item: the reference adds no padding behind
+    it, so the -0 stays."""
+    lo = (-(-p // 32) * 32 - p) // 2
+    starts = [max(32 * w - lo, 0) for w in range(-(-p // 32))]  # each level-0 window's first slot
+    a, b = np.float32(-1.5e-38), np.float32(1.4e-38)  # a + b flushes to -0
+    rows = [{0: a, 1: b},  # then invalid slots to the end
+            {0: a, 1: b, p - 1: -0.0}]  # then invalid slots, then a valid -0
+    ends = []  # rows whose sum is -0, a last window's -0 at its last item (padded behind or not)
+    if len(starts) >= 3:  # two windows' sums flush to -0, then:
+        last = starts[-1]
+        rows += [{starts[0]: a, starts[1]: b, last: a, last + 1: b},  # invalid slots to its end
+                 {starts[0]: a, starts[1]: b},  # windows without a valid slot to the end
+                 {starts[0]: a, starts[1]: b, last: a, last + 1: b, p - 1: -0.0}]  # then a -0
+        # (windows between without a valid slot) the last window's -0 at the row's last
+        # slot: the sum stays -0 where the windows' sums are the last level's items
+        row = {starts[0]: a, starts[1]: b, p - 2: a, p - 1: b}
+        (ends if len(starts) <= 32 else rows).append(row)
+        if len(starts) <= 32:  # the same with every slot valid (more than 32: a lane a window)
+            ends.append({**{j: np.float32(-0.0) for j in range(p)},
+                         starts[0]: a, starts[1]: b, last: a, last + 1: b})
+    if len(starts) > 64:  # three levels: level 1's last window's -0 at its last item too
+        m = len(starts)
+        lo1 = (-(-m // 32) * 32 - m) // 2
+        first1 = [max(32 * w - lo1, 0) for w in range(-(-m // 32))]  # each one's first window
+        ends.append({starts[first1[0]]: a, starts[first1[1]]: b, starts[m - 3]: a,
+                     starts[m - 2]: b, p - 2: a, p - 1: b})
+    rows += ends
+    if p % 32 == 0 and len(starts) >= 4:  # more than 32 valid slots (a lane a window): the
+        # first window filled with valid -0 (its sum stays a), the third's sum flushes to -0
+        w0 = {j: np.float32(-0.0) for j in range(1, 32)}
+        w2 = {64: a, 65: b, **{j: np.float32(-0.0) for j in range(66, 96)}}
+        rows += [{**w0, 0: a, 32: b, **w2, 96: a, 97: b, 127: -0.0},  # a skip, then -0
+                 {**w0, 0: a, 32: b, 64: a, 65: b,  # invalid slots to its window's end,
+                  **{j: np.float32(-0.0) for j in range(98, 128)}, 96: a, 97: b}]  # then a -0
+    if back_padding:
+        rows = ends
+    vals = np.where(rng.random((g, p)) < 0.5, np.float32(1e-39), np.float32(-0.0))
+    vals = vals.astype(np.float32)
+    valid = rng.random((g, p)) < 0.3
+    for i, row in enumerate(rows[:g]):
+        valid[i] = False
+        for j, x in row.items():
+            vals[i, j], valid[i, j] = x, True
+    return vals, valid
 
 
 CASES = ["plain-1-60", "plain-6-700", "plain-33-64", "plain-1000-7", "plain-2100-5",
          "ties-6-300", "ties-40-50", "zeros-1-200", "zeros-6-300", "zeros-45-40",
          "subnormal-1-300", "subnormal-6-300", "subnormal-33-60", "inf-1-100", "inf-6-300",
-         "inf-70-30", "nan-6-100", "nan-33-30", "aggregation_20000x700"]
+         "inf-70-30", "nan-6-100", "nan-33-30", "aggregation_20000x700",
+         "prefix-1000-300", "scattered-100-200", "scattered-1100-40", "count32-1000-20",
+         "count33-1000-20", "nanpick-20-60", "nanpick-40-60", "tmin-6-100", "tmin-40-100",
+         "negzero-20-30", "negzero-70-30", "negzero-128-30", "negzero-1100-20",
+         "negzero-2100-20"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -189,7 +278,7 @@ def host_rollup(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.m3_aggregate_dense_host.argtypes = [P, P, P, I64, I64, P]
-    lib.m3_dense_quantiles_host.argtypes = [P, P, I64, I64, P, I, P]
+    lib.m3_dense_quantiles_host.argtypes = [P, P, I64, I64, P, I, I64, P]
     return lib
 
 
@@ -206,8 +295,40 @@ def test_b5_host_build_matches_twin(host_rollup, name):
     qs = (ctypes.c_float * len(QS))(*QS)
     q = np.zeros((len(QS), g), np.float32)
     assert host_rollup.m3_dense_quantiles_host(vals.ctypes.data, ok.ctypes.data, g, p, qs,
-                                               len(QS), q.ctypes.data) == 0
+                                               len(QS), 0, q.ctypes.data) == 0
     assert _same_bits(q, want)
+
+
+@pytest.mark.parametrize("p, k", [(70, 2), (2100, 1)])
+def test_b5a_host_build_matches_twin_at_back_padding(host_rollup, p, k):
+    """Rows whose last window's sum flushes to -0 at the row's last slot:
+    the reference adds no padding behind it, and its -0 sum stays; the
+    host build and the twin give the same."""
+    vals, valid = (np.ascontiguousarray(a)
+                   for a in _negzero_rows(p, 20, np.random.default_rng(p), back_padding=True))
+    torder = np.zeros(vals.shape, np.int32)
+    out = np.zeros((8, 20), np.float32)
+    assert host_rollup.m3_aggregate_dense_host(vals.ctypes.data, torder.ctypes.data,
+                                               valid.view(np.uint8).ctypes.data, 20, p,
+                                               out.ctypes.data) == 0
+    assert _same_bits(out, tk.aggregate_dense_fields(vals, torder, valid).numpy())
+    assert _same_bits(out[0], np.asarray(jk.aggregate_dense(vals, torder, valid).sum))
+    assert np.signbit(out[0, :k]).all() and (out[0, :k] == 0).all()  # the reference's -0
+
+
+@pytest.mark.parametrize("name", ["plain-1000-7", "plain-2100-5", "prefix-1000-300",
+                                  "count33-1000-20", "nanpick-40-60", "inf-70-30"])
+def test_b5b_host_build_selects_past_shared_memory(host_rollup, name):
+    """Rows with more keys than the long route's shared memory holds select
+    on keys read again from the row each pass (a capacity of 20 keys here)."""
+    vals, _, valid = (np.ascontiguousarray(a) for a in _case(name))
+    g, p = vals.shape
+    assert int(valid.sum(1).max()) > 32
+    qs = (ctypes.c_float * len(QS))(*QS)
+    q = np.zeros((len(QS), g), np.float32)
+    assert host_rollup.m3_dense_quantiles_host(vals.ctypes.data, valid.view(np.uint8).ctypes.data,
+                                               g, p, qs, len(QS), 20, q.ctypes.data) == 0
+    assert _same_bits(q, tk.dense_quantiles(vals, valid, QS).numpy())
 
 
 def test_window_keys_match():

@@ -1292,6 +1292,29 @@ def _rollup_rows(kind: str, g: int, p: int, seed: int = 9):
                               (-3e-39, 0.13, 0.15), (1e-20, 0.15, 0.18), (np.inf, 0.18, 0.22),
                               (-np.inf, 0.22, 0.24), (3e38, 0.24, 0.26), (np.nan, 0.26, 0.28)):
             vals[(roll >= lo) & (roll < hi)] = value
+    elif kind == "packed":  # a flush's shard widened by one timer: valid prefixes, the last row full
+        valid = np.arange(p) < rng.integers(1, 9, g)[:, None]
+        valid[-1] = True
+    elif kind == "scattered":  # 1 to 40 valid slots anywhere in the row, some NaN
+        valid = rng.random((g, p)) < rng.integers(1, 41, g)[:, None] / p
+        vals[roll < 0.2] = np.nan
+    elif kind == "short33":  # rows of 1 to 8 valid slots, and every 7th row 33 (or all)
+        valid = rng.random((g, p)) < 4.5 / p
+        for row in valid[::7]:
+            row[:] = False
+            row[rng.choice(p, min(33, p), replace=False)] = True
+    elif kind == "negzero":  # sums that flush to -0 (a + b), then skipped slots or a -0
+        a, b = np.float32(-1.5e-38), np.float32(1.4e-38)
+        vals = rng.choice(np.array([a, b, -0.0, 1e-39], np.float32), (g, p))
+        valid = rng.random((g, p)) < rng.integers(1, 41, g)[:, None] / p
+        lo = (-(-p // 32) * 32 - p) // 2
+        starts = [max(32 * w - lo, 0) for w in range(-(-p // 32))]  # level-0 windows' first slots
+        if 3 <= len(starts) <= 32:  # rows 0 and 1: the last windows' sums a, b and, at the
+            # row's last slot, -0; the row's sum -0 (no padding is added behind the last slot).
+            # Row 0 holds only those 4 valid slots (a lane's row), row 1 every slot (a warp's)
+            vals[:2], valid[0], valid[1] = -0.0, False, True
+            for j, x in ((starts[-3], a), (starts[-2], b), (p - 2, a), (p - 1, b)):
+                vals[:2, j], valid[0, j] = x, True
     return vals, torder, valid
 
 
@@ -1302,14 +1325,22 @@ def _assert_rollup_bits(got, want, what):
     assert bool(same.all()), f"{what}: {int((~same).sum())} values differ"
 
 
+_ROLLUP_KINDS = ["plain", "specials", "packed", "scattered", "short33", "negzero"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["plain", "specials"])
-@pytest.mark.parametrize("g,p", [(1000, 1), (100_003, 6), (2000, 32), (1000, 33), (257, 1000),
-                                 (3, 70_000)])
+@pytest.mark.parametrize("kind", _ROLLUP_KINDS)
+@pytest.mark.parametrize("g,p", [(1000, 1), (2003, 3), (100_003, 6), (4001, 8), (2000, 32),
+                                 (1000, 33), (257, 1000), (3, 70_000), (62_501, 33), (62_501, 100),
+                                 (62_501, 1000)])
 def test_cuda_b5a_matches_twin(kind, g, p):
     """B-5a == its twin on the card bit for bit: P = 1 (the reduce XLA
-    drops), 6 (config 4), 32 and 33 (either side of the window tree),
-    1,000 and 70,000 (three window levels); a ragged G."""
+    drops), 3, 6 (config 4) and 8 (the tile route), 32 and 33 (either side of the
+    window tree), 1,000 and 70,000 (three window levels); a ragged G; a
+    flush's shard widened to 33 / 100 / 1,000 slots. Rows of valid
+    prefixes (the packer's layout), of scattered valid slots, of n = 33
+    among short rows (a lane a window past 32 valid slots), and of sums
+    that flush to -0 (kept at a last window's last slot)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.aggregator import kernels as K
@@ -1320,16 +1351,24 @@ def test_cuda_b5a_matches_twin(kind, g, p):
     assert K.LAUNCHES["aggregate_dense"] == before + 1
     torch.cuda.synchronize()
     _assert_rollup_bits(got, K.aggregate_dense_reference(vals, torder, valid), f"{kind} [{g}, {p}]")
+    if kind == "negzero" and 3 <= -(-p // 32) <= 32:
+        assert torch.signbit(got[0, :2]).all() and (got[0, :2] == 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["plain", "specials"])
-@pytest.mark.parametrize("g,p", [(1000, 1), (100_003, 6), (2000, 17), (2000, 32), (1000, 33),
-                                 (257, 1000), (3, 70_000)])
+@pytest.mark.parametrize("kind", _ROLLUP_KINDS)
+@pytest.mark.parametrize("g,p", [(1000, 1), (2003, 3), (100_003, 6), (4001, 8), (2000, 17),
+                                 (2000, 32), (1000, 33), (257, 1000), (3, 70_000), (62_501, 33),
+                                 (62_501, 100), (62_501, 1000)])
 def test_cuda_b5b_matches_twin(kind, g, p):
-    """B-5b == its twin on the card bit for bit, on the warp route (P <=
-    32) and on the block route (a radix select, P > 32), rows of 70,000
-    slots (longer than a block's shared memory) included."""
+    """B-5b == its twin on the card bit for bit: the tile route (P = 1, 3,
+    6, 8), the wide rows' lane and warp routes (at most 8, and at most 32
+    valid slots), and the long rows' second launch (more than 32 valid
+    slots: a radix select on keys in shared memory, or re-read from device
+    memory where a row of 70,000 slots holds more than shared memory
+    does); a flush's shard widened to 33 / 100 / 1,000 slots; valid
+    prefixes, scattered valid slots (some NaN), and n = 33 among short
+    rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.aggregator import kernels as K
