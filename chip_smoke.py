@@ -167,6 +167,34 @@ Phases (any failure exits non-zero):
              times, B-2's
              time beside its bound, its twin's and the series its direct
              route took, and the node's resident and index stats.
+  ingest   — the write path. B-4 (the batched M3TSZ encode) at the seal of
+             BASELINE config 3's node: 100,000 lanes x 720 points (the 2 h
+             block at 10 s) from bench_suite.py's encode generator (seed 21:
+             times T0 + cumsum(integers(1, 30)) s, odd lanes int values in
+             [-5000, 5000), even lanes normal(0, 10)), classified by
+             classify_lanes, packed by pack_lanes and moved to the card by
+             upload_lanes (page_words 512);
+             B-4 == its twin on the card bit for bit on every output of every
+             lane, the first 256 lanes' streams == the host codec's
+             encode_series; B-4 timed (CUDA events, median of 10, back to
+             back) beside its bytes bound (the records read once, the whole
+             [M, W] rows, zeros included, and the chunk tables written once),
+             the launch floor and the twin, with the host seconds of the
+             classification and the packing. Then two storage nodes on the
+             card (8 shards, residency on, commit log on), one with
+             ingest_options=IngestOptions() (the device seal) and one
+             without (the host seal), each taking the same write_batch of
+             1,000 series x 720 points at 10 s into one block (a series in
+             ten mixes int and float values: host-fallback lanes; one in
+             fifty has an out-of-order point: a dirty lane) and flushing it:
+             every fileset file byte-identical, every series reads back equal
+             on both, the device node admits every eligible lane born
+             resident (device_admissions), the same admissions as the host
+             node, upload bytes only for the fallback lanes' pages and below
+             the host node's, no ingest spill; B-4 launched on the device
+             node's flush. Prints the write and flush seconds and the seal's
+             host seconds by stage (classify, packing, encode, side rows,
+             streams, fileset write, admission) for both nodes.
   aggregator — the aggregator tier at BASELINE config 4 (10,000,000 active
              series, 10 s points rolled up into 1 m windows): the datapoints
              as bench_suite.py builds them (6 a series, lognormal values,
@@ -263,6 +291,9 @@ T0 = 1_600_000_000 * 10**9
 # runs once
 DB_SERIES, DB_SHARDS, DB_LIVE_SERIES, DB_LIVE_POINTS = 100_000, 8, 1_000, 360
 BLOCK = 2 * 3600 * 10**9  # the Database's default block size
+# [ingest]: B-4 at BASELINE config 3's seal (100,000 series x 720 points), and
+# two storage nodes, device seal and host seal, over one write_batch
+INGEST_LANES, INGEST_E2E_SERIES, INGEST_SEED = 100_000, 1_000, 21
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
          ("specials", "c", 32)]
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -3064,6 +3095,216 @@ def phase_aggregator(dev, kernels: list, parent_b5=None) -> None:
     }]
 
 
+def ingest_lanes(m: int, n: int, seed: int):
+    """The encode lanes of bench_suite.py:721-735 (its seal-kernel generator):
+    times T0 + cumsum(integers(1, 30)) s, every dod opcode; odd lanes int
+    values in [-5000, 5000), even lanes normal(0, 10); drawn from ``seed`` as
+    whole [m, n] planes."""
+    rng = np.random.default_rng(seed)
+    t = T0 + np.cumsum(rng.integers(1, 30, (m, n)), axis=1) * 10**9
+    ints = rng.integers(-5000, 5000, (m, n)).astype(np.float64)
+    floats = rng.normal(0, 10, (m, n))
+    return t, np.where((np.arange(m) % 2 == 1)[:, None], ints, floats)
+
+
+def ingest_entries(n_series: int, n_points: int, b0: int, seed: int):
+    """One write_batch of ``n_series`` x ``n_points`` at 10 s from ``b0``: a
+    series in ten mixes int and float values (a host-fallback lane), the rest
+    alternate a random walk of ints and normal(0, 10) floats; one series in
+    fifty has two points swapped (an out-of-order write: a dirty lane).
+    Returns (entries, the sorted points of each series)."""
+    rng = np.random.default_rng(seed)
+    t = b0 + np.arange(n_points, dtype=np.int64) * STEP
+    entries, want = [], {}
+    for i in range(n_series):
+        sid = f"ingest-{i}".encode()
+        if i % 10 == 0:
+            v = np.where(np.arange(n_points) % 2 == 0, rng.normal(0, 5, n_points),
+                         np.arange(n_points, dtype=np.float64))
+        elif i % 2:
+            v = np.cumsum(rng.integers(-50, 51, n_points)).astype(np.float64)
+        else:
+            v = rng.normal(0, 10, n_points)
+        pts = list(zip(t.tolist(), v.tolist()))
+        want[sid] = list(pts)
+        if i % 50 == 1:
+            pts[100], pts[101] = pts[101], pts[100]
+        entries += [(sid, a, b) for a, b in pts]
+    return entries, want
+
+
+def phase_ingest(dev, kernels: list) -> None:
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from m3_tpu_torch.cache.block_cache import BlockKey
+    from m3_tpu_torch.codec.m3tsz import encode_series
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.ingest import IngestOptions
+    from m3_tpu_torch.ops import encode as E
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.storage.database import SEAL_STAGES, Database, NamespaceOptions
+
+    t_phase = time.perf_counter()
+    m, n = INGEST_LANES, N_POINTS
+    # 1. B-4 at a real seal's size: BASELINE config 3's node seals 100,000
+    # series x 720 points (the 2 h block at 10 s)
+    t0 = time.perf_counter()
+    t, v = ingest_lanes(m, n, INGEST_SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kinds = E.classify_lanes(t.reshape(-1), v.reshape(-1), np.ones(m * n, np.int8), np.full(m, n))
+    classify_s = time.perf_counter() - t0
+    if not np.array_equal(kinds, np.where(np.arange(m) % 2 == 1, E.KIND_INT, E.KIND_FLOAT)):
+        raise AssertionError("[ingest] a generated lane did not classify as its kind")
+    lanes = [(t[i], v[i]) for i in range(m)]
+    t0 = time.perf_counter()
+    host = E.pack_lanes(lanes, kinds)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inp = E.upload_lanes(host, 32, 512, dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del host
+    T, _ = inp.dod.shape
+    C = (T + inp.k - 1) // inp.k
+    got = E.launch_encode(inp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = E.encode_reference(inp)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    for name, a, b in zip(("words", "total_bits", "chunk_offs", "chunk_sigs"), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"[ingest] B-4 {name} differs from its twin at {bad}")
+    del want
+    res = E.result_of(inp, got, kinds)
+    head = E.EncodeResult(res.words[:256], *res[1:])
+    for i, stream in enumerate(head.streams()):
+        if stream != encode_series(t[i].tolist(), v[i].tolist()):
+            raise AssertionError(f"[ingest] lane {i}'s stream differs from the host codec's")
+    ms = cuda_ms(lambda: E.launch_encode(inp), 10)
+    b2b = per_launch_ms(lambda: E.launch_encode(inp), 10)
+    floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
+    in_bytes = m * n * (4 + 8) + m * (8 + 4 + 1)  # the records read, each lane's t0/count/kind
+    word_bytes = m * inp.words * 4
+    out_bytes = word_bytes + 2 * C * m * 4 + m * 4
+    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    b4_ms = statistics.median(ms)
+    log(f"[ingest] B-4 [{m:,} lanes x {n} points] (T_pad {T}, W {inp.words} words, k {inp.k}) "
+        f"== twin bit for bit on words, total_bits, chunk_offs and chunk_sigs; the first 256 "
+        f"lanes' streams == encode_series; {int(res.nbytes.sum()):,} stream bytes "
+        f"({res.nbytes.sum() / (m * n):.3f} B a point)")
+    log(f"[ingest] B-4 {b4_ms:.3f} ms [{b2b:.3f}] (CUDA events, median of 10 [back to back]), "
+        f"bound {bound_ms:.3f} ms (bytes: {in_bytes / 1e9:.3f} GB of records read + "
+        f"{out_bytes / 1e9:.3f} GB written, {word_bytes / 1e9:.3f} GB of it the [M, W] rows, "
+        f"zeros included; {bound_ms / b4_ms:.1%}), launch floor {floor_ms:.4f} ms, twin on the "
+        f"card {twin_ms:.1f} ms")
+    log(f"[ingest] host seconds: generate {gen_s:.2f}, classify_lanes {classify_s:.2f}, "
+        f"pack_lanes {pack_s:.2f}, upload_lanes (copies + transposes on the card) {upload_s:.2f}; "
+        f"input planes {(inp.dod.nbytes + inp.vbits.nbytes) / 1e9:.3f} GB on the card")
+    del got, res, head, inp, lanes, t, v
+    torch.cuda.empty_cache()
+
+    # 2. the write path end to end: two storage nodes, the same write_batch
+    b0 = T0 // BLOCK * BLOCK
+    entries, want = ingest_entries(INGEST_E2E_SERIES, n, b0, INGEST_SEED + 1)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    base = tempfile.mkdtemp(prefix="chip_smoke_ingest-", dir=root)
+    try:
+        nodes, files = {}, {}
+        for name, ingest in (("host", None), ("device", IngestOptions())):
+            db = Database(str(Path(base) / name), num_shards=DB_SHARDS,
+                          resident_options=ResidentOptions(max_bytes=1 << 30),
+                          ingest_options=ingest, device=dev)
+            db.create_namespace("m3", NamespaceOptions())
+            db.bootstrap()
+            E.LAUNCHES["encode"] = 0
+            t0 = time.perf_counter()
+            db.write_batch("m3", entries)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            flushed = db.flush("m3", b0 + BLOCK)
+            torch.cuda.synchronize()
+            flush_s = time.perf_counter() - t0
+            launches = E.LAUNCHES["encode"]
+            shards = db.namespaces["m3"].shards
+            stages = {k: sum(sh.seal_seconds[k] for sh in shards) for k in SEAL_STAGES}
+            nodes[name] = (db, write_s, flush_s, launches, stages, len(flushed))
+            files[name] = {}
+            data = Path(base) / name / "data"
+            for path in sorted(data.rglob("*")):
+                if path.is_file():
+                    files[name][str(path.relative_to(data))] = path.read_bytes()
+        if not files["host"] or files["device"] != files["host"]:
+            raise AssertionError("[ingest] the two nodes' fileset files differ")
+        dev_db, host_db = nodes["device"][0], nodes["host"][0]
+        t0 = time.perf_counter()
+        for sid, pts in want.items():
+            pts = sorted(pts)
+            a = [(d.timestamp, d.value) for d in dev_db.read("m3", sid, b0, b0 + BLOCK)]
+            b = [(d.timestamp, d.value) for d in host_db.read("m3", sid, b0, b0 + BLOCK)]
+            if a != b or a != pts:
+                raise AssertionError(f"[ingest] {sid!r} reads back differently")
+        read_s = time.perf_counter() - t0
+        eligible = sum(1 for i in range(INGEST_E2E_SERIES) if i % 10)
+        sd, sh = dev_db.resident_stats(), host_db.resident_stats()
+        pool, ns = dev_db.resident_pool, dev_db.namespaces["m3"]
+        fallback_bytes = sum(
+            len(pool.get(BlockKey("m3", ns.shard_for(sid).id, sid, b0, 0)).pages)
+            * pool.options.page_bytes for sid in list(want)[::10])
+        ing = [s.ingest.stats() for s in dev_db.namespaces["m3"].shards]
+        spilled = sum(sum(st["spills"].values()) for st in ing)
+        dirty = sum(st["dirty_lane_fallbacks"] for st in ing)
+        launches = nodes["device"][3]
+        if (sd["device_admissions"] != eligible or sd["admissions"] != sh["admissions"]
+                or sd["admissions"] != INGEST_E2E_SERIES or sh["device_admissions"] != 0
+                or sd["upload_bytes"] != fallback_bytes or not 0 < sd["upload_bytes"] < sh["upload_bytes"]
+                or spilled or launches == 0 or nodes["host"][3] != 0
+                or dirty != INGEST_E2E_SERIES // 50):
+            raise AssertionError(f"[ingest] device node {sd}, host node {sh}, spills {spilled}, "
+                                 f"dirty {dirty}, B-4 launches {launches}")
+        for name in ("host", "device"):
+            _db, write_s, flush_s, n_launch, stages, n_fs = nodes[name]
+            log(f"[ingest] {name} node ({DB_SHARDS} shards, residency on, commit log on"
+                f"{', device ingest' if name == 'device' else ''}): write_batch of "
+                f"{INGEST_E2E_SERIES:,} series x {n} points {write_s:.2f} s; flush {flush_s:.2f} s "
+                f"({n_fs} filesets, B-4 launches {n_launch}); seal seconds by stage: "
+                + ", ".join(f"{k} {stages[k]:.3f}" for k in SEAL_STAGES))
+        log(f"[ingest] filesets byte-identical ({len(files['host'])} files), every series reads "
+            f"back equal on both nodes ({read_s:.1f} s); device node: {sd['device_admissions']} "
+            f"lanes born resident of {sd['admissions']} admitted, upload {sd['upload_bytes']:,} B "
+            f"(the {INGEST_E2E_SERIES - eligible} fallback lanes' pages) vs the host node's "
+            f"{sh['upload_bytes']:,} B, side rows staged {sd['ingest_side_stage_bytes']:,} B; "
+            f"ingest spills {spilled}, dirty lanes {dirty}, syncs "
+            f"{sum(st['device_syncs'] for st in ing)} ({sum(st['device_sync_bytes'] for st in ing):,} B)")
+        for db, *_ in nodes.values():
+            db.close()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"[ingest] phase {time.perf_counter() - t_phase:.1f}s")
+    kernels.append({
+        "name": "encode",
+        "route": "cuda",
+        "source": "m3_tpu_torch/ops/csrc/encode.cu",
+        "replaces": "m3_tpu/ops/encode.py:153",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": b4_ms,
+        "plain_ms": twin_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "launch_floor_ms": floor_ms,
+        "back_to_back_ms": b2b,
+    })
+
+
 def main() -> int:
     import argparse
 
@@ -3121,6 +3362,7 @@ def main() -> int:
     del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
+    phase_ingest(dev, kernels)
     phase_aggregator(dev, kernels, parent_b5)
 
     smi = subprocess.run(

@@ -151,6 +151,16 @@ SOURCES = {
             "m3_dense_quantiles": [_P, _P, _I64, _I64, _P, _I, _P, _P, _P],
         },
     ),
+    "encode": (
+        PKG / "ops" / "csrc" / "encode.cu",
+        _COMMON,
+        {
+            # t0, counts, float_lane, dod, vbits, m, t, k, w, c, out words,
+            # out total_bits, out chunk_offs, out chunk_sigs, stream
+            "m3_encode_lanes": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I64, _I64, _P, _P, _P, _P,
+                                _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()

@@ -29,9 +29,12 @@ page-span limit) and filesets whose last re-admission the budget refused
 (``budget_deferred``), so a streamed query skips a re-read that is bound
 to fail.
 
-Left out: born-resident admission from the device encoder
-(``admit_block_device``, with the write-path slice, ROADMAP §A6), and the
-native batch prescan (the port prescans with
+Born-resident admission (``admit_block_device``) takes a sealed block's
+pages as kernel B-4 (``ops/encode.py``) left them on the device and writes
+them device to device; only their side rows and the block's host-fallback
+lanes cross from the host.
+
+Left out: the native batch prescan (the port prescans with
 ``ops/chunked.snapshot_stream``).
 """
 
@@ -213,8 +216,6 @@ class ResidentPool:
         self.copy_admissions = 0
         self.side_pack_overflows = 0
         self.rebalance_evictions = 0
-        # born-resident admission waits for ROADMAP §A6; these stay 0 and
-        # keep stats() keyed as the reference's
         self.device_admissions = 0
         self.ingest_side_stage_bytes = 0
         reg = registry or METRICS
@@ -246,6 +247,16 @@ class ResidentPool:
             "resident_side_pack_overflows_total",
             "lanes admitted WITHOUT side planes because a chunk snapshot "
             "overflowed the packed 10-word layout")
+        self._m_device_admissions = reg.counter(
+            "ingest_device_admissions_total",
+            "born-resident admissions: lanes encoded on the device and written "
+            "device to device (no stream byte uploaded -- "
+            "resident_upload_bytes_total does not move for these)")
+        self._m_side_stage = reg.counter(
+            "ingest_side_stage_bytes_total",
+            "packed side-plane row bytes staged host->device at born-resident "
+            "admission (O(40 B a chunk) of metadata; the data pages never "
+            "cross from the host)")
         self._g_bytes = reg.gauge("resident_pool_bytes", "compressed bytes resident")
         self._g_pages = reg.gauge("resident_pool_pages", "pages in use (excl. zero page)")
         self._g_free = reg.gauge("resident_pool_free_pages", "pages on the free list")
@@ -491,12 +502,253 @@ class ResidentPool:
                 self._publish_locked()
         return AdmitResult(admitted, rejected_span, rejected_budget, complete)
 
-    def admit_block_device(self, *args, **kwargs) -> AdmitResult:
-        """Born-resident admission of pages encoded on the device: waits for
-        the write-path slice (ROADMAP §A6, device encode at seal)."""
-        raise NotImplementedError(
-            "admit_block_device waits for the port's write path (ROADMAP §A6)"
-        )
+    def admit_block_device(self, namespace: str, shard_id: int, block_start: int,
+                           volume: int, words, items: list, chunk_k: int = CHUNK_K,
+                           host_items: list | None = None) -> AdmitResult:
+        """Born-resident admission: seal pages that are ALREADY on the device.
+
+        ``words`` is kernel B-4's int32 [M, W] output (``ops/encode.py``)
+        with W a multiple of ``page_words``; ``items`` is ``[(series_id,
+        lane_row, nbytes, n_chunks, max_span_bits, packed_side_rows |
+        None)]``. The data pages move device to device (an
+        ``index_select`` of the encode buffer's page rows into the pool's
+        ``index_copy_``): the admission uploads no stream byte, and
+        ``upload_bytes`` does not move for them. The packed side rows are
+        O(40 B a chunk) of host metadata; they stage under
+        ``ingest_side_stage_bytes`` instead.
+
+        ``host_items`` carries the block's HOST-FALLBACK lanes
+        (``(sid, stream, num_points)`` like :meth:`admit_block`'s items):
+        they ride the same three-phase batch, so the group's completeness
+        marker is computed over the union, never set by a partial subset.
+        Their pages cross from the host and count under ``upload_bytes``.
+
+        Same three phases and the same fence as :meth:`admit_block`."""
+        if not self.enabled:
+            return AdmitResult(0, 0, 0, False)
+        o = self.options
+        if o.namespaces and namespace not in o.namespaces:
+            return AdmitResult(0, 0, 0, False)
+        page_bytes = o.page_bytes
+        pw = o.page_words
+        spc = o.side_page_chunks
+        W = int(words.shape[1]) if items else pw
+        if W % pw != 0:
+            raise ResidentPoolError(
+                f"device encode width {W} not a multiple of page_words {pw} "
+                "(encode with round_words_to=pool.options.page_words)"
+            )
+        lane_pages = W // pw
+        # plan rows: (key, src, nbytes, n_pages, n_side, rows, n_chunks,
+        # max_span) -- src is an int lane row (device) or bytes (host)
+        plan: list[tuple] = []
+        rejected_span = 0
+        side_overflows = 0
+        for sid, lane_row, nbytes, n_chunks, max_span, rows in items:
+            if not nbytes:
+                continue
+            n_pages = -(-int(nbytes) // page_bytes)
+            if n_pages > o.max_lane_pages or n_pages > lane_pages:
+                rejected_span += 1
+                continue
+            if rows is None and n_chunks:
+                # a chunk overflowed the packed layout: the lane admits
+                # without side planes and decodes streamed (counted)
+                side_overflows += 1
+                n_chunks = 0
+            key = BlockKey(namespace, shard_id, bytes(sid), block_start, volume)
+            plan.append((key, int(lane_row), int(nbytes), n_pages,
+                         -(-int(n_chunks) // spc) if n_chunks else 0,
+                         rows if n_chunks else None, int(n_chunks), int(max_span)))
+        for sid, stream, _num_points in host_items or []:
+            if not stream:
+                continue
+            n_pages = -(-len(stream) // page_bytes)
+            if n_pages > o.max_lane_pages:
+                rejected_span += 1
+                continue
+            snaps = self._prescan([stream], chunk_k)[0]
+            rows = pack_side_rows(snaps, block_start) if snaps else None
+            if snaps and rows is None:
+                side_overflows += 1
+                snaps = []
+            n_chunks = len(snaps)
+            max_span = max((p["span"] for p in snaps), default=0)
+            key = BlockKey(namespace, shard_id, bytes(sid), block_start, volume)
+            plan.append((key, bytes(stream), len(stream), n_pages,
+                         -(-n_chunks // spc) if n_chunks else 0, rows, n_chunks, max_span))
+        if side_overflows:
+            self.side_pack_overflows += side_overflows
+            self._m_side_overflow.inc(side_overflows)
+        rejected_budget = 0
+        admitted = 0
+        batch_entries: list[tuple] = []
+        with self._upload_lock:
+            with self._lock:
+                for key, src, nbytes, n_pages, n_side, rows, n_chunks, max_span in plan:
+                    alloc = self._alloc_locked(n_pages, n_side)
+                    if alloc is None:
+                        rejected_budget += 1
+                        continue
+                    pages, side_pages = alloc
+                    old = self._od.pop(key, None)
+                    if old is not None:
+                        self._unindex_locked(key, old)
+                        self._free.extend(old.pages)
+                        self._free_side.extend(old.side_pages)
+                        self._resident_bytes -= old.nbytes
+                    entry = ResidentEntry(
+                        pages=tuple(pages), num_bits=nbytes * 8, nbytes=nbytes,
+                        side_pages=tuple(side_pages), n_chunks=n_chunks,
+                        chunk_k=chunk_k if n_chunks else 0, max_span_bits=max_span,
+                    )
+                    self._pending[key] = entry
+                    admitted += 1
+                    batch_entries.append((key, entry, src, rows))
+            # ---- no table lock: gather + stage + write ----
+            src_rows: list[int] = []
+            dst_pages: list[int] = []
+            host_parts: list[bytes] = []
+            host_idx: list[int] = []
+            side_parts: list[np.ndarray] = []
+            side_idx: list[int] = []
+            staged_keys: set = set()
+            with self._lock:
+                generation = self._generation
+            try:
+                if batch_entries:
+                    with self._lock:
+                        survivors = [t for t in batch_entries if self._pending.get(t[0]) is t[1]]
+                    for key, entry, src, rows in survivors:
+                        staged_keys.add(key)
+                        if isinstance(src, int):
+                            src_rows.extend(src * lane_pages + j for j in range(len(entry.pages)))
+                            dst_pages.extend(entry.pages)
+                        else:
+                            host_parts.append(src)
+                            host_parts.append(bytes(len(entry.pages) * page_bytes - len(src)))
+                            host_idx.extend(entry.pages)
+                        if rows is not None and len(rows):
+                            page = np.zeros((len(entry.side_pages) * spc, N_SIDE_PLANES),
+                                            np.uint32)
+                            page[: len(rows)] = rows
+                            side_parts.append(page)
+                            side_idx.extend(entry.side_pages)
+                    if src_rows or host_idx or side_idx:
+                        host_words = (np.frombuffer(b"".join(host_parts), ">u4").astype(np.uint32)
+                                      .reshape(-1, pw) if host_parts
+                                      else np.zeros((0, pw), np.uint32))
+                        side = (np.concatenate(side_parts).reshape(-1, spc, N_SIDE_PLANES)
+                                if side_parts else np.zeros((0, spc, N_SIDE_PLANES), np.uint32))
+                        self._upload_device(words, src_rows, dst_pages, host_words,
+                                            np.asarray(host_idx, np.int64), side,
+                                            np.asarray(side_idx, np.int64))
+            except BaseException:
+                with self._lock:
+                    if self._generation == generation:
+                        for key, entry, _src, _rows in batch_entries:
+                            if self._pending.get(key) is entry:
+                                del self._pending[key]
+                            self._free.extend(entry.pages)
+                            self._free_side.extend(entry.side_pages)
+                        self._publish_locked()
+                raise
+            # ---- publish ----
+            with self._lock:
+                published = 0
+                dev_published = 0
+                for key, entry, src, _rows in batch_entries:
+                    present = self._pending.get(key) is entry
+                    if present:
+                        del self._pending[key]
+                    if present and key in staged_keys:
+                        published += 1
+                        if isinstance(src, int):
+                            dev_published += 1
+                        self._od[key] = entry
+                        self._index_locked(key)
+                        self._resident_bytes += entry.nbytes
+                    else:
+                        self._free.extend(entry.pages)
+                        self._free_side.extend(entry.side_pages)
+                complete = (admitted > 0 and rejected_span == 0 and rejected_budget == 0
+                            and published == len(plan))
+                group = (namespace, shard_id, block_start, volume)
+                if complete:
+                    self._complete.add(group)
+                if rejected_span:
+                    self._span_incomplete.add(group)
+                self.admissions += admitted
+                self.device_admissions += dev_published
+                self.rejections += rejected_span + rejected_budget
+                self._m_admissions.inc(admitted)
+                self._m_device_admissions.inc(dev_published)
+                if rejected_span + rejected_budget:
+                    self._m_rejections.inc(rejected_span + rejected_budget)
+                self._publish_locked()
+        return AdmitResult(admitted, rejected_span, rejected_budget, complete)
+
+    def _upload_device(self, words_src: torch.Tensor, src_rows: list, dst_pages: list,
+                       host_words: np.ndarray, host_idx: np.ndarray, side: np.ndarray,
+                       side_idx: np.ndarray) -> None:
+        """The born-resident half of :meth:`_upload`, with the same fence:
+        the encoded pages are gathered on the device (``index_select`` of
+        ``words_src`` viewed as [M * W / page_words, page_words] rows) and
+        written with the host-fallback pages of the batch (one
+        host-to-device copy, counted under ``upload_bytes``) in one
+        ``index_copy_``; the side pages stage under
+        ``ingest_side_stage_bytes``."""
+        with self._lock:
+            cur_words = self._ensure_words()
+            cur_side = self._ensure_side()
+            inplace = self._leases == 0
+            if inplace:
+                self._donating = True
+        try:
+            new_words = new_side = None
+            dev = cur_words.device
+            if src_rows or len(host_idx):
+                pw = self.options.page_words
+                parts = []
+                if src_rows:
+                    rows = torch.as_tensor(src_rows, dtype=torch.int64).to(words_src.device)
+                    parts.append(words_src.reshape(-1, pw).index_select(0, rows).to(dev))
+                if len(host_idx):
+                    self.upload_bytes += host_words.nbytes
+                    self._m_upload.inc(host_words.nbytes)
+                    parts.append(torch.from_numpy(host_words.view(np.int32)).to(dev))
+                idx = np.concatenate([np.asarray(dst_pages, np.int64), host_idx])
+                out = cur_words if inplace else cur_words.clone()
+                out.index_copy_(0, torch.from_numpy(idx).to(dev),
+                                parts[0] if len(parts) == 1 else torch.cat(parts))
+                new_words = out
+            if len(side_idx):
+                self.ingest_side_stage_bytes += side.nbytes
+                self._m_side_stage.inc(side.nbytes)
+                new_side = _scatter(cur_side, side_idx, side, inplace)
+        except BaseException:
+            with self._lock:
+                if inplace:
+                    self._reset_locked()
+                    self._donating = False
+                    self._fence.notify_all()
+            raise
+        with self._lock:
+            if new_words is not None:
+                self._words = new_words
+            if new_side is not None:
+                self._side = new_side
+            if new_words is not None or new_side is not None:
+                self.epoch += 1
+            if inplace:
+                self._donating = False
+                self._fence.notify_all()
+        if inplace:
+            self.inplace_admissions += 1
+            self._m_inplace.inc()
+        else:
+            self.copy_admissions += 1
+            self._m_copy.inc()
 
     @staticmethod
     def _prescan(streams: list, chunk_k: int) -> list:

@@ -20,10 +20,17 @@ time (``utils/hash.shard_for``), the reference's route without its native
 library, and decodes reads with ``codec/m3tsz`` in Python, merged as the
 reference's native route merges them (``codec/native_read.py``).
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
-``ingest_options`` (device-side ingest and the born-resident seal, §A6) and
-a ``peers_source`` for bootstrap (peer bootstrap, §A10). The cluster
-surface (``stream_shard``, ``admit_imported_fileset``, ``read_excluding``,
+With ``ingest_options`` (device-side ingest), every write also lands in
+its shard's ``ingest/ColumnWriteBuffer``, and a warm flush encodes each
+sealed block's lanes on the device with kernel B-4 (``ops/encode.py``):
+the fileset is written from those bytes, and the pages admit into the
+resident pool device to device (``ResidentPool.admit_block_device``).
+Lanes the kernel cannot express seal through the host codec and ride the
+same fileset and admission batch.
+
+Left out, raising ``NotImplementedError`` that names its ROADMAP item: a
+``peers_source`` for bootstrap (peer bootstrap, §A10). The cluster surface
+(``stream_shard``, ``admit_imported_fileset``, ``read_excluding``,
 ``bootstrap_shards``) waits for §A10 too.
 """
 
@@ -70,7 +77,27 @@ _M_SUPERSEDED_DELETED = METRICS.counter(
     "db_superseded_volumes_deleted_total",
     "superseded fileset volumes deleted eagerly at cold-flush volume bump",
 )
-_TODO_INGEST = "ROADMAP §A6 (device-side ingest and the born-resident seal)"
+# the stages of Shard.seal_seconds: the device seal's classify (the lanes'
+# merged points, classify_lanes, and the host codec's streams of the lanes
+# B-4 cannot take), packing, encode (kernel B-4 and its small outputs' copy;
+# the host codec on a host seal), side rows and streams (one device-to-host
+# copy), then both seals' fileset write (with the host prescan of lanes
+# without side rows) and admission into the resident pool
+SEAL_STAGES = ("classify", "packing", "encode", "side_rows", "streams", "fileset", "admission")
+_M_ENCODE_LANES = METRICS.counter(
+    "encode_device_lanes_total",
+    "lanes sealed through the batched device m3tsz encode kernel",
+)
+_M_ENCODE_FALLBACK = METRICS.counter(
+    "encode_host_fallback_lanes_total",
+    "sealing lanes the kernel cannot take (annotated values, sub-second "
+    "timestamps, mixed int/float, delta overflows) -- encoded by the host "
+    "codec, riding the same fileset and admission batch",
+)
+_M_ENCODE_BYTES = METRICS.counter(
+    "encode_device_bytes_total",
+    "compressed stream bytes produced by the device encode kernel",
+)
 _TODO_PEERS = "ROADMAP §A10 (peer bootstrap)"
 from .bootstrap import BootstrapProcess, ShardTimeRanges, uninitialized_source
 from .commitlog import CommitLog, CommitLogEntry
@@ -151,11 +178,26 @@ class Shard:
         cache: BlockCache | None = None,
         invalidator: CacheInvalidator | None = None,
         pool: ResidentPool | None = None,
+        ingest_options=None,
+        device="cuda",
     ) -> None:
         self.id = shard_id
         self.namespace = ns
         self.opts = opts
         self.base = base
+        # device column write buffer (ingest/): write batches accumulate
+        # into (series_lane, slot) planes on the device, sealed blocks
+        # encode there (ops/encode.py, kernel B-4) and are born resident --
+        # opt-in via Database(ingest_options=...)
+        self.device = device
+        self.ingest = None
+        if ingest_options is not None and ingest_options.enabled:
+            from ..ingest import ColumnWriteBuffer
+
+            self.ingest = ColumnWriteBuffer(ingest_options, opts.block_size_nanos,
+                                            device=device)
+        # host seconds of the warm flushes' seals, summed by stage
+        self.seal_seconds = dict.fromkeys(SEAL_STAGES, 0.0)
         # decoded-block cache (m3_tpu/cache/): sealed fileset blocks decode
         # once; the invalidator hooks write/flush/tick so nothing stale or
         # superseded stays resident
@@ -308,6 +350,8 @@ class Shard:
             if bs not in buf.buckets:
                 self._buffered_blocks[bs] = self._buffered_blocks.get(bs, 0) + 1
             buf.write(t_nanos, value, unit)
+            if self.ingest is not None:
+                self.ingest.append(sid, t_nanos, value, int(unit))
             self.invalidator.on_write(self.namespace, self.id, sid, bs)
 
     def _buffered_dec(self, block_start: int, n: int = 1) -> None:
@@ -529,12 +573,103 @@ class Shard:
 
     def warm_flush(self, flush_before_nanos: int) -> list[FilesetID]:
         """shard.go:2146 — write filesets for complete blocks, then evict;
-        the flushed filesets admit into the resident pool at seal."""
+        the flushed filesets admit into the resident pool at seal.
+
+        With device ingest on, sealed blocks encode through kernel B-4
+        (ops/encode.py) and are BORN resident: the fileset persists from the
+        device-encoded bytes and admission moves the pages device to device
+        (pool.admit_block_device) instead of re-reading and re-uploading
+        the fileset."""
         with self.lock:
-            flushed = self._warm_flush_locked(flush_before_nanos)
-            payload = self._collect_admission_locked(flushed)
+            flushed, device_payload = self._warm_flush_locked(flush_before_nanos)
+            t0 = time.perf_counter()
+            device_blocks = {(p[0], p[1]) for p in device_payload}
+            payload = self._collect_admission_locked(
+                [f for f in flushed if (f.block_start, f.volume) not in device_blocks])
         self._admit_payload(payload)
+        self._admit_device_payload(device_payload)
+        self.seal_seconds["admission"] += time.perf_counter() - t0
         return flushed
+
+    def _seal_encode_locked(self, bs: int, buckets: list):
+        """Device-encode one sealing block: ``buckets`` is ``[(sid,
+        BufferBucket)]``. Returns ``(series_streams, fileset_side_rows,
+        device_payload | None)`` where device_payload is ``(block_start,
+        volume, words, dev_items, host_items, chunk_k)`` admission input.
+        Ineligible lanes (annotated values, sub-second timestamps, mixed
+        int/float, overflows) fall back to the host codec and ride the SAME
+        admission batch as host items. Adds its host seconds by stage to
+        ``seal_seconds``."""
+        from ..ops import encode as dev
+
+        clock = time.perf_counter
+        t_start = clock()
+        if self.ingest is not None:
+            # release the sealed window's frame + clean/dirty accounting (the
+            # columns themselves are read off the canonical merged buckets; a
+            # clean lane's merge is a no-op)
+            self.ingest.seal_window(bs)
+        series: dict[bytes, bytes] = {}
+        side_rows: dict[bytes, object] = {}
+        host_items: list[tuple] = []
+        points = [bucket.merged_points() for _sid, bucket in buckets]
+        kinds = dev.classify_lanes(*(np.concatenate(col) for col in zip(*points)),
+                                   np.fromiter((len(p[0]) for p in points), np.int64, len(points)))
+        eligible: list[tuple] = []
+        for (sid, bucket), (t, v, _u), kind in zip(buckets, points, kinds.tolist()):
+            if kind == dev.KIND_NONE:
+                stream = bucket.merged_stream()
+                if stream:
+                    series[sid] = stream
+                    host_items.append((sid, stream, len(t)))
+            else:
+                eligible.append((sid, t, v, kind))
+        _M_ENCODE_FALLBACK.inc(len(host_items))
+        t_classify = clock()
+        stages = self.seal_seconds
+        stages["classify"] += t_classify - t_start
+        if not eligible:
+            return series, side_rows, None
+        pw = self.pool.options.page_words if self.pool is not None and self.pool.enabled else 1
+        lanes = [(c[1], c[2]) for c in eligible]
+        lane_kinds = np.asarray([c[3] for c in eligible], np.int8)
+        inp = dev.encode_inputs(lanes, lane_kinds, CHUNK_K, pw, self.device)
+        t_pack = clock()
+        res = dev.result_of(inp, dev.encode_planes(inp), lane_kinds)
+        t_encode = clock()
+        rows = dev.side_rows_for(res, lanes, bs)
+        t_side = clock()
+        streams = res.streams()
+        t_streams = clock()
+        stages["packing"] += t_pack - t_classify
+        stages["encode"] += t_encode - t_pack
+        stages["side_rows"] += t_side - t_encode
+        stages["streams"] += t_streams - t_side
+        _M_ENCODE_LANES.inc(len(eligible))
+        _M_ENCODE_BYTES.inc(int(res.nbytes.sum()))
+        dev_items = []
+        for m, (sid, _t, _v, _kind) in enumerate(eligible):
+            series[sid] = streams[m]
+            side_rows[sid] = rows[m]
+            dev_items.append((sid, m, int(res.nbytes[m]), int(res.n_chunks[m]),
+                              dev.lane_max_span(res, m), rows[m]))
+        return series, side_rows, (bs, 0, res.words, dev_items, host_items, CHUNK_K)
+
+    def _admit_device_payload(self, payload: list) -> int:
+        """Stage-2 admission of device-encoded seals (outside the shard
+        lock, like :meth:`_admit_payload`): pages move device to device,
+        no stream byte uploaded; host-fallback lanes of the same block ride
+        the same batch and pay the normal upload."""
+        if self.pool is None or not self.pool.enabled:
+            return 0
+        admitted = 0
+        for block_start, volume, words, items, host_items, chunk_k in payload:
+            res = self.pool.admit_block_device(
+                self.namespace, self.id, block_start, volume, words, items,
+                chunk_k=chunk_k, host_items=host_items,
+            )
+            admitted += res.admitted
+        return admitted
 
     def _warm_flush_locked(self, flush_before_nanos: int):
         blocks: dict[int, list] = {}
@@ -547,19 +682,32 @@ class Shard:
                 ):
                     blocks.setdefault(bs, []).append((sid, bucket))
         flushed = []
+        device_payload = []
+        stages = self.seal_seconds
         for bs, buckets in sorted(blocks.items()):
-            series = {
-                sid: stream
-                for sid, bucket in buckets
-                for stream in [bucket.merged_stream()]
-                if stream
-            }
+            if self.ingest is not None:
+                series, side_rows, dev_payload = self._seal_encode_locked(bs, buckets)
+            else:
+                t0 = time.perf_counter()
+                series = {
+                    sid: stream
+                    for sid, bucket in buckets
+                    for stream in [bucket.merged_stream()]
+                    if stream
+                }
+                side_rows, dev_payload = {}, None
+                stages["encode"] += time.perf_counter() - t0
             if not series:
                 continue
             fid = FilesetID(self.namespace, self.id, bs, volume=0)
-            write_fileset(self.base, fid, series, self.opts.block_size_nanos, CHUNK_K)
+            t0 = time.perf_counter()
+            write_fileset(self.base, fid, series, self.opts.block_size_nanos, CHUNK_K,
+                          side_rows=side_rows or None)
+            stages["fileset"] += time.perf_counter() - t0
             self._flushed_blocks.add(bs)
             flushed.append(fid)
+            if dev_payload is not None:
+                device_payload.append(dev_payload)
         if flushed:
             self._invalidate_filesets()
             self.invalidator.on_flush(self.namespace, self.id, flushed)
@@ -574,7 +722,7 @@ class Shard:
         # walking thousands of empty buckets per query
         for sid in [s for s, buf in self.series.items() if not buf.buckets]:
             del self.series[sid]
-        return flushed
+        return flushed, device_payload
 
     def cold_flush(self, flush_before_nanos: int) -> list[FilesetID]:
         """shard.go:2212 + persist/fs/merger.go — out-of-order writes into
@@ -717,6 +865,10 @@ class Shard:
                 self._buffered_dec(bs)
             if not buf.buckets:
                 del self.series[sid]
+        if self.ingest is not None:
+            for bs in self.ingest.open_windows():
+                if bs + self.opts.block_size_nanos <= expire_before:
+                    self.ingest.drop_window(bs)
         bsz = self.opts.block_size_nanos
         expired = [
             fid
@@ -745,6 +897,8 @@ class Namespace:
         invalidator: CacheInvalidator | None = None,
         pool: ResidentPool | None = None,
         index_store=None,
+        ingest_options=None,
+        device="cuda",
     ) -> None:
         self.name = name
         self.opts = opts
@@ -752,7 +906,7 @@ class Namespace:
         self.shards = [
             Shard(
                 i, name, opts, base, cache=cache, invalidator=invalidator,
-                pool=pool,
+                pool=pool, ingest_options=ingest_options, device=device,
             )
             for i in range(num_shards)
         ]
@@ -787,8 +941,6 @@ class Database:
         commitlog_sync: str = "interval",
         device="cuda",
     ) -> None:
-        if ingest_options is not None:
-            raise NotImplementedError(f"ingest_options: {_TODO_INGEST}")
         self.device = resolve_device(device)
         self.base = base_dir
         self.num_shards = num_shards
@@ -829,6 +981,10 @@ class Database:
             self.index_device_store = DeviceIndexStore(
                 index_device_options, device=self.device
             )
+        # device-side ingest (ingest/): write batches mirror into per-shard
+        # column planes on the device, so seal encodes there and admits born
+        # resident. Off by default -- opt-in via ingest_options.
+        self.ingest_options = ingest_options
         self.cache_invalidator = CacheInvalidator(self.block_cache, self.resident_pool)
         self._commitlogs: dict[str, CommitLog] = {}
         self.bootstrapped = False
@@ -870,6 +1026,8 @@ class Database:
                 invalidator=self.cache_invalidator,
                 pool=self.resident_pool,
                 index_store=self.index_device_store,
+                ingest_options=self.ingest_options,
+                device=self.device,
             )
             self.namespaces[name] = ns
             if self.commitlog_enabled:
@@ -1023,6 +1181,17 @@ class Database:
                         bucket._stream_cache = None
                         bucket._arrays_cache = None
                         applied.append(CommitLogEntry(sid, t, v))
+                    if sh.ingest is not None and items:
+                        # mirror the batch into the device column planes (one
+                        # vectorized append per shard, not per point); spilled
+                        # rows just lose the device-seal shortcut -- the bucket
+                        # append above stays the source of truth
+                        sh.ingest.append_batch(
+                            [e[0] for e in items],
+                            [e[1] for e in items],
+                            [e[2] for e in items],
+                            [unit_s] * len(items),
+                        )
             self._writes_counter(ns).inc(len(applied))
         finally:
             if touched:

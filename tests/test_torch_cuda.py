@@ -5,7 +5,8 @@ resident scan that feeds B1, R and B3 from device residency, the index
 kernels K1 and K2 with the index's device tier, the grouped
 reductions K3, the step-grid consolidation B-1 with the query plan
 over a Database on the card, and the aggregator tier's rollup reductions
-B-5a and B-5b with an Aggregator flush on the card.
+B-5a and B-5b with an Aggregator flush on the card, and the write path's
+encode B-4 with a device-ingest Database on the card.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -1444,3 +1445,95 @@ def test_cuda_aggregator_flush_matches_cpu():
             assert K.LAUNCHES["aggregate_dense"] - before["aggregate_dense"] == 8
             assert K.LAUNCHES["dense_quantiles"] - before["dense_quantiles"] == 8
     assert out[0] == out[1] and len(out[0]) > 10_000
+
+
+def _b4_lanes(m, n_max, seed):
+    """Seeded write-path lanes: ragged counts 1..n_max, int lanes (odd) and
+    float lanes (even) over every dod opcode, repeats and long gaps."""
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for i in range(m):
+        n = int(rng.integers(1, n_max + 1))
+        steps = rng.integers(1, 30, n)
+        steps[rng.random(n) < 0.05] = rng.integers(100, 200000)
+        t = (T0 + np.cumsum(steps) * 10**9).astype(np.int64)
+        if i % 2:
+            v = rng.integers(-5000, 5000, n).astype(np.float64)
+            v[rng.random(n) < 0.2] = 0.0
+            if i % 6 == 1:
+                v = np.cumsum(rng.integers(-2, 3, n)).astype(np.float64)
+        else:
+            v = rng.normal(0, 10, n)
+            v[rng.random(n) < 0.2] = np.pi
+            v[rng.random(n) < 0.02] = np.nan
+        lanes.append((t, v))
+    return lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_max,k,seed", [(1, 1, 32, 1), (33, 40, 8, 2), (1000, 200, 32, 3),
+                                            (517, 300, 5, 4), (4099, 720, 32, 5),
+                                            (256, 1100, 64, 6)])
+def test_cuda_b4_encode_matches_twin(m, n_max, k, seed):
+    """B-4 == its twin on the card on every output: the words of each row
+    (zero past its stream), total_bits, and chunk_offs / chunk_sigs with the
+    rows past each lane's last chunk; the streams equal the host codec."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.ops import encode as E
+
+    lanes = _b4_lanes(m, n_max, seed)
+    kinds = np.asarray([E.classify_lane(t, v, np.ones(len(t))).kind for t, v in lanes], np.int8)
+    keep = [i for i in range(m) if kinds[i] != E.KIND_NONE]
+    lanes, kinds = [lanes[i] for i in keep], kinds[keep]
+    inp = E.encode_inputs(lanes, kinds, k=k, round_words_to=512, device="cuda")
+    before = E.LAUNCHES["encode"]
+    got = E.encode_planes(inp)
+    torch.cuda.synchronize()
+    assert E.LAUNCHES["encode"] == before + 1
+    want = E.encode_reference(inp)
+    for name, a, b in zip(("words", "total_bits", "chunk_offs", "chunk_sigs"), got, want):
+        assert torch.equal(a, b), name
+    res = E.result_of(inp, got, kinds)
+    assert (res.n_chunks < res.chunk_offs.shape[0]).any() or res.chunk_offs.shape[0] == 1
+    for (t, v), stream in list(zip(lanes, res.streams()))[:64]:
+        assert stream == encode_series([int(x) for x in t], [float(x) for x in v])
+
+
+@pytest.mark.cuda
+def test_cuda_database_device_ingest_matches_host_seal(tmp_path):
+    """A device-ingest Database on the card writes the filesets of the host
+    seal byte for byte and admits its eligible lanes born resident."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import os
+
+    from m3_tpu_torch.ingest import IngestOptions
+    from m3_tpu_torch.ops import encode as E
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+
+    bsz = 2 * 3600 * 10**9
+    bs = T0 // bsz * bsz
+    entries = []
+    for i, (t, v) in enumerate(_b4_lanes(300, 200, 7)):
+        t = bs + (t - t[0]) % (bsz - 10**9) // 10**9 * 10**9
+        entries += [(f"s{i}".encode(), int(a), float(b)) for a, b in zip(t, v)]
+    files = {}
+    for name, ingest in (("host", None), ("dev", IngestOptions())):
+        db = Database(str(tmp_path / name), num_shards=4, commitlog_enabled=False,
+                      resident_options=ResidentOptions(max_bytes=1 << 26), ingest_options=ingest)
+        db.create_namespace("m", NamespaceOptions(block_size_nanos=bsz))
+        db.bootstrapped = True
+        before = E.LAUNCHES["encode"]
+        db.write_batch("m", entries)
+        db.flush("m", bs + bsz)
+        launched = E.LAUNCHES["encode"] - before
+        assert launched == (4 if ingest else 0)
+        st = db.resident_pool.stats()
+        assert (st["device_admissions"] > 0) == bool(ingest)
+        root = str(tmp_path / name)
+        files[name] = {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+                       for d, _, fs in os.walk(root) for f in fs}
+        db.close()
+    assert files["dev"] == files["host"] and files["host"]

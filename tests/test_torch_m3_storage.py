@@ -330,8 +330,19 @@ def test_query_ids_device_index_matches_host(shared_dbs):
 
 
 def test_left_out_options_raise_naming_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A6"):
-        Database(str(tmp_path), ingest_options=object())
+    # device ingest (ROADMAP §A6) is ported: every shard gets a column write
+    # buffer on the Database's device
+    from m3_tpu_torch.ingest import IngestOptions
+
+    ing = Database(str(tmp_path / "ingest"), num_shards=2, ingest_options=IngestOptions(lanes=8))
+    ing.create_namespace("m", NamespaceOptions())
+    for shard in ing.namespaces["m"].shards:
+        assert shard.ingest is not None and shard.ingest.options.lanes == 8
+        assert shard.ingest.device == torch.device("cpu")
+    ing.bootstrap()
+    ing.write("m", b"s", B0 + 10**9, 1.0)
+    assert sum(sh.ingest.stats()["appends"] for sh in ing.namespaces["m"].shards) == 1
+    ing.close()
     db = Database(str(tmp_path), num_shards=2)
     db.create_namespace("m", NamespaceOptions())
     with pytest.raises(NotImplementedError, match="ROADMAP §A10"):

@@ -199,7 +199,7 @@ def test_stats_keys_are_the_reference_subset():
     jst = JPool(JOptions(**_options())).stats()
     st = _pool().stats()
     # the read-through counter came with the Database wiring; the two device
-    # ingest keys stay 0 until the write path (ROADMAP §A6)
+    # ingest keys move only with born-resident admission (admit_block_device)
     assert set(st) == set(jst)
     assert st["readmissions"] == st["device_admissions"] == st["ingest_side_stage_bytes"] == 0
 
@@ -290,8 +290,21 @@ def test_options_validate_and_disabled_pool():
 
 def test_left_out_entry_points_raise():
     pool = _pool()
-    with pytest.raises(NotImplementedError, match="§A6"):
-        pool.admit_block_device("ns", 0, T0, 0, None, [])
+    # born-resident admission (ROADMAP §A6) is ported: one device-encoded lane
+    # admits device to device, no stream byte uploaded
+    from m3_tpu_torch.ops import encode as tenc
+
+    t = T0 + np.arange(1, 41, dtype=np.int64) * NANOS
+    res = tenc.encode_lanes([(t, np.arange(40.0))], [tenc.KIND_INT],
+                            round_words_to=pool.options.page_words, device="cpu")
+    side = tenc.side_rows_for(res, [(t, np.arange(40.0))], T0)
+    r = pool.admit_block_device("ns", 0, T0, 0, res.words, [
+        (b"d", 0, int(res.nbytes[0]), int(res.n_chunks[0]), tenc.lane_max_span(res, 0), side[0])])
+    assert r.complete and r.admitted == 1
+    assert pool.stats()["device_admissions"] == 1 and pool.stats()["upload_bytes"] == 0
+    e = pool.get(BlockKey("ns", 0, b"d", T0, 0))
+    got = pool._words[list(e.pages)].numpy().view(">u4").astype(np.uint32).tobytes()
+    assert got.startswith(res.streams()[0])
     keys = _admit_each(pool, [_stream([1.0])])
     with pytest.raises(NotImplementedError, match="§A8"):
         resident_scan_totals(pool, keys, mesh=object())
