@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--seed N] [--parent-b1 TREE/m3_tpu_torch/query/csrc/consolidate_grid.cu]
         [--parent-b7 TREE/m3_tpu_torch/query/functions/csrc/temporal_window.cu]
         [--parent-b5 TREE/m3_tpu_torch/aggregator/csrc/rollup.cu]
+        [--parent-b4 TREE/m3_tpu_torch/ops/csrc/encode.cu]
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
@@ -176,11 +177,17 @@ Phases (any failure exits non-zero):
              upload_lanes (page_words 512);
              B-4 == its twin on the card bit for bit on every output of every
              lane, the first 256 lanes' streams == the host codec's
-             encode_series; B-4 timed (CUDA events, median of 10, back to
-             back) beside its bytes bound (the records read once, the whole
-             [M, W] rows, zeros included, and the chunk tables written once),
-             the launch floor and the twin, with the host seconds of the
-             classification and the packing. Then two storage nodes on the
+             encode_series; its C entry into outputs filled with -1 gives
+             the same (every word of the rows written); B-4 timed (CUDA
+             events, median of 10, back to back) beside its bytes bound (the
+             records read once, the whole [M, W] rows, zeros included, and
+             the chunk tables written once), the launch floor and the twin,
+             with its launch shape (warps a block, blocks, shared memory,
+             registers and spills as ptxas reported them) and the host
+             seconds of the classification and the packing. With
+             --parent-b4 (another tree's encode.cu) that tree's B-4 is built
+             beside this one and timed in turns with it (parent, new, new,
+             parent) on the same planes, outputs equal bit for bit. Then two storage nodes on the
              card (8 shards, residency on, commit log on), one with
              ingest_options=IngestOptions() (the device seal) and one
              without (the host seal), each taking the same write_batch of
@@ -944,7 +951,8 @@ def ptxas_report(lib: str, kernel: str) -> str:
 
 def build_parent(source: str, lib: str):
     """Starts nvcc on another tree's source of library ``lib``
-    (``--parent-b1`` / ``--parent-b5`` / ``--parent-b7``: the parent commit's source,
+    (``--parent-b1`` / ``--parent-b4`` / ``--parent-b5`` / ``--parent-b7``: the parent
+    commit's source,
     unpacked beside this checkout in a directory .gitignore lists), with
     this checkout's flags, into build/kernels. Returns (process, library
     path)."""
@@ -1017,6 +1025,62 @@ def load_parent_b5(proc, out):
     lib.m3_dense_quantiles.argtypes = [P, P, I64, I64, P, I, P, P]
     lib.m3_dense_quantiles.restype = I
     return lib
+
+
+def load_parent_b4(proc, out):
+    """The parent's ``m3_encode_lanes`` once its build is done (this one's
+    arguments: t0, counts, float_lane, dod, vbits, m, t, k, w, c, words,
+    total_bits, chunk_offs, chunk_sigs, stream)."""
+    import ctypes
+
+    from m3_tpu_torch.ops import _build
+
+    fn = ctypes.CDLL(str(built(proc, out, "B-4"))).m3_encode_lanes
+    fn.argtypes = _build.SOURCES["encode"][2]["m3_encode_lanes"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def b4_outputs(inp, fill: int = 0):
+    """B-4's four outputs for ``inp``'s planes, on its device, filled with
+    ``fill``."""
+    import torch
+
+    T, M = inp.dod.shape
+    C = (T + inp.k - 1) // inp.k
+    return tuple(torch.full(shape, fill, dtype=torch.int32, device=inp.dod.device)
+                 for shape in ((M, inp.words), (M,), (C, M), (C, M)))
+
+
+def b4_call(fn, inp, outs) -> None:
+    """One B-4 launch through a C entry ``fn`` (this tree's or the
+    parent's) into ``outs``."""
+    import torch
+
+    T, M = inp.dod.shape
+    rc = fn(inp.t0.data_ptr(), inp.counts.data_ptr(), inp.float_lane.data_ptr(),
+            inp.dod.data_ptr(), inp.vbits.data_ptr(), M, T, inp.k, inp.words, outs[2].shape[0],
+            *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"a B-4 launch failed: CUDA error {rc}")
+
+
+def b4_turns(parent, inp) -> list:
+    """The parent commit's B-4 and this one's in turns (parent, new, new,
+    parent) on the same planes, each through its C entry into outputs
+    allocated once (this one's filled with -1 first, so that equal outputs
+    show it wrote every word): a median of 10 single launches and a
+    back-to-back run of 20 (CUDA events). All four outputs must be equal
+    bit for bit."""
+    import torch
+
+    from m3_tpu_torch.ops._build import load_library
+
+    new = load_library("encode").m3_encode_lanes
+    outs = {"parent": b4_outputs(inp), "new": b4_outputs(inp, -1)}
+    call = lambda who: b4_call(parent if who == "parent" else new, inp, outs[who])
+    same = lambda: all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["new"]))
+    return in_turns(call, same, "B-4")
 
 
 def b5_turns(parent, v, t, ok, qs=None) -> list:
@@ -3133,7 +3197,7 @@ def ingest_entries(n_series: int, n_points: int, b0: int, seed: int):
     return entries, want
 
 
-def phase_ingest(dev, kernels: list) -> None:
+def phase_ingest(dev, kernels: list, parent_b4=None) -> None:
     import shutil
     import tempfile
     from pathlib import Path
@@ -3145,6 +3209,7 @@ def phase_ingest(dev, kernels: list) -> None:
     from m3_tpu_torch.index.device import kernels as IK
     from m3_tpu_torch.ingest import IngestOptions
     from m3_tpu_torch.ops import encode as E
+    from m3_tpu_torch.ops._build import load_library
     from m3_tpu_torch.resident import ResidentOptions
     from m3_tpu_torch.storage.database import SEAL_STAGES, Database, NamespaceOptions
 
@@ -3187,6 +3252,14 @@ def phase_ingest(dev, kernels: list) -> None:
     for i, stream in enumerate(head.streams()):
         if stream != encode_series(t[i].tolist(), v[i].tolist()):
             raise AssertionError(f"[ingest] lane {i}'s stream differs from the host codec's")
+    # every word of the rows is the kernel's: into outputs filled with -1 it
+    # gives the same (its C entry, not a main-path launch)
+    poisoned = b4_outputs(inp, -1)
+    b4_call(load_library("encode").m3_encode_lanes, inp, poisoned)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, poisoned)):
+        raise AssertionError("[ingest] B-4 left words of its outputs unwritten")
+    del poisoned
     ms = cuda_ms(lambda: E.launch_encode(inp), 10)
     b2b = per_launch_ms(lambda: E.launch_encode(inp), 10)
     floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
@@ -3195,6 +3268,8 @@ def phase_ingest(dev, kernels: list) -> None:
     out_bytes = word_bytes + 2 * C * m * 4 + m * 4
     bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     b4_ms = statistics.median(ms)
+    shape = E.launch_shape(m)
+    turns = b4_turns(parent_b4, inp) if parent_b4 is not None else None
     log(f"[ingest] B-4 [{m:,} lanes x {n} points] (T_pad {T}, W {inp.words} words, k {inp.k}) "
         f"== twin bit for bit on words, total_bits, chunk_offs and chunk_sigs; the first 256 "
         f"lanes' streams == encode_series; {int(res.nbytes.sum()):,} stream bytes "
@@ -3204,6 +3279,15 @@ def phase_ingest(dev, kernels: list) -> None:
         f"{out_bytes / 1e9:.3f} GB written, {word_bytes / 1e9:.3f} GB of it the [M, W] rows, "
         f"zeros included; {bound_ms / b4_ms:.1%}), launch floor {floor_ms:.4f} ms, twin on the "
         f"card {twin_ms:.1f} ms")
+    log(f"[ingest] B-4 launch: {shape['warps']} warps a block (a lane a warp), "
+        f"{shape['blocks']:,} blocks ({shape['resident_blocks']:,} resident at once), "
+        f"{shape['smem_bytes']:,} B of shared memory a block, {shape['registers']} registers and "
+        f"{shape['local_bytes']} B of local memory a thread; ptxas: "
+        f"{ptxas_report('encode', 'encode_kernel')}")
+    if turns is not None:
+        log(f"[ingest] B-4 in turns with the parent's (C entries, outputs equal bit for bit, "
+            f"ms single [back to back]): {fmt_turns(turns)}; bound {bound_ms:.3f} ms, launch "
+            f"floor {floor_ms:.4f} ms")
     log(f"[ingest] host seconds: generate {gen_s:.2f}, classify_lanes {classify_s:.2f}, "
         f"pack_lanes {pack_s:.2f}, upload_lanes (copies + transposes on the card) {upload_s:.2f}; "
         f"input planes {(inp.dod.nbytes + inp.vbits.nbytes) / 1e9:.3f} GB on the card")
@@ -3302,6 +3386,8 @@ def phase_ingest(dev, kernels: list) -> None:
         "library_ms": None,
         "launch_floor_ms": floor_ms,
         "back_to_back_ms": b2b,
+        "launch_shape": shape,
+        **({"parent_turns": turns} if turns is not None else {}),
     })
 
 
@@ -3320,6 +3406,9 @@ def main() -> int:
                     help="another tree's aggregator/csrc/rollup.cu (a parent commit unpacked "
                          "beside this checkout): [aggregator] times its B-5a and B-5b in turns "
                          "with this one's")
+    ap.add_argument("--parent-b4", metavar="CU", default=None,
+                    help="another tree's ops/csrc/encode.cu (a parent commit unpacked beside "
+                         "this checkout): [ingest] times its B-4 in turns with this one's")
     ap.add_argument("--parent-b7", metavar="CU", default=None,
                     help="another tree's query/functions/csrc/temporal_window.cu (a parent "
                          "commit unpacked beside this checkout): [promql] times its B-7 in "
@@ -3340,10 +3429,12 @@ def main() -> int:
     parent_build = build_parent(args.parent_b1, "consolidate_grid") if args.parent_b1 else None
     parent_b7_build = build_parent(args.parent_b7, "temporal_window") if args.parent_b7 else None
     parent_b5_build = build_parent(args.parent_b5, "rollup") if args.parent_b5 else None
+    parent_b4_build = build_parent(args.parent_b4, "encode") if args.parent_b4 else None
     _build.build_all()
     parent_b1 = load_parent_b1(*parent_build) if parent_build else None
     parent_b7 = load_parent_b7(*parent_b7_build) if parent_b7_build else None
     parent_b5 = load_parent_b5(*parent_b5_build) if parent_b5_build else None
+    parent_b4 = load_parent_b4(*parent_b4_build) if parent_b4_build else None
     log(f"[build] {', '.join(_build.SOURCES)} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
@@ -3362,7 +3453,7 @@ def main() -> int:
     del storage
     phase_index(dev, kernels, args.seed)
     phase_database(dev, kernels, b2, b1)
-    phase_ingest(dev, kernels)
+    phase_ingest(dev, kernels, parent_b4)
     phase_aggregator(dev, kernels, parent_b5)
 
     smi = subprocess.run(

@@ -159,6 +159,9 @@ SOURCES = {
             # out total_bits, out chunk_offs, out chunk_sigs, stream
             "m3_encode_lanes": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I64, _I64, _P, _P, _P, _P,
                                 _P],
+            # m, out int64[6]: warps a block, blocks, resident blocks,
+            # shared memory, registers, local memory
+            "m3_encode_shape": [_I64, _P],
         },
     ),
 }

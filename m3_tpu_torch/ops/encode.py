@@ -38,8 +38,9 @@ significant-bits hysteresis as a loop over the records vectorised across
 lanes, an exclusive cumsum of the slot lengths for the offsets, and two
 scatter-adds a slot into big-endian words (slots never share a bit, so add
 is or). Every unsigned word is carried in int64 and masked, since torch on
-the CPU has no uint32 shifts. The kernel walks a lane in one thread
-instead (see the note in ``csrc/encode.cu``).
+the CPU has no uint32 shifts. The kernel runs a lane in one warp instead,
+32 records a step, their offsets by a shuffle prefix sum (see the note in
+``csrc/encode.cu``).
 """
 
 from __future__ import annotations
@@ -342,6 +343,21 @@ def launch_encode(inp: EncodeInput):
         raise launch_error("encode", rc, dod=inp.dod, vbits=inp.vbits, words=words)
     LAUNCHES["encode"] += 1
     return words, total, offs, sigs
+
+
+def launch_shape(M: int, device="cuda") -> dict:
+    """How kernel B-4 runs M lanes: warps a block (a lane a warp), the
+    blocks the launch starts and those the card holds at once, shared
+    memory a block, registers and local (spilled) bytes a thread."""
+    import ctypes
+
+    out = (ctypes.c_int64 * 6)()
+    with device_guard(torch.device(device)):
+        rc = load_library("encode").m3_encode_shape(M, out)
+    if rc != 0:
+        raise RuntimeError(f"encode launch_shape({M}): CUDA error {rc}")
+    keys = ("warps", "blocks", "resident_blocks", "smem_bytes", "registers", "local_bytes")
+    return dict(zip(keys, (int(x) for x in out)))
 
 
 # ---------------------------------------------------------------------------

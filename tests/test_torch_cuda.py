@@ -22,7 +22,7 @@ import torch
 from m3_tpu_torch.codec.m3tsz import encode_series
 from m3_tpu_torch.ops import chunked, fused
 from m3_tpu_torch.utils.synthetic import synthetic_mixed_streams, synthetic_streams
-from torch_streams import CONSOLIDATION_CASES, b7_patterns, group_streams
+from torch_streams import CONSOLIDATION_CASES, b4_lanes, b7_patterns, group_streams
 
 T0 = 1_600_000_000 * 10**9
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -1470,23 +1470,48 @@ def _b4_lanes(m, n_max, seed):
     return lanes
 
 
+# The first design's random batches (ids m-n_max-k-seed), then the edges of
+# the warp-a-lane design's steps of 32 records (torch_streams.b4_lanes):
+# lanes of 32 and 33 records, single records, a step of repeats, tracker
+# falls straddling a step, every dod opcode, k = 5 / 24 / 32 / 64, rows of
+# W words not a multiple of 4 (round_words_to 1), M = 1 and M = 17 (not a
+# multiple of a block's 16 lanes).
+_B4_CASES = [
+    pytest.param(("random", m, n_max, seed), k, 512, id=f"{m}-{n_max}-{k}-{seed}")
+    for m, n_max, k, seed in [(1, 1, 32, 1), (33, 40, 8, 2), (1000, 200, 32, 3), (517, 300, 5, 4),
+                              (4099, 720, 32, 5), (256, 1100, 64, 6), (17, 100, 32, 9)]
+] + [
+    pytest.param((name,), k, round_to, id=f"{name}-k{k}-w{round_to}")
+    for name, k, round_to in [
+        ("steps", 32, 512), ("steps", 32, 1), ("single", 32, 512), ("one_lane", 32, 512),
+        ("all_int", 32, 512), ("all_float", 32, 512), ("alternating", 32, 512),
+        ("alternating", 5, 512), ("alternating", 24, 512), ("alternating", 64, 512),
+        ("alternating", 32, 1), ("repeats", 32, 512), ("straddle", 32, 512), ("straddle", 5, 1),
+        ("opcodes", 32, 512), ("opcodes", 24, 1)]
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n_max,k,seed", [(1, 1, 32, 1), (33, 40, 8, 2), (1000, 200, 32, 3),
-                                            (517, 300, 5, 4), (4099, 720, 32, 5),
-                                            (256, 1100, 64, 6)])
-def test_cuda_b4_encode_matches_twin(m, n_max, k, seed):
+@pytest.mark.parametrize("case,k,round_to", _B4_CASES)
+def test_cuda_b4_encode_matches_twin(case, k, round_to):
     """B-4 == its twin on the card on every output: the words of each row
     (zero past its stream), total_bits, and chunk_offs / chunk_sigs with the
-    rows past each lane's last chunk; the streams equal the host codec."""
+    rows past each lane's last chunk; its C entry into outputs filled with
+    -1 gives the same (no word left unwritten); the streams equal the host
+    codec."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.ops import encode as E
+    from m3_tpu_torch.ops._build import load_library
 
-    lanes = _b4_lanes(m, n_max, seed)
+    lanes = _b4_lanes(*case[1:]) if case[0] == "random" else b4_lanes(case[0])
     kinds = np.asarray([E.classify_lane(t, v, np.ones(len(t))).kind for t, v in lanes], np.int8)
-    keep = [i for i in range(m) if kinds[i] != E.KIND_NONE]
+    keep = [i for i in range(len(lanes)) if kinds[i] != E.KIND_NONE]
     lanes, kinds = [lanes[i] for i in keep], kinds[keep]
-    inp = E.encode_inputs(lanes, kinds, k=k, round_words_to=512, device="cuda")
+    inp = E.encode_inputs(lanes, kinds, k=k, round_words_to=round_to, device="cuda")
+    T, M = inp.dod.shape
+    if round_to == 1:
+        assert inp.words % 4 != 0
     before = E.LAUNCHES["encode"]
     got = E.encode_planes(inp)
     torch.cuda.synchronize()
@@ -1494,9 +1519,17 @@ def test_cuda_b4_encode_matches_twin(m, n_max, k, seed):
     want = E.encode_reference(inp)
     for name, a, b in zip(("words", "total_bits", "chunk_offs", "chunk_sigs"), got, want):
         assert torch.equal(a, b), name
+    poisoned = tuple(torch.full_like(x, -1) for x in got)
+    rc = load_library("encode").m3_encode_lanes(
+        inp.t0.data_ptr(), inp.counts.data_ptr(), inp.float_lane.data_ptr(), inp.dod.data_ptr(),
+        inp.vbits.data_ptr(), M, T, k, inp.words, got[2].shape[0],
+        *(x.data_ptr() for x in poisoned), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and all(torch.equal(a, b) for a, b in zip(poisoned, want))
     res = E.result_of(inp, got, kinds)
-    assert (res.n_chunks < res.chunk_offs.shape[0]).any() or res.chunk_offs.shape[0] == 1
-    for (t, v), stream in list(zip(lanes, res.streams()))[:64]:
+    if case[0] == "random":  # rows past a lane's last chunk are reached
+        assert (res.n_chunks < res.chunk_offs.shape[0]).any() or res.chunk_offs.shape[0] == 1
+    for (t, v), stream in list(zip(lanes, res.streams()))[:128]:
         assert stream == encode_series([int(x) for x in t], [float(x) for x in v])
 
 

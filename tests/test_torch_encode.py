@@ -51,6 +51,7 @@ from m3_tpu_torch.resident import ResidentOptions, ResidentPool
 from m3_tpu_torch.storage.fs import FilesetID, FilesetReader, write_fileset
 from m3_tpu_torch.utils.instrument import Registry
 from m3_tpu_torch.utils.xtime import Unit
+from torch_streams import b4_lanes
 
 NANOS = 1_000_000_000
 BS = 1_700_000_000 * NANOS
@@ -497,10 +498,18 @@ def host_encode(tmp_path_factory):
 
 
 @pytest.mark.parametrize("k", [32, 5, 1])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ["steps", "straddle", "opcodes"])
 def test_b4_host_build_matches_twin(host_encode, name, k):
-    lanes = _lanes_case(name)
-    inp = tenc.encode_inputs(lanes, _kinds(lanes), k=k, round_words_to=16, device="cpu")
+    """The host build runs the kernel's steps of 32 records (lanes of a
+    warp one after the other) and stores every word of its rows: == the
+    twin, its words filled with -1 first; on the reference's cases and on
+    torch_streams.b4_lanes' lanes of 31-97 records, tracker falls
+    straddling a step and every dod opcode (records of five words), whose
+    rows are not a multiple of 4 words."""
+    own = name in ("steps", "straddle", "opcodes")  # rows of W words, not a multiple of 4
+    lanes = b4_lanes(name) if own else _lanes_case(name)
+    inp = tenc.encode_inputs(lanes, _kinds(lanes), k=k, round_words_to=1 if own else 16,
+                             device="cpu")
     T, M = inp.dod.shape
     C = (T + k - 1) // k
     out = (torch.full((M, inp.words), -1, dtype=torch.int32), torch.empty(M, dtype=torch.int32),

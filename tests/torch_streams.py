@@ -204,3 +204,83 @@ def b7_patterns(w, cols=97):
     rows["specials after a NaN prefix"] = r
     rows["signed zeros"] = np.where(np.arange(cols) % 3, 0.0, -0.0).astype(np.float32)
     return list(rows), np.ascontiguousarray(np.stack(list(rows.values())))
+
+
+def b4_lanes(name):
+    """Encode lanes ((times int64[n], values float64[n]) pairs, each INT or
+    FLOAT) at the edges of kernel B-4's steps of 32 records, named: lanes
+    of 31 to 65 records and of 1 or 2 ("steps"), single records
+    ("single"), one lane of 33 ("one_lane"), all INT, all FLOAT or
+    alternating batches of ragged lanes, a step whose every record repeats
+    and lanes that only repeat ("repeats"), int tracker falls whose five
+    records straddle the step boundary at records 27-35, one interrupted by
+    a raise, one by a mid, one to a sig of the step before, two in one step
+    ("straddle"), and every dod
+    opcode with both signs, the 32-bit one too ("opcodes")."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def times(n, steps=None):
+        st = rng.integers(1, 30, n) if steps is None else np.asarray(steps, np.int64)
+        return (T0 + np.cumsum(st) * 10**9).astype(np.int64)
+
+    def ints(n):
+        return rng.integers(-5000, 5000, n).astype(np.float64)
+
+    def floats(n):
+        return rng.normal(0, 10, n)
+
+    def ragged(kinds, m, n_max):
+        return [(times(n), kinds(i)(n)) for i, n in enumerate(rng.integers(1, n_max, m))]
+
+    if name == "steps":
+        return [(times(n), (ints if i % 2 else floats)(n))
+                for i, n in enumerate([31, 32, 33, 63, 64, 65, 1, 2, 32, 33, 96, 97])]
+    if name == "single":
+        vals = [0.0, -3.0, 7.0, 2.0**31 - 1, -(2.0**31 - 1), np.pi, np.nan, np.inf, -np.sqrt(2), 1e300]
+        return [(times(1), np.asarray([v])) for v in vals * 4]
+    if name == "one_lane":
+        return [(times(33), ints(33))]
+    if name == "all_int":
+        return ragged(lambda i: ints, 100, 300)
+    if name == "all_float":
+        return ragged(lambda i: floats, 100, 300)
+    if name == "alternating":
+        return ragged(lambda i: ints if i % 2 else floats, 100, 300)
+    if name == "repeats":
+        out = []
+        for kind, const in ((ints, 42.0), (floats, np.e)):
+            v = kind(100)
+            v[32:64] = v[31]  # records 32-63, a whole step, repeat
+            out += [(times(100), v), (times(100, np.full(100, 10)), v.copy()),
+                    (times(70), np.full(70, const)), (times(32), np.full(32, const))]
+        return out
+    if name == "straddle":
+        out = []
+        for start in range(27, 32):  # the fifth low is record start + 4: 31 .. 35
+            d = rng.integers(3000, 5000, 80) * rng.choice([-1, 1], 80)
+            d[start:start + 5] = rng.integers(1, 4, 5)
+            out.append((times(80), np.cumsum(d).astype(np.float64)))
+        d = rng.integers(3000, 5000, 80)
+        d[29:35] = [2, 3, 9000, 1, 2, 3]  # a raise inside the run does not end it
+        out.append((times(80), np.cumsum(d).astype(np.float64)))
+        d = rng.integers(3000, 5000, 80)
+        d[29:36] = [2, 3, 1, 4000, 1, 2, 3]  # a mid record ends the run
+        out.append((times(80), np.cumsum(d).astype(np.float64)))
+        d = rng.integers(5000, 9000, 80)
+        d[29:32] = 900  # the run's largest sig (10) in the step before its fall
+        d[32:34] = 2
+        out.append((times(80), np.cumsum(d).astype(np.float64)))
+        d = rng.integers(3000, 5000, 80)
+        d[32:37] = 1  # two falls in one step: to 1 bit, back up, down again
+        d[37] = 40
+        d[38:43] = 2
+        out.append((times(80), np.cumsum(d).astype(np.float64)))
+        return out
+    if name == "opcodes":
+        dods = [0, 5, -60, 63, -64, 200, -250, 255, -256, 1500, -2000, 2047, -2048, 100000,
+                -99990, 3, 0, 1, 2**20, -(2**20)]
+        deltas = np.abs(np.cumsum(np.asarray(dods * 4, np.int64))) + 1
+        n = len(deltas)
+        return [(times(n, deltas), ints(n)), (times(n, deltas), floats(n)),
+                (times(n, deltas[::-1]), ints(n)), (times(n, deltas[::-1]), floats(n))]
+    raise ValueError(name)
