@@ -7,7 +7,8 @@
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
-             nvcc, one process per source, all started together.
+             nvcc and the host codec library (m3_tpu_torch/native/m3tsz.cc)
+             with g++, one process per source, all started together.
   parity   — lane-aggregate kernels B1 (packed layout) and B3 (per-field
              layout, series-major) vs their plain PyTorch twins, per lane,
              on gauge, counter, float, mixed and special-value batches
@@ -158,8 +159,8 @@ Phases (any failure exits non-zero):
              resident_clear a scan of the 1,000 live series streams with the
              same bits, read-through re-admission brings every lane back, and
              the next scans are resident. The streamed scans read that slice
-             only: each streamed series pays its prescan in Python, timed on
-             its own. Restart: close, a new Database over the directory,
+             only: each streamed series pays its host prescan (the host codec
+             library's, and its lanes' assembly), timed on its own. Restart: close, a new Database over the directory,
              bootstrap; every acknowledged live write reads back equal and
              the sealed blocks are resident again. Kernel B-2 == its twin bit
              for bit here and in [resident] (1M series), K3 on subnormal
@@ -168,6 +169,17 @@ Phases (any failure exits non-zero):
              times, B-2's
              time beside its bound, its twin's and the series its direct
              route took, and the node's resident and index stats.
+  hostcodec — the host codec library (m3_tpu_torch/native/, the copy of
+             the JAX package's C++ codec under every host path of the storage
+             node, residency and the chunked lanes) at BASELINE config 3's
+             scale: [ingest]'s generator (seed 21), 100,000 series x 720
+             points. encode_batch, prescan_batch at k=24 (the C++ call and the
+             snapshot dicts timed apart), decode_batch (max_points 720) and
+             shard_batch (100,000 ids into 8 shards), each timed with its
+             series/s; every series decodes to its input times (and the int
+             lanes to their values). On the first 200 series the port's
+             Python codec runs the same calls, timed: stream bytes, snapshot
+             fields, triples (bit for bit) and shard ids must be identical.
   ingest   — the write path. B-4 (the batched M3TSZ encode) at the seal of
              BASELINE config 3's node: 100,000 lanes x 720 points (the 2 h
              block at 10 s) from bench_suite.py's encode generator (seed 21:
@@ -301,6 +313,8 @@ BLOCK = 2 * 3600 * 10**9  # the Database's default block size
 # [ingest]: B-4 at BASELINE config 3's seal (100,000 series x 720 points), and
 # two storage nodes, device seal and host seal, over one write_batch
 INGEST_LANES, INGEST_E2E_SERIES, INGEST_SEED = 100_000, 1_000, 21
+# [hostcodec]: the series on which the Python codec runs beside the library
+HOSTCODEC_CHECK = 200
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
          ("specials", "c", 32)]
 SPECIALS = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 5e-324, 1e-40, -1e-42,
@@ -2084,8 +2098,8 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
 
         # 2. live writes into the next block: buffers and the commit log.
         # The streamed scans read the live series only, h0 .. h{L-1}: a
-        # streamed series pays its host prescan in Python (PERF.md), so a
-        # streamed scan of the whole block would take minutes
+        # streamed series pays its host prescan (PERF.md), so a streamed
+        # scan of the whole block would take many seconds
         m_all = [Matcher("__name__", "=", "m3_scan")]
         digits = len(str(DB_LIVE_SERIES - 1))
         if DB_LIVE_SERIES != 10 ** digits:
@@ -2280,7 +2294,8 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
                 or n_readmit != s):
             raise AssertionError(f"[database] churn: {churn}, then {back}, {n_readmit} re-admitted, "
                                  f"the block {full}")
-        # the streamed path's host cost: each series' prescan in Python
+        # the streamed path's host cost: the series' prescan (the host
+        # codec library) and their assembly
         live_streams = [streams[stream_of[i]] for i in range(DB_LIVE_SERIES)]
         t0 = time.perf_counter()
         chunked.build_chunked(live_streams, k=CHUNK_K)
@@ -2288,7 +2303,8 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
         log(f"[database] eviction churn: resident_clear dropped {dropped}; the next scan of the "
             f"{DB_LIVE_SERIES} live series streamed with the same totals bit for bit, {n_readmit} "
             f"lanes re-admitted read-through, the scan after it resident again, and so is the "
-            f"scan of the block; the prescan alone (build_chunked, Python) of those "
+            f"scan of the block; the prescan alone (build_chunked: the library's prescan "
+            f"and assemble_chunked) of those "
             f"{DB_LIVE_SERIES} streams {prescan_s * 1e3:.1f} ms, "
             f"{prescan_s / DB_LIVE_SERIES * 1e3:.3f} ms a series")
 
@@ -3197,6 +3213,90 @@ def ingest_entries(n_series: int, n_points: int, b0: int, seed: int):
     return entries, want
 
 
+def phase_hostcodec() -> None:
+    """The host codec library (m3_tpu_torch/native/) at BASELINE config 3's
+    scale, each call timed with series/s, and on its first HOSTCODEC_CHECK
+    series the port's pure-Python codec with the same calls: every output
+    identical (stream bytes, snapshot fields, triples bit for bit, shard
+    ids)."""
+    from m3_tpu_torch import native
+    from m3_tpu_torch.codec.m3tsz import decode, encode_series
+    from m3_tpu_torch.ops.chunked import snapshot_stream
+    from m3_tpu_torch.utils.hash import shard_for
+
+    t_phase = time.perf_counter()
+    m, n, c = INGEST_LANES, N_POINTS, HOSTCODEC_CHECK
+    t, v = ingest_lanes(m, n, INGEST_SEED)
+    ids = [f"m3_scan,host=h{i},job=job-{i % QUERY_JOBS}".encode() for i in range(m)]
+    lib_s, py_s = {}, {}
+
+    t0 = time.perf_counter()
+    streams = native.encode_batch(t.reshape(-1), v.reshape(-1), np.full(m, n, np.int32))
+    lib_s["encode_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_streams = [encode_series(t[i].tolist(), v[i].tolist()) for i in range(c)]
+    py_s["encode_batch"] = time.perf_counter() - t0
+    if streams[:c] != py_streams:
+        bad = next(i for i in range(c) if streams[i] != py_streams[i])
+        raise AssertionError(f"[hostcodec] encode_batch: series {bad}'s bytes differ from "
+                             f"encode_series'")
+
+    t0 = time.perf_counter()
+    recs, counts = native.prescan_records(streams, k=K)
+    lib_s["prescan_batch C++"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snaps = native.snapshot_dicts(streams, recs, counts)
+    lib_s["prescan_batch dicts"] = time.perf_counter() - t0
+    n_snaps = int(counts.sum())
+    del recs
+    t0 = time.perf_counter()
+    py_snaps = [snapshot_stream(x, K) for x in streams[:c]]
+    py_s["prescan_batch"] = time.perf_counter() - t0
+    if snaps[:c] != py_snaps or n_snaps != m * (-(-n // K)):
+        raise AssertionError(f"[hostcodec] prescan_batch differs from snapshot_stream, or "
+                             f"{n_snaps} snapshots for {m} series of {n} points at k={K}")
+    del snaps
+
+    t0 = time.perf_counter()
+    triples = native.decode_batch(streams, max_points=n)
+    lib_s["decode_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_triples = [decode(x) for x in streams[:c]]
+    py_s["decode_batch"] = time.perf_counter() - t0
+    for i, (tt, vv, uu) in enumerate(triples):
+        if not np.array_equal(tt, t[i]) or (i % 2 and not np.array_equal(vv, v[i])):
+            raise AssertionError(f"[hostcodec] decode_batch: series {i} does not read back")
+    for i, dps in enumerate(py_triples):
+        want = (np.asarray([d.timestamp for d in dps], np.int64),
+                np.asarray([d.value for d in dps], np.float64),
+                np.asarray([int(d.unit) for d in dps], np.uint8))
+        if not all(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+                   for a, b in zip(triples[i], want)):
+            raise AssertionError(f"[hostcodec] decode_batch: series {i}'s triple differs from "
+                                 f"decode's")
+    del triples, py_triples
+
+    t0 = time.perf_counter()
+    shards = native.shard_batch(ids, DB_SHARDS)
+    lib_s["shard_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_shards = [shard_for(x, DB_SHARDS) for x in ids[:c]]
+    py_s["shard_batch"] = time.perf_counter() - t0
+    if shards[:c].tolist() != py_shards or not 0 <= shards.min() <= shards.max() < DB_SHARDS:
+        raise AssertionError("[hostcodec] shard_batch differs from utils/hash.shard_for")
+
+    nbytes = sum(len(x) for x in streams)
+    log(f"[hostcodec] {m:,} series x {n} points (ingest generator, seed {INGEST_SEED}), "
+        f"{nbytes:,} stream bytes, {n_snaps:,} snapshots at k={K}; the first {c} series == "
+        f"the Python codec's (bytes, snapshot fields, triples bit for bit, shard ids into "
+        f"{DB_SHARDS}); every series decodes to its input times (int lanes' values too)")
+    for name, sec in lib_s.items():
+        log(f"[hostcodec] library {name}: {sec:.3f} s, {m / sec:,.0f} series/s")
+    for name, sec in py_s.items():
+        log(f"[hostcodec] Python {name} ({c} series): {sec:.3f} s, {c / sec:,.0f} series/s")
+    log(f"[hostcodec] phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def phase_ingest(dev, kernels: list, parent_b4=None) -> None:
     import shutil
     import tempfile
@@ -3435,7 +3535,7 @@ def main() -> int:
     parent_b7 = load_parent_b7(*parent_b7_build) if parent_b7_build else None
     parent_b5 = load_parent_b5(*parent_b5_build) if parent_b5_build else None
     parent_b4 = load_parent_b4(*parent_b4_build) if parent_b4_build else None
-    log(f"[build] {', '.join(_build.SOURCES)} built in parallel in "
+    log(f"[build] {', '.join([*_build.SOURCES, *_build.HOST_SOURCES])} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
         log(f"[build] {lib}:\n{text.strip()}")
@@ -3452,6 +3552,7 @@ def main() -> int:
     phase_promql(dev, kernels, storage, parent_b7)
     del storage
     phase_index(dev, kernels, args.seed)
+    phase_hostcodec()
     phase_database(dev, kernels, b2, b1)
     phase_ingest(dev, kernels, parent_b4)
     phase_aggregator(dev, kernels, parent_b5)

@@ -1,29 +1,27 @@
 """Array reads of M3TSZ streams on the host.
 
-Port of ``m3_tpu/codec/native_read.py``. The reference decodes with its
-native batch decoder when that library is built; the port has no copy of
-that library yet (ROADMAP §A3, "host codec library"), so it decodes each
-stream with ``codec/m3tsz.decode`` and then merges exactly as the native
-route does: per-segment arrays, newest segment wins per timestamp, and
-within one segment the last of equal timestamps wins
-(``merge_segment_arrays``). Annotated streams return None here and go to
-the annotation-capable ``codec/iterator.MultiReaderIterator``, as in the
-reference.
+Port of ``m3_tpu/codec/native_read.py``. Segments decode in one host
+codec library call (``native.decode_batch``, the points of
+``codec/m3tsz.decode``) and merge per segment: newest segment wins per
+timestamp, and within one segment the last of equal timestamps wins
+(``merge_segment_arrays``). Annotated streams (flagged by the library)
+return None here and go to the annotation-capable
+``codec/iterator.MultiReaderIterator``, as in the reference.
 
-The reference's own pure-Python fallback differs on one edge: its
-uncached reads go through ``MultiReaderIterator``, which keeps the FIRST
-of equal timestamps within one segment (sub-second times that truncate to
-one time under unit SECOND), while its cached reads keep the last. The
-port follows the native route, which the reference runs wherever its
-library is built (ROADMAP §C).
+The reference's pure-Python fallback, which it takes only without its
+library, differs on one edge: its uncached reads go through
+``MultiReaderIterator``, which keeps the FIRST of equal timestamps within
+one segment (sub-second times that truncate to one time under unit
+SECOND). The port has no such fallback (ROADMAP §C).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .m3tsz import Datapoint, decode
+from .. import native
 from ..utils.xtime import Unit
+from .m3tsz import Datapoint
 
 
 def merge_segment_arrays(triples):
@@ -62,14 +60,10 @@ def decode_stream_arrays(stream: bytes):
             np.zeros(0, np.float64),
             np.zeros(0, np.uint8),
         )
-    dps = decode(stream)
-    if any(dp.annotation for dp in dps):
+    triples, flags = native.decode_batch([stream], with_flags=True)
+    if flags[0]:
         return None
-    return (
-        np.asarray([dp.timestamp for dp in dps], np.int64),
-        np.asarray([dp.value for dp in dps], np.float64),
-        np.asarray([int(dp.unit) for dp in dps], np.uint8),
-    )
+    return triples[0]
 
 
 def read_segments_arrays(segments, start=None, end=None):
@@ -79,12 +73,9 @@ def read_segments_arrays(segments, start=None, end=None):
     segs = [s for s in segments if s]
     if not segs:
         return None
-    triples = []
-    for seg in segs:
-        arrs = decode_stream_arrays(seg)
-        if arrs is None:
-            return None
-        triples.append(arrs)
+    triples, flags = native.decode_batch(segs, with_flags=True)
+    if flags.any():
+        return None
     t, v, u = merge_segment_arrays(triples)
     if start is not None:
         lo = int(np.searchsorted(t, start, side="left"))

@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels (nvcc into shared libraries with
-a plain C interface, loaded with ctypes).
+"""Build and load the port's native libraries (shared libraries with a plain
+C interface, loaded with ctypes): the CUDA kernels, compiled by nvcc, and
+the host codec library (``native/m3tsz.cc``), compiled by g++.
 
-Each source in ``SOURCES`` becomes its own library, compiled at first use
-into ``build/kernels/`` at the root of the checkout (listed in .gitignore)
-and named by a hash of the source and its flags, so an edited source is
-rebuilt (the headers in ``HEADERS``, which the sources include, are part
-of every hash). ``build_all`` starts one nvcc per source at once and waits for
-all of them. A failed build raises.
+Each source in ``SOURCES`` (nvcc) and ``HOST_SOURCES`` (g++) becomes its
+own library, compiled at first use into ``build/kernels/`` at the root of
+the checkout (listed in .gitignore) and named by a hash of the source and
+its flags, so an edited source is rebuilt (the headers in ``HEADERS``,
+which the CUDA sources include, are part of their hashes). ``build_all``
+starts one compiler per source at once and waits for all of them. The host
+library builds without nvcc, on the CPU too. A failed build raises.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ _COMMON = (
 HEADERS = (PKG / "csrc" / "launch.cuh",)
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_I32 = ctypes.c_int32
 
 # library -> (source, nvcc flags, {entry: argtypes}). The flags are part of
 # each kernel's contract with the reference's f32 arithmetic (see the note at
@@ -166,9 +169,49 @@ SOURCES = {
     ),
 }
 
+# library -> (source, g++ flags, {entry: (restype, argtypes)}). No
+# -march=native: a library named by a hash of its source and flags may be
+# loaded on another host than the one that built it. -ffp-contract=off: no
+# multiply and add fused into one rounding, so that the library's float
+# arithmetic is the Python codec's, operation by operation.
+HOST_SOURCES = {
+    "m3tsz": (
+        PKG / "native" / "m3tsz.cc",
+        ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-lpthread"),
+        {
+            # times, values, n, default_unit, units (or NULL), int_optimized,
+            # out, out_cap -> bytes, -(needed) or -1
+            "m3tsz_encode_series": (_I64, [_P, _P, _I32, _I, _P, _I, _P, _I64]),
+            # times, values, lengths, n_series, default_unit, int_optimized,
+            # out, out_cap, out_offsets, n_threads -> bytes, -(needed) or -1
+            "m3tsz_encode_batch": (_I64, [_P, _P, _P, _I32, _I, _I, _P, _I64, _P, _I32]),
+            # data, len_bytes, k, default_unit, int_optimized, snaps (49-byte
+            # records), max_snaps -> the snapshot count
+            "m3tsz_prescan": (_I32, [_P, _I64, _I32, _I, _I, _P, _I32]),
+            # data, offsets, n_series, k, default_unit, int_optimized, snaps,
+            # max_snaps_per, snap_counts, n_threads
+            "m3tsz_prescan_batch": (_I32, [_P, _P, _I32, _I32, _I, _I, _P, _I32, _P, _I32]),
+            # data, offsets, n_series, default_unit, int_optimized, cap,
+            # out_times, out_values, out_units, out_counts, out_flags,
+            # n_threads -> the number of streams that failed
+            "m3tsz_decode_batch": (_I32, [_P, _P, _I32, _I, _I, _I64, _P, _P, _P, _P, _P, _I32]),
+            # ids, times, n, window0, resolution, n_windows, out_keys,
+            # out_torder, n_threads -> 0 or -1 (a key past INT32_MAX)
+            "m3agg_window_keys": (_I32, [_P, _P, _I64, _I64, _I64, _I32, _P, _P, _I32]),
+            # keys, n, n_groups, counts, n_threads -> the largest count or -1
+            "m3agg_count": (_I32, [_P, _I64, _I64, _P, _I32]),
+            # keys, values, torder, n, n_groups, p, counts, out_vals, out_tor,
+            # n_threads
+            "m3agg_pack": (None, [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _I32]),
+            # ids, offsets, n, num_shards, out
+            "m3hash_shards": (None, [_P, _P, _I32, _I32, _P]),
+        },
+    ),
+}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, str] = {}  # nvcc's output (ptxas register/spill report) per library
+BUILD_LOG: dict[str, str] = {}  # the compiler's output (ptxas's register/spill report) per library
 
 
 def launch_error(kernel: str, rc: int, **tensors) -> RuntimeError:
@@ -191,35 +234,52 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def gxx_path() -> str:
+    cand = shutil.which("g++") or shutil.which("c++")
+    if cand is None:
+        raise RuntimeError("g++ not found: the host codec library cannot be built")
+    return cand
+
+
 def library_path(name: str) -> Path:
-    source, flags, _ = SOURCES[name]
-    text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    if name in HOST_SOURCES:
+        source, flags, _ = HOST_SOURCES[name]
+        text = source.read_bytes()
+    else:
+        source, flags, _ = SOURCES[name]
+        text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:
-    """Compile every library in ``names`` (default: all) that is not built
-    yet, one nvcc process per source, all started together. Returns the
-    library paths; raises if any build fails."""
-    names = list(SOURCES) if names is None else list(names)
+    """Compile every library in ``names`` (default: all, the host codec
+    library too) that is not built yet, one compiler process per source (nvcc
+    for ``SOURCES``, g++ for ``HOST_SOURCES``), all started together.
+    Returns the library paths; raises if any build fails."""
+    names = [*SOURCES, *HOST_SOURCES] if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        source, flags, _ = SOURCES[name]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
+        if name in HOST_SOURCES:
+            source, flags, _ = HOST_SOURCES[name]
+            # the source before the flags: -lpthread must follow it
+            cmd = [gxx_path(), str(source), *flags, "-o", str(tmp)]
+        else:
+            source, flags, _ = SOURCES[name]
+            cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
         running[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out, cmd[0])
     failed = []
-    for name, (proc, tmp, out) in running.items():
+    for name, (proc, tmp, out, compiler) in running.items():
         log, _ = proc.communicate()
         BUILD_LOG[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
+            failed.append(f"{name}: {os.path.basename(compiler)} failed ({proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -234,9 +294,14 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all([name])[name]))
-            for entry, argtypes in SOURCES[name][2].items():
-                fn = getattr(lib, entry)
-                fn.argtypes = argtypes
-                fn.restype = _I64 if entry.endswith("_bytes") else ctypes.c_int
+            if name in HOST_SOURCES:
+                for entry, (restype, argtypes) in HOST_SOURCES[name][2].items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes, fn.restype = argtypes, restype
+            else:
+                for entry, argtypes in SOURCES[name][2].items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = _I64 if entry.endswith("_bytes") else ctypes.c_int
             _libs[name] = lib
         return lib

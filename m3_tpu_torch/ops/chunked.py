@@ -3,7 +3,9 @@
 Port of ``m3_tpu/ops/chunked.py``. Streams are split into chunks of k
 records; each chunk carries a snapshot of the decoder state at its start,
 so the device decodes S×C independent chunk-lanes of at most k records
-each. The host half (prescan, side tables) is numpy. The device half
+each. The host half is the prescan (``build_chunked`` runs the host codec
+library's, ``native.prescan_batch``; ``snapshot_stream`` is its pure-Python
+plain version) and the numpy side tables. The device half
 decodes packed lanes (``ops/fused.pack_lanes``) to per-record timestamps
 and value bits: ``decode_chunked_lanes`` launches kernel R for CUDA tensors
 and runs its twin for CPU tensors. The lane decode + fold is
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..codec.m3tsz import DEFAULT_INT_OPTIMIZATION, ReaderIterator
 from ..utils.xtime import Unit, initial_time_unit
 from . import decode as D
@@ -298,11 +301,11 @@ def build_chunked(
     default_unit: Unit = Unit.SECOND,
     min_window_words: int = 0,
 ) -> ChunkedBatch:
-    """Prescan (pure Python, snapshot_stream) + assemble."""
-    snaps = [
-        snapshot_stream(d, k, int_optimized=int_optimized, default_unit=default_unit)
-        for d in streams
-    ]
+    """Prescan (the host codec library, ``native.prescan_batch``: the
+    snapshots ``snapshot_stream`` gives) + assemble."""
+    snaps = native.prescan_batch(
+        streams, k=k, default_unit=int(default_unit), int_optimized=int_optimized
+    )
     return assemble_chunked(streams, snaps, k, min_window_words=min_window_words)
 
 

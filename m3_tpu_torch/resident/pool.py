@@ -34,8 +34,9 @@ pages as kernel B-4 (``ops/encode.py``) left them on the device and writes
 them device to device; only their side rows and the block's host-fallback
 lanes cross from the host.
 
-Left out: the native batch prescan (the port prescans with
-``ops/chunked.snapshot_stream``).
+Items that arrive without their snapshots are prescanned in one host codec
+library call (``native.prescan_batch``) before any lock, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..cache.block_cache import BlockKey
 from ..ops.sideplane import SIDE_WORDS as N_SIDE_PLANES
 from ..ops.sideplane import pack_side_rows
@@ -752,9 +753,7 @@ class ResidentPool:
 
     @staticmethod
     def _prescan(streams: list, chunk_k: int) -> list:
-        from ..ops.chunked import snapshot_stream
-
-        return [snapshot_stream(s, chunk_k) for s in streams]
+        return native.prescan_batch(streams, k=chunk_k)
 
     def _stage(self, survivors: list):
         """Host staging of a batch: (pages u32[P, page_words], their page

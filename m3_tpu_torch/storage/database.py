@@ -15,10 +15,10 @@ inverted index (``index/``, with the device tier of K1/K2 when
 on ``device`` (default the card; ``"cpu"`` runs the kernels' twins, as the
 tests do).
 
-Without a native host codec the port routes series ids to shards one at a
-time (``utils/hash.shard_for``), the reference's route without its native
-library, and decodes reads with ``codec/m3tsz`` in Python, merged as the
-reference's native route merges them (``codec/native_read.py``).
+As in the reference, the host codec library (``native/``) routes a write
+batch's series ids to shards in one murmur3 call (``native.shard_batch``),
+and bootstrap's unique commit-log ids in another; reads decode through it
+and merge per segment (``codec/native_read.py``).
 
 With ``ingest_options`` (device-side ingest), every write also lands in
 its shard's ``ingest/ColumnWriteBuffer``, and a warm flush encodes each
@@ -45,7 +45,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..cache import BlockCache, BlockKey, CacheInvalidator, CacheOptions, DecodedBlock
 from ..codec.iterator import MultiReaderIterator
 from ..codec.m3tsz import Datapoint, Encoder, decode
@@ -136,9 +136,11 @@ from .snapshot import read_latest_snapshot, remove_snapshots, write_snapshot
 @functools.lru_cache(maxsize=1 << 20)
 def _shard_index(sid: bytes, num_shards: int) -> int:
     """``utils/hash.shard_for``, remembered for the last 1M series ids: the
-    pure-Python murmur3 costs tens of microseconds an id, and every write
-    and every matched series of a query routes through it (the reference
-    hashes a whole batch in its native library instead)."""
+    pure-Python murmur3 costs tens of microseconds an id, and the single-id
+    routes (reads, a query's matched series, ``Namespace.shard_for``) go
+    through it. Write batches and bootstrap hash all their ids in one host
+    codec library call instead (``native.shard_batch``), as the reference
+    does."""
     return shard_for(sid, num_shards)
 
 
@@ -1121,15 +1123,15 @@ class Database:
             raise DiskFullError(f"commit log disk full: {ns}")
         limit_on = self._new_series_limit > 0
         unit_s = int(Unit.SECOND)
-        # shard routing one id at a time (the reference's route without
-        # its native batch hash)
+        # shard routing for the whole batch in one murmur3 call of the host
+        # codec library
+        shard_ids = native.shard_batch([e[0] for e in entries], namespace.num_shards)
         by_shard: dict[int, tuple] = {}
-        ns_shard_for = namespace.shard_for
-        for e in entries:
-            sh = ns_shard_for(e[0])
-            rec = by_shard.get(sh.id)
+        shards = namespace.shards
+        for e, si in zip(entries, shard_ids.tolist()):
+            rec = by_shard.get(si)
             if rec is None:
-                rec = by_shard[sh.id] = (sh, [])
+                rec = by_shard[si] = (shards[si], [])
             rec[1].append(e)
         applied: list[CommitLogEntry] = []
         cache = self.block_cache
@@ -1790,9 +1792,11 @@ class Database:
         with self.lock:
             wal_entries = CommitLog.replay(self._commitlog_dir(name))
             # replay hashes every entry's sid up to three times across the
-            # bootstrap passes: route each UNIQUE sid once, then the passes
-            # dict-lookup
-            shard_of = {sid: ns.shard_for(sid) for sid in {e.series_id for e in wal_entries}}
+            # bootstrap passes: route all UNIQUE sids in one murmur3 call of
+            # the host codec library, then the passes dict-lookup
+            uniq = list({e.series_id for e in wal_entries})
+            shard_of = dict(zip(uniq, (ns.shards[si] for si in
+                                       native.shard_batch(uniq, ns.num_shards).tolist())))
             for shard in shards:
                 for fid in shard.filesets():
                     target.add(shard.id, fid.block_start)

@@ -14,9 +14,9 @@ prescan.
 
 A copy of ``m3_tpu/storage/fs.py``: the files are byte for byte the
 reference's, so filesets written by either package read in the other. The
-chunk prescan runs ``ops/chunked.snapshot_stream`` (the reference's route
-without its native library). The live-migration raw-file surface waits for
-the cluster slice (ROADMAP §A10).
+chunk prescan is one host codec library call a fileset
+(``native.prescan_batch``), as in the reference. The live-migration
+raw-file surface waits for the cluster slice (ROADMAP §A10).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..utils.instrument import DEFAULT as METRICS
 from .faults import DISK, DiskFullError, crash_point
 
@@ -158,10 +159,9 @@ def write_fileset(
     need = [i for i, sid in enumerate(ids) if sid not in side_rows]
     all_snaps: list = [None] * len(ids)
     if need:
-        from ..ops.chunked import snapshot_stream
-
-        for i in need:
-            all_snaps[i] = snapshot_stream(series[ids[i]], chunk_k)
+        scanned = native.prescan_batch([series[ids[i]] for i in need], k=chunk_k)
+        for i, snaps in zip(need, scanned):
+            all_snaps[i] = snaps
     from ..ops.sideplane import pack_side_rows
 
     # side-file version for THIS fileset: v3 packed rows when every

@@ -1,9 +1,9 @@
 """Per-series in-memory buffer: block-windowed encoders with warm/cold writes.
 
-A copy of ``m3_tpu/storage/series.py``. Without a native host codec the
-port encodes buffers with ``codec/m3tsz.py`` (the reference's native
-encoder writes the same bytes) and decodes them through
-``codec/native_read.py``.
+A copy of ``m3_tpu/storage/series.py``. A bucket's merged stream is
+encoded by the host codec library (``native.encode_one``, the bytes of
+``codec/m3tsz.py``'s encoder) and decoded through ``codec/native_read.py``,
+as in the reference.
 
 Reference: M3's src/dbnode/storage/series/ — dbSeries.Write
 (series.go:289) routes datapoints into dbBuffer buckets per block window
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from ..codec.m3tsz import Datapoint, Encoder, decode
+from .. import native
+from ..codec.m3tsz import Datapoint, decode
 from ..utils.xtime import Unit
 
 NANOS = 1_000_000_000
@@ -73,16 +74,13 @@ class BufferBucket:
 
     def merged_stream(self) -> bytes:
         """Canonical m3tsz stream of the merged point set (the reference's
-        bucket merge output)."""
+        bucket merge output), encoded by the host codec library."""
         if self._stream_cache is not None:
             return self._stream_cache
         if not self.times:
             return b""
         t, v, u = self.merged_points()
-        enc = Encoder(int(t[0]))
-        for tt, vv, uu in zip(t, v, u):
-            enc.encode(int(tt), float(vv), unit=Unit(int(uu)))
-        stream = enc.stream()
+        stream = native.encode_one(t, v, u)
         self._stream_cache = stream
         return stream
 

@@ -1,15 +1,17 @@
 """Synthetic M3TSZ series for benches and tests.
 
 Port of ``m3_tpu/utils/synthetic.py``: the same numpy-seeded generators, so
-a seed gives byte-identical streams in both packages. Encoding runs through
-this package's pure-Python codec (the JAX package may use its native
-encoder; the bytes are the same).
+a seed gives byte-identical streams in both packages. ``synthetic_streams``
+encodes through the host codec library (``native.encode_batch``), as the
+reference does; the mixed generator's per-series classes run the Python
+encoder, as there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..codec.m3tsz import Encoder, encode_series
 from .xtime import Unit
 
@@ -50,10 +52,10 @@ def synthetic_streams(
         all_v = np.cumsum(rng.integers(0, 100, (n_unique, n_points)), axis=1).astype(np.float64)
     else:
         all_v = rng.normal(0, 1, (n_unique, n_points))
-    return [
-        encode_series(all_t[i].tolist(), all_v[i].tolist(), unit=unit)
-        for i in range(n_unique)
-    ]
+    return native.encode_batch(
+        all_t.ravel(), all_v.ravel(), np.full(n_unique, n_points, np.int32),
+        default_unit=int(unit),
+    )
 
 
 def synthetic_mixed_streams(

@@ -6,7 +6,8 @@ kernels K1 and K2 with the index's device tier, the grouped
 reductions K3, the step-grid consolidation B-1 with the query plan
 over a Database on the card, and the aggregator tier's rollup reductions
 B-5a and B-5b with an Aggregator flush on the card, and the write path's
-encode B-4 with a device-ingest Database on the card.
+encode B-4 with a device-ingest Database on the card; B1 and R on lanes
+that the host codec library prescanned.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -95,6 +96,29 @@ def test_cuda_records_kernel_matches_twin(name):
     for f in ("ts", "bits", "point_is_float", "mult", "valid"):
         assert torch.equal(getattr(got, f).reshape(p.n, 16), getattr(want, f)), f
     assert torch.equal(got.err, want.err.reshape(4096, c).any(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gauge", "mixed", "specials"])
+def test_cuda_library_prescan_feeds_b1_and_r(name):
+    """build_chunked prescans with the host codec library: B1 and R on its
+    lanes give the outputs they give on lanes assembled from the Python
+    prescan (snapshot_stream)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    streams = _streams(name)
+    lib = chunked.build_chunked(streams, k=24)
+    plain = chunked.assemble_chunked(streams, [chunked.snapshot_stream(s, 24) for s in streams], 24)
+    outs = []
+    for batch in (lib, plain):
+        p = fused.pack_lanes(batch, order="c", rows=8, device="cuda", n_series=4096)
+        agg = fused.lane_aggregates(p.windows, p.lanes, p.tile_flags, n=p.n, k=24)
+        q = fused.pack_lanes(batch, order="s", rows=8, device="cuda", n_series=4096)
+        rec = chunked.decode_chunked(q.windows, q.lanes, 4096, batch.num_chunks, 24)
+        outs.append((agg, rec))
+    torch.cuda.synchronize()
+    _assert_identical(outs[0][0], outs[1][0])
+    _assert_records(outs[0][1], outs[1][1])
 
 
 @pytest.mark.cuda
