@@ -169,6 +169,27 @@ Phases (any failure exits non-zero):
              times, B-2's
              time beside its bound, its twin's and the series its direct
              route took, and the node's resident and index stats.
+  admission — on [database]'s node after its restart (no new data):
+             Engine(M3Storage, scheduler=QueryScheduler(max_inflight=2,
+             max_queue=8), tenant_enforcers=TenantEnforcers(noisy:
+             max_series=1,000)) on the card, 12 threads under the tenants
+             alpha, beta and noisy, each issuing [database]'s two warm
+             plan-served queries 6 times, with every kernel profiler at
+             sample_rate 1 and a StackSampler at default_hz(). Each outcome
+             is the plain engine's result bit for bit, a QueryLimitError
+             (noisy only) or a QueryShedError with a reason of the
+             vocabulary; the ledger's queries, limit rejections and sheds and
+             m3tpu_query_shed_total by reason equal what the threads saw;
+             the scheduler ends with 0 in flight; each record's
+             device_dispatches is its one query_plan dispatch (0 when
+             coalesced) plus B2's temporal_fused one; the tenants'
+             decode_seconds sum to the change in the kernel_dispatch_seconds
+             histograms' sums. Prints per kernel the sampled dispatches'
+             count and median seconds beside their CUDA-event ms, a warm
+             query's latency at sample_rate 0 and 1 in turns,
+             collect_device_memory(db) (checked against the pool and the
+             index) beside torch.cuda.max_memory_allocated(), and the
+             sampler's samples, share in the query path and errors (0).
   hostcodec — the host codec library (m3_tpu_torch/native/, the copy of
              the JAX package's C++ codec under every host path of the storage
              node, residency and the chunked lanes) at BASELINE config 3's
@@ -2362,6 +2383,7 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
             f"{DB_LIVE_SERIES} live series {streamed_s * 1e3:.1f} ms (one run, the re-admission "
             f"of {n_readmit} lanes included), over both blocks {both_s * 1e3:.1f} ms (one run)")
         log(f"[database] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        phase_admission(dev, db, queries, start, end)
         db.close()
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -2399,6 +2421,227 @@ def phase_database(dev, kernels: list, b2_resident: dict, b1_query: dict) -> Non
         "library_ms": None,
         "launch_floor_ms": b1_query["floor_ms"],
     })
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+# [admission]: tenants, their threads, the queries each thread repeats, and
+# noisy's series ceiling (below the queries' 100,000 matched series)
+ADMISSION_TENANTS = ("alpha", "beta", "noisy")
+ADMISSION_THREADS, ADMISSION_REPEATS, NOISY_MAX_SERIES = 12, 6, 1_000
+
+
+def phase_admission(dev, db, queries: dict, start: int, end: int) -> None:
+    import threading
+
+    import torch
+
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.ops import chunked, fused
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.profiling import StackSampler, collect_device_memory, default_hz
+    from m3_tpu_torch.query import engine as E
+    from m3_tpu_torch.query import plan as qplan
+    from m3_tpu_torch.query import scheduler as S
+    from m3_tpu_torch.query import stats, tenants
+    from m3_tpu_torch.query.cost import QueryLimitError, QueryLimits
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+    from m3_tpu_torch.query.m3_storage import M3Storage
+    from m3_tpu_torch.utils.instrument import DEFAULT as METRICS
+    from m3_tpu_torch.utils.instrument import Registry
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    profs = (qplan.PROF, TF._JIT, IK.PROFILER, fused.PROFILER_PACKED, fused.PROFILER_FUSED,
+             chunked.PROFILER, scan.RESIDENT_CHUNKED_PROF)
+    # the plain engine's results, and the admission engine's plans warmed
+    plain = E.Engine(M3Storage(db, "m3"), device=dev)
+    want = {fn: plain.query_range(q, start, end, STEP) for fn, q in queries.items()}
+    sched = S.QueryScheduler(max_inflight=2, max_queue=8)
+    enforcers = tenants.TenantEnforcers({"noisy": QueryLimits(max_series=NOISY_MAX_SERIES)})
+    eng = E.Engine(M3Storage(db, "m3"), scheduler=sched, tenant_enforcers=enforcers, device=dev)
+    for q in queries.values():
+        eng.query_range(q, start, end, STEP)
+
+    def hist_sums():
+        fam = METRICS.collect()["m3tpu_kernel_dispatch_seconds"]["children"]
+        return {c["labels"]["kernel"]: c["sum"] for c in fam}
+
+    def shed_counts():
+        fam = METRICS.collect().get("m3tpu_query_shed_total", {"children": []})["children"]
+        out = {}
+        for c in fam:
+            out[c["labels"]["reason"]] = out.get(c["labels"]["reason"], 0) + c["value"]
+        return out
+
+    ledger, ring = tenants.TenantLedger(max_tenants=16, registry=Registry(prefix="m3tpu_")), \
+        stats.SlowQueryRing(4 * ADMISSION_THREADS * ADMISSION_REPEATS * len(queries))
+    old = (tenants.LEDGER, stats.RING, [p.sample_rate for p in profs])
+    tenants.LEDGER, stats.RING = ledger, ring
+    sampler_reg = Registry(prefix="m3tpu_")
+    sampler = StackSampler(hz=default_hz(), instance="admission", registry=sampler_reg)
+    outcomes, errors = [], []
+    try:
+        for p in profs:
+            p.sample_rate = 1.0
+        n_samples = {p.kernel: len(p.device_samples) for p in profs}
+        sums0, sheds0 = hist_sums(), shed_counts()
+        barrier = threading.Barrier(ADMISSION_THREADS)
+
+        def worker(i):
+            tenant = ADMISSION_TENANTS[i % len(ADMISSION_TENANTS)]
+            try:
+                barrier.wait(30)
+                with tenants.tenant_context(tenant):
+                    for _ in range(ADMISSION_REPEATS):
+                        for fn, q in queries.items():
+                            try:
+                                r = eng.query_range(q, start, end, STEP)
+                                same = ([m.tags for m in r.metas] == [m.tags for m in want[fn].metas]
+                                        and same_bits(r.values, want[fn].values))
+                                outcomes.append((tenant, fn, "ok" if same else "differs"))
+                            except QueryLimitError as exc:
+                                outcomes.append((tenant, fn, f"limit:{exc.scope}"))
+                            except S.QueryShedError as exc:
+                                outcomes.append((tenant, fn, f"shed:{exc.reason}"))
+            except Exception as exc:  # surfaced below
+                errors.append(f"{tenant}: {type(exc).__name__}: {exc}")
+
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+                   for i in range(ADMISSION_THREADS)]
+        sampler.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        sampler.stop()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"[admission] threads failed: {errors[:3]}")
+        sums1, sheds1 = hist_sums(), shed_counts()
+        samples = {p.kernel: list(p.device_samples)[n_samples[p.kernel]:] for p in profs}
+    finally:
+        for p, r in zip(profs, old[2]):
+            p.sample_rate = r
+        tenants.LEDGER, stats.RING = old[0], old[1]
+        sampler.stop()
+
+    # 1. outcomes and their reconciliation
+    total = ADMISSION_THREADS * ADMISSION_REPEATS * len(queries)
+    kinds = {}
+    for tenant, _fn, what in outcomes:
+        kinds.setdefault(tenant, {}).setdefault(what, 0)
+        kinds[tenant][what] += 1
+    bad = [o for o in outcomes if not (
+        o[2] == "ok" or (o[2] == "limit:tenant" and o[0] == "noisy")
+        or (o[2].startswith("shed:") and o[2][5:] in (S.SHED_QUEUE_FULL, S.SHED_OVERLOAD,
+                                                      S.SHED_DEADLINE)))]
+    noisy_ok = kinds.get("noisy", {}).get("ok", 0)
+    if len(outcomes) != total or bad or noisy_ok:
+        raise AssertionError(f"[admission] outcomes: {len(outcomes)} of {total}, unexpected "
+                             f"{bad[:3]}, noisy served {noisy_ok}")
+    dump = {r["tenant"]: r["total"] for r in ledger.dump()["tenants"]}
+    for tenant in ADMISSION_TENANTS:
+        seen = kinds.get(tenant, {})
+        n_limit = seen.get("limit:tenant", 0)
+        n_shed = sum(v for k, v in seen.items() if k.startswith("shed:"))
+        row = dump.get(tenant, {})
+        if (row.get("queries"), row.get("limit_rejections"), row.get("sheds")) != (
+                sum(seen.values()), n_limit, n_shed):
+            raise AssertionError(f"[admission] ledger for {tenant}: {row} vs outcomes {seen}")
+    by_reason = {}
+    for _t, _fn, what in outcomes:
+        if what.startswith("shed:"):
+            by_reason[what[5:]] = by_reason.get(what[5:], 0) + 1
+    counted = {k: v - sheds0.get(k, 0) for k, v in sheds1.items() if v - sheds0.get(k, 0)}
+    if counted != by_reason:
+        raise AssertionError(f"[admission] query_shed_total by reason {counted} != {by_reason}")
+    if sched.snapshot()["inflight"] != 0:
+        raise AssertionError(f"[admission] scheduler snapshot at the end: {sched.snapshot()}")
+    # 2. dispatches per record: one query_plan (none when coalesced) and B2's
+    records = ring.dump()
+    if len(records) != total:
+        raise AssertionError(f"[admission] {len(records)} records for {total} queries")
+    wrong = []
+    for r in records:
+        plan = 0 if r["planCoalesced"] else 1
+        if r["queueState"] == "shed":
+            want_d = 0
+        elif r["limitExceeded"]:
+            want_d = plan
+        else:
+            want_d = plan + 1
+            if r["planHits"] + r["planCoalesced"] != 1 or r["planFallbacks"]:
+                wrong.append(r)
+                continue
+        if r["deviceDispatches"] != want_d:
+            wrong.append(r)
+    if wrong:
+        raise AssertionError(f"[admission] device_dispatches off on {len(wrong)} records, e.g. "
+                             f"{ {k: wrong[0][k] for k in ('tenant', 'queueState', 'planHits', 'planCoalesced', 'limitExceeded', 'deviceDispatches')} }")
+    coalesced = sum(1 for r in records if r["planCoalesced"])
+    # 3. device seconds: every sampled dispatch ran inside a tenant context
+    decode = {t: dump.get(t, {}).get("decode_seconds", 0.0) for t in ADMISSION_TENANTS}
+    hist = sum(v - sums0.get(k, 0.0) for k, v in sums1.items())
+    if min(decode.values()) <= 0 or abs(sum(decode.values()) - hist) > 1e-9 * hist:
+        raise AssertionError(f"[admission] tenants' decode_seconds {decode} (sum "
+                             f"{sum(decode.values())!r}) vs the histograms' {hist!r}")
+    log(f"[admission] {card}: {total} queries from {ADMISSION_THREADS} threads in {wall_s:.2f} s: "
+        f"{ {t: kinds.get(t, {}) for t in ADMISSION_TENANTS} }; every served result == the plain "
+        f"engine's bit for bit; ledger, query_shed_total ({by_reason}) and the outcomes agree; "
+        f"{coalesced} coalesced records; in flight at the end 0")
+    log(f"[admission] tenants' decode_seconds {({t: round(v, 6) for t, v in decode.items()})} sum "
+        f"{sum(decode.values())!r} == the kernel_dispatch_seconds sums' change {hist!r}")
+    for kernel, rows in samples.items():
+        if rows:
+            sec = statistics.median(r[0] for r in rows) * 1e3
+            dev_ms = statistics.median(r[1] for r in rows)
+            shares = [r[1] / (r[0] * 1e3) for r in rows]
+            log(f"[admission] {card}: {kernel}: {len(rows)} sampled dispatches, median "
+                f"{sec:.3f} ms observed (enter to the event waited on) beside a median "
+                f"{dev_ms:.3f} ms between the same dispatches' CUDA events; a dispatch's "
+                f"event span is a median {statistics.median(shares):.1%} of what it observed "
+                f"(at most {max(shares):.1%})")
+    # 4. a warm query's latency at sample_rate 0 and 1, in turns
+    q = queries["rate"]
+    lat = {0.0: [], 1.0: []}
+    try:
+        for rate in (0.0, 1.0, 1.0, 0.0) * 3:
+            for p in profs:
+                p.sample_rate = rate
+            t0 = time.perf_counter()
+            eng.query_range(q, start, end, STEP).values.cpu()
+            lat[rate].append(time.perf_counter() - t0)
+    finally:
+        for p, r in zip(profs, old[2]):
+            p.sample_rate = r
+    log(f"[admission] {card}: a warm {q} end to end, median of 6 in turns: sample_rate 0 "
+        f"{statistics.median(lat[0.0]) * 1e3:.1f} ms, sample_rate 1 "
+        f"{statistics.median(lat[1.0]) * 1e3:.1f} ms (host clock)")
+    # 5. the device-memory split and the sampler
+    mem = collect_device_memory(db)
+    if (mem["resident_pool"] != db.resident_pool.device_bytes()
+            or mem["index"] != db.index_device_store.device_bytes()
+            or mem["total_live_jax_bytes"] < mem["resident_pool"] + mem["index"]):
+        raise AssertionError(f"[admission] collect_device_memory: {mem}")
+    prof = sampler.profile()
+    in_query = sum(n for st, n in prof["folded"].items() if "engine.py:query_range" in st)
+    err = sum(c["value"] for c in sampler_reg.collect()["m3tpu_profile_errors_total"]["children"])
+    if err or not prof["samples"]:
+        raise AssertionError(f"[admission] sampler: {prof['samples']} samples, {err} errors")
+    log(f"[admission] {card}: collect_device_memory(db) {mem}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()}")
+    log(f"[admission] StackSampler at {default_hz():g} Hz during the threads: {prof['samples']} "
+        f"stack samples, {in_query / prof['samples']:.1%} inside Engine.query_range, "
+        f"0 errors; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # [promql]: the queries, each with the scope of its check against the CPU
@@ -3557,11 +3800,7 @@ def main() -> int:
     phase_ingest(dev, kernels, parent_b4)
     phase_aggregator(dev, kernels, parent_b5)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ...utils.instrument import DEFAULT as METRICS
+from . import kernels
 from .segment import collect_leaves, match_rows
 
 _M_BATCHED = METRICS.counter(
@@ -120,7 +121,8 @@ def prematch(device_segs, query) -> dict | None:
                 count = 0
             lo[row], hi[row] = base + start, base + start + count
             values.append(value)
-    gis = match_rows(keys, lens, lo, hi, values, k_max, keys.device)
+    with kernels.PROFILER.dispatch(("match", (rows, k_max))) as d:
+        gis = d.done(match_rows(keys, lens, lo, hi, values, k_max, keys.device))
     _M_BATCHED.inc()
     out: dict = {}
     for s, (seg, a) in enumerate(snaps):

@@ -18,7 +18,10 @@ The bitwise AND/OR/ANDNOT over bitmaps are torch ops (segment.py). A
 wrapper launches its kernel for a CUDA tensor and runs its plain PyTorch
 twin (``*_reference``) only for a CPU tensor; a failed build or launch
 raises. ``LAUNCHES`` counts the kernel launches, one per wrapper call that
-launched.
+launched. ``PROFILER`` is the device tier's dispatch profiler (kernel
+``index_device``); its seams are where the segment path reaches the
+wrappers (segment.py, batch.py), not in the wrappers, which the query plan
+also launches inside its own ``query_plan`` dispatch.
 
 Term ordering contract (shared with the host helpers below): a term is
 keyed as its bytes zero-padded to a fixed width and viewed as big-endian
@@ -39,6 +42,13 @@ import torch
 
 from ... import device_guard
 from ...ops._build import launch_error, load_library
+from ...utils.instrument import KernelProfiler
+
+# dispatch observability for the device tier's kernels: dispatch counts,
+# first-sighting attribution and sampled dispatch seconds
+# (M3_TPU_PROFILE_SAMPLE_RATE) in m3tpu_kernel_dispatch_seconds
+# {kernel="index_device"}
+PROFILER = KernelProfiler("index_device")
 
 # Launches of K1 and K2, counted by the wrappers where they launch.
 LAUNCHES = {"match_terms": 0, "bitmap_from_spans": 0}

@@ -269,6 +269,7 @@ class DeviceSegment:
         and search runs a private match, never on stale indices)."""
         arrays = self._arrays
         if arrays is None:
+            stats.add(index_device_misses=1)
             self.store.count_search(hit=False)
             stats.add_routing(self.label, self.block_start, "index-host", self._state)
             return None
@@ -281,6 +282,7 @@ class DeviceSegment:
             bitmap = self._eval(arrays, query, gis, classes, note)
             out = kernels.bitmap_to_docids(bitmap)
         except _Unsupported:
+            stats.add(index_device_misses=1)
             self.store.count_search(hit=False)
             stats.add_routing(self.label, self.block_start, "index-host", "unsupported-node")
             return None
@@ -289,6 +291,7 @@ class DeviceSegment:
             raise
         self.store.touch(self)
         self.store.count_search(hit=True)
+        stats.add(index_device_hits=1)
         stats.add_routing(self.label, self.block_start, "index-device",
                           "regexp-host-fallback" if note["host_regexp"] else "")
         return out
@@ -308,8 +311,9 @@ class DeviceSegment:
         for i, (field, _v) in enumerate(leaves):
             start, count = arrays.fields.get(field, (0, 0, 0, 0))[:2]
             lo[i], hi[i] = start, start + count
-        gis = match_rows(arrays.term_keys, arrays.term_lens, lo, hi,
-                         [v for _, v in leaves], arrays.k_words, arrays.device)
+        with kernels.PROFILER.dispatch(("match", (len(leaves), arrays.k_words))) as d:
+            gis = d.done(match_rows(arrays.term_keys, arrays.term_lens, lo, hi,
+                                    [v for _, v in leaves], arrays.k_words, arrays.device))
         out: dict = {}
         for leaf, start, n in order:
             out[id(leaf)] = gis[start : start + n]
@@ -331,8 +335,9 @@ class DeviceSegment:
                 np.column_stack([np.full(len(sp), r, np.int64), sp])
                 for r, sp in enumerate(leaf_spans)
             ])
-            rows = kernels.bitmap_from_spans(arrays.post_data, spans, len(leaf_spans),
-                                             arrays.n_words)
+            with kernels.PROFILER.dispatch(("spans", len(leaf_spans), arrays.n_words)) as d:
+                rows = d.done(kernels.bitmap_from_spans(arrays.post_data, spans, len(leaf_spans),
+                                                        arrays.n_words))
         return self._combine(arrays, tree, rows)
 
     def _plan(self, arrays: DeviceArrays, q: Query, gis: dict, classes: dict, note: dict,

@@ -21,9 +21,16 @@ import torch
 
 from .. import native
 from ..codec.m3tsz import DEFAULT_INT_OPTIMIZATION, ReaderIterator
+from ..utils.instrument import KernelProfiler
 from ..utils.xtime import Unit, initial_time_unit
 from . import decode as D
 from . import fused
+
+# dispatch observability for the records decode (kernel R), at its seam in
+# parallel/scan.chunked_scan_aggregate: dispatch counts, first-sighting
+# attribution and sampled dispatch seconds (M3_TPU_PROFILE_SAMPLE_RATE) in
+# m3tpu_kernel_dispatch_seconds{kernel="chunked_decode"}
+PROFILER = KernelProfiler("chunked_decode")
 
 # Decoder-state fields stored as (hi, lo) uint32 pairs.
 STATE_PAIR_FIELDS = ("prev_time", "prev_delta", "prev_float_bits", "prev_xor", "int_val")
@@ -423,6 +430,23 @@ def _launch_records(windows, lanes, n, k) -> D.DecodeResult:
         ts=ts, bits=bits, point_is_float=small[0].view(torch.bool), mult=small[1],
         valid=small[2].view(torch.bool), err=err.view(torch.bool),
     )
+
+
+def decode_records_cost(windows, lanes, n: int, k: int) -> dict:
+    """Kernel R's work on one launch, for ``KernelProfiler.capture_cost``:
+    the bytes it moves (each lane's window words up to its valid bits, at
+    most CW, its 17 state planes, 19 bytes a record and 1 a lane written)
+    and no floating-point operations. The lanes do not say where a chunk's
+    bits end inside its valid bits, so the window words counted can exceed
+    the words its bits occupy (chip_smoke.py's bound counts those from the
+    streams). Reads one sum back from the device."""
+    cw = windows.shape[0]
+    # rel is where the lane's bits start in its window, num_bits where the
+    # window's valid bits end
+    rel, end = lanes[0, :n].to(torch.int64), lanes[1, :n].to(torch.int64)
+    words = torch.where(end > rel, (end + 31) // 32, 0).clamp(max=cw)
+    return {"flops": 0.0,
+            "bytes_accessed": float(int(words.sum()) * 4 + n * 17 * 4 + n * k * 19 + n)}
 
 
 def decode_chunked_lanes_reference(windows, lanes, n: int, k: int) -> D.DecodeResult:

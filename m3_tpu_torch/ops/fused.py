@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import device_guard, resolve_device
+from ..utils.instrument import KernelProfiler
 from . import decode as D
 
 # rows per tile: a tile is rows x 128 lanes and shares one body
@@ -48,6 +49,11 @@ NLANE = len(PACKED_LANE_PLANES)
 
 # Launches of the CUDA kernel, counted by lane_aggregates where it launches.
 LAUNCHES = 0
+
+# dispatch observability for the two lane-aggregate paths (the per-field
+# B3 and the packed B1), at their seams in parallel/scan.py
+PROFILER_FUSED = KernelProfiler("fused_lane_agg")
+PROFILER_PACKED = KernelProfiler("packed_lane_agg")
 
 # Kernel inputs copied into fresh storage because a kernel needs them
 # 16-byte aligned and they were not (a view at an odd offset), by

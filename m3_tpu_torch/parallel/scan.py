@@ -27,6 +27,7 @@ import torch
 
 from .. import device_guard
 from ..ops import decode as D
+from ..utils.instrument import KernelProfiler
 from ..ops import fused
 from ..ops import precise as pr
 
@@ -112,12 +113,81 @@ def _aggregates_from_lanes(
     )
 
 
+def _aggregate_decoded(vals: torch.Tensor, valid: torch.Tensor) -> ScanAggregates:
+    """Per-series + cross-series reductions over decoded [S, T] f32 values
+    (m3_tpu/parallel/scan.py _aggregate_decoded)."""
+    zero = torch.where(valid, vals, 0.0)
+    s_sum = zero.sum(dim=1)
+    s_count = valid.sum(dim=1, dtype=torch.int32)
+    s_min = torch.where(valid, vals, torch.inf).amin(dim=1)
+    s_max = torch.where(valid, vals, -torch.inf).amax(dim=1)
+    t = vals.shape[1]
+    last_idx = torch.where(valid, torch.arange(t, device=vals.device)[None, :], -1).amax(dim=1)
+    s_last = torch.gather(zero, 1, last_idx.clamp(min=0)[:, None])[:, 0]
+    s_last = torch.where(last_idx >= 0, s_last, torch.nan)
+    has = s_count > 0
+    t_count = s_count.sum(dtype=torch.int64)
+    t_min = torch.where(has, s_min, torch.inf).amin()
+    t_max = torch.where(has, s_max, -torch.inf).amax()
+    return ScanAggregates(
+        series_sum=s_sum,
+        series_count=s_count,
+        series_min=torch.where(has, s_min, torch.nan),
+        series_max=torch.where(has, s_max, torch.nan),
+        series_last=s_last,
+        total_sum=torch.where(has, s_sum, 0.0).sum(),
+        total_count=t_count,
+        total_min=torch.where(t_count > 0, t_min, torch.nan),
+        total_max=torch.where(t_count > 0, t_max, torch.nan),
+    )
+
+
+def records_f32(res: D.DecodeResult) -> torch.Tensor:
+    """The decoded records' approximate f32 values, NaN where invalid (the
+    reference's ``values_f32``: float points by u64.f64_bits_to_f32, int
+    points by _int_val_to_f32, its formulas)."""
+    pair = ((res.bits >> 32) & 0xFFFFFFFF, res.bits & 0xFFFFFFFF)
+    vals = torch.where(res.point_is_float, D.f64_bits_to_f32(pair),
+                       D._int_val_to_f32(pair, res.mult.to(torch.int64)))
+    return torch.where(res.valid, vals, torch.nan)
+
+
+def chunked_scan_aggregate(packed: fused.PackedLanes, s: int, c: int, k: int) -> ScanAggregates:
+    """Records decode (kernel R) of series-major packed lanes
+    (``fused.pack_lanes(order="s")``) + per-series and cross-series
+    reductions of their f32 values (m3_tpu/parallel/scan.py
+    chunked_scan_aggregate). ``series_err`` flags series a lane of which
+    bailed."""
+    from ..ops import chunked
+
+    if packed.order != "s" or packed.n != s * c:
+        raise ValueError(f"want {s * c} series-major lanes, got {packed.n} in order {packed.order!r}")
+    args = (packed.windows, packed.lanes, packed.n, k)
+    with chunked.PROFILER.dispatch((tuple(packed.windows.shape), int(k)),
+                                   cost=(chunked.decode_records_cost, args, {})) as d:
+        res = d.done(chunked.decode_chunked_lanes(*args))
+    vals = records_f32(res).reshape(s, c * k)
+    aggs = _aggregate_decoded(vals, res.valid.reshape(s, c * k))
+    return aggs._replace(series_err=res.err.reshape(s, c).any(dim=1))
+
+
 def chunked_scan_aggregate_packed(
     packed: fused.PackedLanes, s: int, c: int, k: int, precise: bool = False,
 ) -> ScanAggregates:
-    """The main path: lane kernel over ``packed`` (from fused.pack_lanes,
+    """The main path: lane kernel B1 over ``packed`` (from fused.pack_lanes,
     on the device it was packed for) + per-series and cross-series
-    reductions. Lane order and ``inv`` come from ``packed``."""
+    reductions. Lane order and ``inv`` come from ``packed``. One
+    ``packed_lane_agg`` dispatch."""
+    with fused.PROFILER_PACKED.dispatch(
+        (tuple(packed.windows.shape), int(packed.n), int(k))
+    ) as d:
+        return d.done(_scan_packed(packed, s, c, k, precise))
+
+
+def _scan_packed(packed: fused.PackedLanes, s: int, c: int, k: int,
+                 precise: bool = False) -> ScanAggregates:
+    """``chunked_scan_aggregate_packed``'s body, unprofiled (the resident
+    scan runs it inside its own dispatch)."""
     if packed.n != s * c:
         raise ValueError(f"packed holds {packed.n} lanes, want s*c = {s * c}")
     lane_agg = fused.lane_aggregates(
@@ -179,8 +249,13 @@ def chunked_scan_aggregate_fused(lane_args: dict, s: int, c: int, k: int) -> Sca
     ``ops/chunked.lane_kwargs`` names): kernel B3
     (``fused.lane_aggregates_fields``) folds each lane, then the per-series
     and cross-series reductions. The device is the tensors' own (the JAX
-    ``backend=`` switch has no counterpart)."""
-    lane_agg = fused.lane_aggregates_fields(**lane_args, k=k)
+    ``backend=`` switch has no counterpart; the dispatch key carries the
+    device type in its place). One ``fused_lane_agg`` dispatch."""
+    windows = lane_args["windows"]
+    with fused.PROFILER_FUSED.dispatch(
+        (windows.device.type, tuple(windows.shape), int(k))
+    ) as d:
+        lane_agg = d.done(fused.lane_aggregates_fields(**lane_args, k=k))
     return _aggregates_from_lanes(lane_agg, s, c, lane_order="s")
 
 
@@ -220,6 +295,11 @@ _GATHER_BLOCK_LANES = 1 << 21
 
 # Launches of B-2, counted by _launch_assembly where it launches.
 ASSEMBLY_LAUNCHES = 0
+
+# dispatch observability for decode from residency: the assembly entries
+# below and the resident scan and fetch (resident/scan.py) dispatch
+# through it
+RESIDENT_CHUNKED_PROF = KernelProfiler("resident_chunked_assemble")
 
 # Series B-2 sent by its direct route (a stream longer than the slot a block
 # gives a series), counted beside ASSEMBLY_LAUNCHES.
@@ -477,10 +557,11 @@ def assemble_resident_lanes(plan, s_pad: int | None = None) -> tuple[dict, int]:
     pool on the card launches B-2; one on the CPU runs the twin."""
     s = plan.page_rows.shape[0]
     s_pad = s if s_pad is None else max(s_pad, s)
-    if plan.words.device.type == "cuda":
-        windows, planes, _, _ = _launch_assembly(plan, s_pad, "s", True, _FIELD_BLOCK_LANES)
-        return _lane_fields(windows, planes), s_pad
-    return assemble_resident_lanes_reference(plan, s_pad)
+    with RESIDENT_CHUNKED_PROF.dispatch((s_pad, plan.num_chunks, plan.window_words)) as d:
+        if plan.words.device.type == "cuda":
+            windows, planes, _, _ = _launch_assembly(plan, s_pad, "s", True, _FIELD_BLOCK_LANES)
+            return d.done(_lane_fields(windows, planes)), s_pad
+        return d.done(assemble_resident_lanes_reference(plan, s_pad)[0]), s_pad
 
 
 def assemble_resident_lanes_reference(plan, s_pad: int | None = None) -> tuple[dict, int]:
@@ -531,16 +612,24 @@ def assemble_resident_packed(plan, s_pad: int | None = None, order: str = "c",
     ``fused.pack_lanes`` of the same streams: lane j of "c" is (series
     j % S, chunk j // S), tile-padding lanes are zero and count as fast,
     first chunks are never fast. A pool on the card launches B-2; one on the
-    CPU runs the twin."""
-    if order not in ("c", "s"):
-        raise ValueError(f"order must be 'c' or 's', got {order!r}")
+    CPU runs the twin. One ``resident_chunked_assemble`` dispatch."""
     s = plan.page_rows.shape[0]
     s_pad = s if s_pad is None else max(s_pad, s)
+    key = ("packed", s_pad, plan.num_chunks, plan.window_words, order)
+    with RESIDENT_CHUNKED_PROF.dispatch(key) as d:
+        return d.done(_assemble_packed(plan, s_pad, order, rows)), s_pad
+
+
+def _assemble_packed(plan, s_pad: int, order: str, rows: int) -> fused.PackedLanes:
+    """``assemble_resident_packed``'s body, unprofiled (the resident scan
+    runs it inside its own dispatch)."""
+    if order not in ("c", "s"):
+        raise ValueError(f"order must be 'c' or 's', got {order!r}")
     if plan.words.device.type == "cuda":
         windows, planes, tile_flags, n = _launch_assembly(plan, s_pad, order, False, rows * 128)
         return fused.PackedLanes(windows=windows, lanes=planes, tile_flags=tile_flags, n=n,
-                                 order=order), s_pad
-    return assemble_resident_packed_reference(plan, s_pad, order, rows)
+                                 order=order)
+    return assemble_resident_packed_reference(plan, s_pad, order, rows)[0]
 
 
 def assemble_resident_packed_reference(plan, s_pad: int | None = None, order: str = "c",
@@ -598,6 +687,8 @@ def resident_chunked_scan(plan, s_pad: int) -> ScanAggregates:
     """The assemble-from-residency + packed-decode body: device gathers over
     the pool build the chunk-major PackedLanes, kernel B1 folds them, the
     reductions follow (m3_tpu/parallel/scan.py resident_chunked_local_fn;
-    the sharded variant waits for ROADMAP §A8)."""
-    packed, s_pad = assemble_resident_packed(plan, s_pad, order="c")
-    return chunked_scan_aggregate_packed(packed, s=s_pad, c=plan.num_chunks, k=plan.chunk_k)
+    the sharded variant waits for ROADMAP §A8). Unprofiled: the resident
+    scan (resident/scan.py) dispatches it as one ``resident_chunked_assemble``
+    dispatch, as the reference's one program."""
+    packed = _assemble_packed(plan, s_pad, "c", fused.ROWS_DEFAULT)
+    return _scan_packed(packed, s=s_pad, c=plan.num_chunks, k=plan.chunk_k)

@@ -5,8 +5,9 @@ per-query ChainedEnforcer charges each fetched block against query- and
 global-scope limits and aborts the query when exceeded (the coordinator
 returns 4xx instead of OOMing the node). Here an Enforcer accumulates
 charges from the engine's fetch path; the chain above it is built from
-:class:`GlobalEnforcer` scopes (a middle scope parents on the fleet-wide
-global one; the per-tenant scopes wait for ROADMAP §A5b).
+:class:`GlobalEnforcer` scopes: the per-tenant middle scope
+(query/tenants.TenantEnforcers) parents on the global scope, so one
+tenant's runaway scan is rejected without starving the others.
 
 Every rejection is counted in ``m3tpu_query_limit_exceeded_total{scope}``
 (scope = query | tenant | global): a 422 must leave a metric trail, or

@@ -22,10 +22,12 @@ offset and ``@``, range functions over ranges and subqueries, every
 function and aggregation, and every operator with on/ignoring and
 group_left/group_right. Each node's dtype is the reference's (float64
 where its numpy code computes, float32 where its jnp code does).
-``limits=`` / ``global_enforcer=`` charge each fetch against the cost
-limits (``cost.py``); ``explain`` evaluates a query and returns its stats
-record. The admission scheduler and tenant scopes (``scheduler=``,
-``tenant_enforcers=``) raise ``NotImplementedError`` naming ROADMAP §A5b.
+``limits=`` / ``global_enforcer=`` / ``tenant_enforcers=`` charge each
+fetch against the cost limits along the chain query → tenant → global
+(``cost.py``, ``tenants.py``); ``scheduler=`` puts every top-level query
+through cost-aware admission first (``scheduler.py``), bounded by the
+ambient deadline (``net/resilience.py``); ``explain`` evaluates a query
+and returns its stats record.
 ``consolidate_row`` / ``consolidate`` are the host rule of the staged path
 and of the storage's err-row stitch. ``scan_totals`` is the storage's
 scan-and-aggregate as an engine surface.
@@ -44,7 +46,8 @@ import torch
 
 from .. import resolve_device
 from ..block.core import Bounds, SeriesMeta, Tags
-from . import stats
+from ..net.resilience import current_deadline
+from . import stats, tenants
 from .cost import Enforcer, QueryLimitError, QueryLimits
 from .functions import aggregation as A
 from .functions import binary as B
@@ -68,9 +71,6 @@ from .promql import (
 
 NANOS = 1_000_000_000
 DEFAULT_LOOKBACK = 5 * 60 * NANOS
-
-_TODO_FUNCTIONS = "ROADMAP.md §A5b (the admission scheduler and tenant scopes)"
-
 
 @dataclass
 class Result:
@@ -151,15 +151,20 @@ class Engine:
         scheduler=None,
         device="cuda",
     ) -> None:
-        if scheduler is not None:
-            raise NotImplementedError(f"scheduler=: {_TODO_FUNCTIONS}")
-        if tenant_enforcers is not None:
-            raise NotImplementedError(f"tenant_enforcers=: {_TODO_FUNCTIONS}")
         self.storage = storage
         self.lookback = lookback_nanos
         # per-query cost limits (query/cost.py); None = unlimited
         self.limits = limits
         self.global_enforcer = global_enforcer
+        # per-tenant middle scopes (query/tenants.TenantEnforcers): when
+        # set, the enforcer chain is query → tenant → global and each
+        # query's parent scope resolves from the thread's tenant context
+        self.tenant_enforcers = tenant_enforcers
+        # admission scheduler (query/scheduler.QueryScheduler): when set,
+        # every TOP-LEVEL query passes cost-aware admission before eval
+        # and may be shed with a typed QueryShedError; nested evaluation
+        # rides the outer query's slot
+        self.scheduler = scheduler
         self.device = resolve_device(device)
         self._enforcer = threading.local()
 
@@ -174,6 +179,7 @@ class Engine:
             qs.namespace = str(getattr(self.storage, "namespace", "") or "")
         t_start = time.perf_counter()
         err: str | None = None
+        admitted = False
         try:
             with stats.stage("parse"):
                 ast = parse(query)
@@ -182,7 +188,20 @@ class Engine:
             # @ start()/end() bind to the TOP-LEVEL query range, even inside
             # subqueries (prometheus PreprocessExpr)
             _bind_at(ast, bounds)
+            if qs is not None and self.scheduler is not None:
+                # cost-aware admission: may block briefly, may shed with a
+                # typed QueryShedError; only top-level queries admit. The
+                # queue wait is bounded by the caller's propagated deadline
+                # when one is ambient, else by the scheduler's own
+                # max_queue_wait
+                self.scheduler.admit(query, steps, record=qs, deadline=current_deadline())
+                admitted = True
             parent = self.global_enforcer
+            if self.tenant_enforcers is not None:
+                # the per-tenant middle scope: charges flow query → tenant
+                # → global, so a runaway tenant trips its own ceiling
+                # before it can exhaust everyone's
+                parent = self.tenant_enforcers.scope_for(tenants.current())
             if self.limits is None and parent is None:
                 return self._eval(ast, bounds)
             enforcer = Enforcer(self.limits if self.limits is not None else QueryLimits(), parent)
@@ -202,6 +221,12 @@ class Engine:
                     cur.limit_exceeded = exc.scope
             raise
         finally:
+            if admitted:
+                self.scheduler.release()
+                if err is None and qs is not None:
+                    # the matched-series observation prices the NEXT run of
+                    # this query from evidence, not the optimistic default
+                    self.scheduler.observe(query, qs.series_scanned)
             if qs is not None:
                 stats.finish(qs, time.perf_counter() - t_start, error=err)
 

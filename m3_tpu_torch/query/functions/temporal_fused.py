@@ -18,7 +18,15 @@ import torch
 
 from ... import device_guard
 from ...ops._build import load_library
+from ...utils.instrument import KernelProfiler
 from . import temporal as T
+
+# dispatch observability for kernel B2: dispatch counts, first-sighting
+# attribution, sampled dispatch seconds (M3_TPU_PROFILE_SAMPLE_RATE) and
+# the launch's cost (``launch_cost``). As the reference profiles only its
+# TPU kernel, only a launch on the card dispatches through it: the CPU
+# twin is not a dispatch.
+_JIT = KernelProfiler("temporal_fused")
 
 # name -> twin(values, window, step_seconds); the order is the kernel's
 # function ids (enum Fn of csrc/temporal_fused.cu)
@@ -66,7 +74,21 @@ def fused_temporal(values, window: int, step_seconds: float, funcs: tuple[str, .
         raise ValueError(f"unsupported device {v.device}")
     if v.numel() == 0:  # nothing to launch
         return tuple(torch.empty_like(v) for _ in funcs)
-    return _launch(v.contiguous(), int(window), float(step_seconds), tuple(funcs))
+    args = (v.contiguous(), int(window), float(step_seconds), tuple(funcs))
+    with _JIT.dispatch((args[3], tuple(v.shape), args[1], args[2]),
+                       cost=(launch_cost, args, {})) as d:
+        return d.done(_launch(*args))
+
+
+def launch_cost(v, window: int, step_seconds: float, funcs: tuple) -> dict:
+    """B2's work on one launch, for ``KernelProfiler.capture_cost``: it
+    reads the f32 [S, T] matrix once and writes one per function; its
+    operations are counted as avg_over_time's (2 a window element and 1 a
+    column) for each function."""
+    rows, cols = v.shape
+    win_elems = sum(min(window, t + 1) for t in range(cols))
+    return {"flops": float(rows * (2 * win_elems + cols) * len(funcs)),
+            "bytes_accessed": float(rows * cols * 4 * (1 + len(funcs)))}
 
 
 def _launch(v, window, step_seconds, funcs):

@@ -35,10 +35,11 @@ Entries revalidate per execution against pool eviction and invalidation
 counters, shard fileset epochs and index-segment identity. Ineligible
 queries raise ``Ineligible`` with the reference's routing reason
 (host-regexp leaf, non-resident block, buffer overlay, multi-segment
-index, ...) and run staged. The reference's compile counter and its
-``KernelProfiler`` seam have no counterpart: PyTorch compiles nothing here,
-and the profiler is ROADMAP §A9; each plan-served fetch adds one to the
-query's ``device_dispatches``.
+index, ...) and run staged. Each execution is one ``query_plan`` dispatch
+of its ``KernelProfiler`` (``PROF``), whose launches go through no other
+profiled seam: a warm plan-served fetch adds exactly one to the query's
+``device_dispatches``. The reference's compile counter has no counterpart:
+PyTorch compiles nothing here.
 
 Knobs (the reference's own):
 
@@ -60,6 +61,7 @@ from .. import device_guard
 from ..ops import decode as D
 from ..ops._build import launch_error, load_library
 from ..utils.instrument import DEFAULT as METRICS
+from ..utils.instrument import KernelProfiler
 
 _M_HITS = METRICS.counter(
     "query_plan_hits_total",
@@ -87,6 +89,12 @@ _M_COALESCED = METRICS.counter(
 )
 
 _SENTINEL_GRID = 8  # minimum padded grid length (the cache key's)
+
+# dispatch observability for a plan execution: one dispatch per
+# plan-served fetch (charged to the query's ``device_dispatches`` through
+# the stats seam), sampled dispatch seconds in
+# m3tpu_kernel_dispatch_seconds{kernel="query_plan"}
+PROF = KernelProfiler("query_plan")
 
 # Launches of B-1, counted by consolidate_grid where it launches.
 LAUNCHES = 0
@@ -408,7 +416,7 @@ class _PlanEntry:
 
     __slots__ = (
         "seg", "arrays", "tree", "spans", "n_rows", "lanes", "n_blocks", "cap",
-        "stamp", "chunk_k", "matched",
+        "stamp", "chunk_k", "matched", "key",
     )
 
 
@@ -749,6 +757,11 @@ class Planner:
         entry.cap = n_docs_pad
         entry.chunk_k = chunk_k
         entry.stamp = stamp
+        # the query_plan dispatch key (with the grid length added per
+        # execution): the bitmap tree's shape and the plan's dimensions, as
+        # the reference keys its program
+        entry.key = (repr(tree), arrays.n_words, n_docs_pad, entry.cap, n_blocks, c, chunk_k,
+                     cw, o.page_words, o.side_page_chunks)
         # matched-doc cache: the matched set is a pure function of the
         # segment arrays and the matcher values, both frozen while the
         # stamp holds, so the per-doc tag materialization is paid ONCE per
@@ -761,13 +774,9 @@ class Planner:
     def _execute(self, entry, ns, fetch_lo: int, fetch_hi: int, grid: np.ndarray,
                  lookback_nanos: int):
         from ..index.device import kernels
-        from ..ops.chunked import decode_chunked
-        from ..parallel.scan import assemble_lane_rows
-        from . import stats
 
         pool = self.db.resident_pool
         arrays = entry.arrays
-        cap, nb, lanes = entry.cap, entry.n_blocks, entry.lanes
         with pool.read_lease():
             # buffer snapshots under the lease (the staged resident scan's
             # discipline); the plan tables reference page indices, so the
@@ -782,38 +791,18 @@ class Planner:
             words, side = bufs
             if entry.stamp != self._stamp(entry.seg, arrays, ns, pool):
                 raise Ineligible("raced-invalidation")
-            stats.add(device_dispatches=1)
-            dev = words.device
-            # index: one K2 launch over the cached spans, then the algebra
-            rows = (kernels.bitmap_from_spans(arrays.post_data, entry.spans, entry.n_rows,
-                                              arrays.n_words) if entry.n_rows else None)
-            bitmap = _combine(entry.tree, rows, arrays)
-            # matched-doc compaction: doc bitmap -> dense slots, the rest
-            # pointing at the sentinel row block
-            shifts = torch.arange(32, dtype=torch.int32, device=dev)
-            bits = ((bitmap[:, None] >> shifts) & 1).reshape(-1) != 0
-            ncum = torch.cumsum(bits, 0)
-            slot = torch.where(bits, ncum - 1, cap)
-            sel = torch.full((cap + 1,), cap, dtype=torch.int64, device=dev)
-            sel.scatter_(0, slot, torch.arange(cap, device=dev))
-            lane_rows = (sel[:cap, None] * nb + torch.arange(nb, device=dev)[None, :]).reshape(-1)
-            # B-2 over the gathered table rows, R, then B-1
-            packed = assemble_lane_rows(words, side, lanes, lane_rows)
-            res = decode_chunked(packed.windows, packed.lanes, cap * nb, lanes.num_chunks,
-                                 entry.chunk_k)
-        rs = lambda x: x.reshape(cap, -1)
-        res = D.DecodeResult(ts=rs(res.ts), bits=rs(res.bits), point_is_float=rs(res.point_is_float),
-                             mult=rs(res.mult), valid=rs(res.valid),
-                             err=res.err.reshape(cap, nb).any(dim=1))
-        values, counts = consolidate_grid(res, fetch_lo, fetch_hi, grid, lookback_nanos)
+            # every launch of the execution is ONE query_plan dispatch (the
+            # reference's one program); the launches inside go through no
+            # profiled wrapper
+            with PROF.dispatch(entry.key + (len(grid),)) as d:
+                values, summary = d.done(self._launch(
+                    entry, words, side, fetch_lo, fetch_hi, grid, lookback_nanos))
         # the ONE device-to-host read: match count, datapoints, the doc
         # bitmap and the err rows, as u32 words in int64
-        head = torch.stack([ncum[-1], counts.sum(dtype=torch.int64)])
-        out = torch.cat([head, bitmap.to(torch.int64) & 0xFFFFFFFF, _pack_bits(res.err)]).cpu()
-        out = out.numpy()
+        out = summary.cpu().numpy()
         n, datapoints = int(out[0]), int(out[1])
         nw = arrays.n_words
-        if n > cap:
+        if n > entry.cap:
             # more matches than the plan's capacity (a doc-count jump since
             # build): fall back for THIS query; the stamp check rebuilds at
             # the larger size next time
@@ -831,3 +820,42 @@ class Planner:
         err = np.unpackbits(out[2 + nw :].astype(np.uint32).view(np.uint8), bitorder="little")
         err_rows = np.flatnonzero(err[:n])
         return matched, values[:n], datapoints, err_rows
+
+    @staticmethod
+    def _launch(entry, words, side, fetch_lo: int, fetch_hi: int, grid: np.ndarray,
+                lookback_nanos: int):
+        """The execution's launches, in order: K2 over the cached spans and
+        the bitmap algebra, the matched-doc compaction, B-2 over the
+        gathered table rows, R, then B-1. Returns (values, the readback's
+        int64 summary) on the device."""
+        from ..index.device import kernels
+        from ..ops.chunked import decode_chunked
+        from ..parallel.scan import assemble_lane_rows
+
+        arrays = entry.arrays
+        cap, nb, lanes = entry.cap, entry.n_blocks, entry.lanes
+        dev = words.device
+        # index: one K2 launch over the cached spans, then the algebra
+        rows = (kernels.bitmap_from_spans(arrays.post_data, entry.spans, entry.n_rows,
+                                          arrays.n_words) if entry.n_rows else None)
+        bitmap = _combine(entry.tree, rows, arrays)
+        # matched-doc compaction: doc bitmap -> dense slots, the rest
+        # pointing at the sentinel row block
+        shifts = torch.arange(32, dtype=torch.int32, device=dev)
+        bits = ((bitmap[:, None] >> shifts) & 1).reshape(-1) != 0
+        ncum = torch.cumsum(bits, 0)
+        slot = torch.where(bits, ncum - 1, cap)
+        sel = torch.full((cap + 1,), cap, dtype=torch.int64, device=dev)
+        sel.scatter_(0, slot, torch.arange(cap, device=dev))
+        lane_rows = (sel[:cap, None] * nb + torch.arange(nb, device=dev)[None, :]).reshape(-1)
+        packed = assemble_lane_rows(words, side, lanes, lane_rows)
+        res = decode_chunked(packed.windows, packed.lanes, cap * nb, lanes.num_chunks,
+                             entry.chunk_k)
+        rs = lambda x: x.reshape(cap, -1)
+        res = D.DecodeResult(ts=rs(res.ts), bits=rs(res.bits), point_is_float=rs(res.point_is_float),
+                             mult=rs(res.mult), valid=rs(res.valid),
+                             err=res.err.reshape(cap, nb).any(dim=1))
+        values, counts = consolidate_grid(res, fetch_lo, fetch_hi, grid, lookback_nanos)
+        head = torch.stack([ncum[-1], counts.sum(dtype=torch.int64)])
+        summary = torch.cat([head, bitmap.to(torch.int64) & 0xFFFFFFFF, _pack_bits(res.err)])
+        return values, summary

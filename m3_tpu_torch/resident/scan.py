@@ -40,7 +40,7 @@ def resident_scan_totals(pool, keys: list, mesh=None, device_out: bool = False):
     resident or has no side planes (the caller streams instead).
     ``device_out``: return the padded aggregates on the device instead.
     ``mesh`` (a sharded scan) waits for ROADMAP §A8 "Streaming and mesh"."""
-    from ..parallel.scan import resident_chunked_scan
+    from ..parallel.scan import RESIDENT_CHUNKED_PROF, resident_chunked_scan
 
     if mesh is not None:
         raise NotImplementedError(
@@ -51,7 +51,13 @@ def resident_scan_totals(pool, keys: list, mesh=None, device_out: bool = False):
         if plan is None:
             return None
         s = len(keys)
-        aggs = resident_chunked_scan(plan, _pow2(s, _MIN_LANES))
+        s_pad = _pow2(s, _MIN_LANES)
+        shape_key = (plan.num_chunks, plan.chunk_k, plan.window_words,
+                     plan.page_words, plan.side_page_chunks)
+        # the assembly (B-2) and the lane kernel (B1) as ONE dispatch, the
+        # reference's one jitted program
+        with RESIDENT_CHUNKED_PROF.dispatch(("scan", s_pad, *shape_key, False)) as d:
+            aggs = d.done(resident_chunked_scan(plan, s_pad))
     return aggs if device_out else _slice_series(aggs, s)
 
 
@@ -96,7 +102,7 @@ def resident_fetch_arrays(pool, keys: list):
     for the caller to re-read on the host. None when a key is not resident."""
     from ..ops.chunked import decode_chunked
     from ..ops.decode import finalize_decode
-    from ..parallel.scan import assemble_resident_packed
+    from ..parallel.scan import RESIDENT_CHUNKED_PROF, assemble_resident_packed
 
     with pool.read_lease():
         plan = pool.plan_chunked(keys)
@@ -104,7 +110,11 @@ def resident_fetch_arrays(pool, keys: list):
             return None
         s = len(keys)
         packed, s_pad = assemble_resident_packed(plan, _pow2(s, _MIN_LANES), order="s")
-        res = decode_chunked(packed.windows, packed.lanes, s_pad, plan.num_chunks, plan.chunk_k)
+        with RESIDENT_CHUNKED_PROF.dispatch(
+            ("fetch", tuple(packed.windows.shape), int(plan.chunk_k))
+        ) as d:
+            res = d.done(decode_chunked(packed.windows, packed.lanes, s_pad, plan.num_chunks,
+                                        plan.chunk_k))
     timestamps, values, valid = (x[:s].cpu().numpy() for x in finalize_decode(res))
     err = res.err[:s].cpu().numpy()
     return [(timestamps[i][valid[i]], values[i][valid[i]]) for i in range(s)], err

@@ -1060,7 +1060,9 @@ def test_cuda_consolidate_grid_refuses_bad_arguments():
 def test_cuda_plan_matches_force_staged(tmp_path):
     """A Database on the card: a range query served by the query plan (B-2,
     R and B-1 launched, no fallback) == the same query force-staged, bit
-    for bit; a warm repeat is a plan hit of one dispatch."""
+    for bit; a warm repeat is a plan hit of one ``query_plan`` dispatch,
+    beside the ``temporal_fused`` dispatch of B2 where the query has a
+    temporal function (as the reference's TPU kernel counts)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.index.device import IndexDeviceOptions
@@ -1085,8 +1087,8 @@ def test_cuda_plan_matches_force_staged(tmp_path):
     db.flush("ns", T0 + 4 * 3600 * 10**9)
     eng = Engine(M3Storage(db, "ns"), device="cuda")
     span = (T0 + 60 * 10**9, T0 + 560 * 10**9, 20 * 10**9)
-    for q in ('rate(pm{job=~"app.*"}[2m])', 'sum by (job) (avg_over_time(pm[1m]))',
-              'pm{job="app1",s!="004"}'):
+    for q, n_b2 in (('rate(pm{job=~"app.*"}[2m])', 1), ('sum by (job) (avg_over_time(pm[1m]))', 1),
+                    ('pm{job="app1",s!="004"}', 0)):
         launches = (scan.ASSEMBLY_LAUNCHES, chunked.LAUNCHES, qplan.LAUNCHES)
         st = stats.start(q)
         got = eng.query_range(q, *span)
@@ -1097,7 +1099,7 @@ def test_cuda_plan_matches_force_staged(tmp_path):
         st = stats.start(q)
         again = eng.query_range(q, *span)
         stats.finish(st, 0.0)
-        assert st.plan_hits == 1 and st.device_dispatches == 1
+        assert st.plan_hits == 1 and st.device_dispatches == 1 + n_b2
         with qplan.force_staged():
             want = eng.query_range(q, *span)
         assert [m.tags for m in got.metas] == [m.tags for m in want.metas]
@@ -1594,3 +1596,136 @@ def test_cuda_database_device_ingest_matches_host_seal(tmp_path):
                        for d, _, fs in os.walk(root) for f in fs}
         db.close()
     assert files["dev"] == files["host"] and files["host"]
+
+
+# --- the kernel profiler on the card ---
+
+
+def _profiled(*profilers):
+    """Every profiler given at sample_rate 1 until the context ends."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def run():
+        rates = [p.sample_rate for p in profilers]
+        try:
+            for p in profilers:
+                p.sample_rate = 1.0
+            yield
+        finally:
+            for p, r in zip(profilers, rates):
+                p.sample_rate = r
+
+    return run()
+
+
+@pytest.mark.cuda
+def test_sampled_b1_and_r_dispatch_wait_on_an_event(monkeypatch):
+    """A sampled B1 (``packed_lane_agg``) and R (``chunked_decode``)
+    dispatch waits on a CUDA event, never on a device-wide synchronize, and
+    the seconds it observes cover the CUDA-event span of its launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan
+
+    streams = synthetic_streams(4096, 720, seed=3)
+    batch = chunked.build_chunked(streams, k=120)
+    pc = fused.pack_lanes(batch, order="c", device="cuda")
+    ps = fused.pack_lanes(batch, order="s", device="cuda")
+    s, c = len(streams), batch.num_chunks
+    for prof, run in ((fused.PROFILER_PACKED, lambda: scan.chunked_scan_aggregate_packed(
+            pc, s, c, 120)), (chunked.PROFILER, lambda: scan.chunked_scan_aggregate(ps, s, c, 120))):
+        run()  # the key's first sighting: counted as such, not sampled
+        torch.cuda.synchronize()
+        before = prof._hist.snapshot()
+        with _profiled(prof):
+            monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("synchronize"))
+            for _ in range(5):
+                run()
+            monkeypatch.undo()
+        counts, total, n = prof._hist.snapshot()
+        assert n == before[2] + 5
+        samples = list(prof.device_samples)[-5:]
+        assert len(samples) == 5
+        for seconds, device_ms in samples:
+            assert device_ms > 0 and seconds * 1e3 >= device_ms, (prof.kernel, seconds, device_ms)
+        assert total - before[1] == pytest.approx(sum(sec for sec, _ in samples))
+
+
+@pytest.mark.cuda
+def test_warm_plan_dispatches_with_profilers_sampling(tmp_path):
+    """With every profiler sampling, a warm plan-served query still makes one
+    ``query_plan`` dispatch (plus B2's own for a temporal function), and a
+    sampled dispatch's seconds reach the tenant ledger."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import IndexDeviceOptions
+    from m3_tpu_torch.index.device import kernels as IK
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.query import plan as qplan
+    from m3_tpu_torch.query import stats, tenants
+    from m3_tpu_torch.query.engine import Engine
+    from m3_tpu_torch.query.functions import temporal_fused as TF
+    from m3_tpu_torch.query.m3_storage import M3Storage
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+
+    db = Database(str(tmp_path), num_shards=2, commitlog_enabled=False,
+                  resident_options=ResidentOptions(max_bytes=1 << 24),
+                  index_device_options=IndexDeviceOptions(max_bytes=1 << 24), device="cuda")
+    db.create_namespace("ns", NamespaceOptions(block_size_nanos=3600 * 10**9))
+    for i in range(40):
+        tags = ((b"__name__", b"pm"), (b"job", b"app%d" % (i % 3)), (b"s", b"%03d" % i))
+        for j in range(60):
+            db.write_tagged("ns", tags, T0 + j * 10**10, float((i + j) % 11))
+    db.flush("ns", T0 + 4 * 3600 * 10**9)
+    eng = Engine(M3Storage(db, "ns"), device="cuda")
+    span = (T0 + 60 * 10**9, T0 + 560 * 10**9, 20 * 10**9)
+    profs = (qplan.PROF, TF._JIT, IK.PROFILER, fused.PROFILER_PACKED, chunked.PROFILER,
+             scan.RESIDENT_CHUNKED_PROF)
+    led = tenants.TenantLedger(max_tenants=8)
+    old, tenants.LEDGER = tenants.LEDGER, led
+    try:
+        with _profiled(*profs):
+            for q, n_b2 in (('rate(pm{job=~"app.*"}[2m])', 1), ('pm{job="app1",s!="004"}', 0)):
+                eng.query_range(q, *span)  # builds the plan
+                eng.query_range(q, *span)  # every key seen once
+                st = stats.start(q)
+                with tenants.tenant_context("card"):
+                    eng.query_range(q, *span)
+                stats.finish(st, 0.0)
+                assert st.plan_hits == 1 and st.device_dispatches == 1 + n_b2, st.to_dict()
+        assert led.window_totals("card")["decode_seconds"] > 0
+    finally:
+        tenants.LEDGER = old
+        db.close()
+
+
+@pytest.mark.cuda
+def test_collect_device_memory_on_the_card(tmp_path):
+    """The device-memory split of a Database on the card: the resident pool
+    and the index tier as their owners count them, the live total
+    (torch.cuda.memory_allocated) at least their sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.index.device import IndexDeviceOptions
+    from m3_tpu_torch.profiling import collect_device_memory
+    from m3_tpu_torch.resident import ResidentOptions
+    from m3_tpu_torch.storage.database import Database, NamespaceOptions
+
+    db = Database(str(tmp_path), num_shards=2, commitlog_enabled=False,
+                  resident_options=ResidentOptions(max_bytes=1 << 24),
+                  index_device_options=IndexDeviceOptions(max_bytes=1 << 24), device="cuda")
+    db.create_namespace("ns", NamespaceOptions(block_size_nanos=3600 * 10**9))
+    for i in range(40):
+        tags = ((b"__name__", b"mem"), (b"s", b"%03d" % i))
+        for j in range(60):
+            db.write_tagged("ns", tags, T0 + j * 10**10, float(j))
+    db.flush("ns", T0 + 4 * 3600 * 10**9)
+    out = collect_device_memory(db)
+    assert out["resident_pool"] == db.resident_pool.device_bytes() > 0
+    assert out["index"] == db.index_device_store.device_bytes() > 0
+    assert out["total_live_jax_bytes"] >= out["resident_pool"] + out["index"]
+    assert out["total_live_jax_bytes"] == torch.cuda.memory_allocated(db.resident_pool.device)
+    assert out["other"] == out["total_live_jax_bytes"] - out["resident_pool"] - out["index"]
+    db.close()

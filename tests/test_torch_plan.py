@@ -426,7 +426,10 @@ def test_warm_plan_is_one_device_dispatch(pair):
     assert st.device_dispatches == 1, st.to_dict()
     assert st.to_dict()["deviceDispatches"] == 1 and st.to_dict()["planHits"] == 1
     _vs, _ms, sts = _run(eng, q, SPAN, staged=True)
-    assert sts.device_dispatches == 0  # the staged path executes no plan
+    # the staged path pays its per-stage dispatches (the device index's K1
+    # and K2 seams, the resident assembly and records decode), as the
+    # reference's does (tests/test_query_plan.py asserts > 1 there too)
+    assert sts.device_dispatches > 1
 
 
 # ---------------------------------------------------------------------------

@@ -347,12 +347,60 @@ def test_engine_selector_literal_unary_and_present():
 
 
 @pytest.mark.parametrize("option", ["scheduler", "tenant_enforcers"])
-def test_engine_raises_for_what_waits(option):
-    """The admission scheduler and the tenant scopes wait for ROADMAP
-    §A5b; the queries this test once refused are held against the JAX
-    engine in tests/test_torch_promql.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A5b"):
-        tengine.Engine(_storage("gapped"), device="cpu", **{option: object()})
+def test_engine_scheduler_and_tenant_scopes(option):
+    """``scheduler=`` and ``tenant_enforcers=`` against the JAX engine's on
+    the same query and tenants: the admitted query's values, the cost memo
+    it fed, a shed (scheduler) or a tenant-scope rejection
+    (tenant_enforcers) with the same error, and the ledger charges."""
+    from m3_tpu.query import scheduler as jsched
+    from m3_tpu.query import tenants as jtenants
+    from m3_tpu.query.cost import QueryLimitError as JQueryLimitError
+    from m3_tpu.query.cost import QueryLimits as JQueryLimits
+    from m3_tpu_torch.query import scheduler as tsched
+    from m3_tpu_torch.query import tenants as ttenants
+    from m3_tpu_torch.query.cost import QueryLimitError, QueryLimits
+
+    storage = _storage("gapped")
+    q = QUERIES[0]
+    start, end, step = T0 + 60 * NANOS, T0 + 1150 * NANOS, 10 * NANOS
+    sides = []
+    for tenants, sched, limits, error, make in (
+            (jtenants, jsched, JQueryLimits, JQueryLimitError,
+             lambda **kw: jengine.Engine(_HostStorage(storage.streams, _tags()),
+                                         lookback_nanos=30 * NANOS, **kw)),
+            (ttenants, tsched, QueryLimits, QueryLimitError,
+             lambda **kw: tengine.Engine(storage, lookback_nanos=30 * NANOS, device="cpu",
+                                         **kw))):
+        if option == "scheduler":
+            s = sched.QueryScheduler(max_inflight=1, max_queue=4, max_queue_wait=0.05)
+            eng = make(scheduler=s)
+            with tenants.tenant_context("q-admitted"):
+                r = eng.query_range(q, start, end, step)
+            s.admit("elsewhere", 1)
+            with tenants.tenant_context("q-shed"), pytest.raises(sched.QueryShedError) as ei:
+                eng.query_range(q, start, end, step)
+            s.release()
+            outcome = (ei.value.reason, ei.value.tenant, s.costs.series_estimate(q),
+                       s.snapshot()["inflight"])
+        else:
+            te = tenants.TenantEnforcers({"q-capped": limits(max_series=10)})
+            eng = make(tenant_enforcers=te)
+            with tenants.tenant_context("q-free"):
+                r = eng.query_range(q, start, end, step)
+            with tenants.tenant_context("q-capped"), pytest.raises(error) as ei:
+                eng.query_range(q, start, end, step)
+            outcome = (ei.value.scope, str(ei.value), te.scope_for("q-capped").series)
+        sides.append((r, outcome))
+    (want, jout), (got, tout) = sides
+    assert tout == jout
+    assert tout == (("deadline", "q-shed", 77, 0) if option == "scheduler"
+                    else ("tenant", "query limit exceeded: tenant q-capped series used 77 > limit 10",
+                          0))
+    assert [m.tags for m in got.metas] == [m.tags for m in want.metas]
+    w, g = np.asarray(want.values, np.float64), got.values.numpy().astype(np.float64)
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    m = ~np.isnan(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-4, atol=1e-4)
 
 
 def test_query_entry_points_refuse_cpu_fallback():
