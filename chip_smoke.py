@@ -4,6 +4,7 @@
         [--parent-b7 TREE/m3_tpu_torch/query/functions/csrc/temporal_window.cu]
         [--parent-b5 TREE/m3_tpu_torch/aggregator/csrc/rollup.cu]
         [--parent-b4 TREE/m3_tpu_torch/ops/csrc/encode.cu]
+        [--parent-scan TREE/m3_tpu_torch/parallel/scan.py]
 
 Phases (any failure exits non-zero):
   build    — compile the kernel libraries from their csrc/ sources with
@@ -20,7 +21,43 @@ Phases (any failure exits non-zero):
              chunked_scan_aggregate_packed. total_count must equal the host
              decode exactly, total_sum within rtol 1e-3. Then the kernel's
              warm time (CUDA events), the end-to-end rate, the twin's time
-             and a per-lane kernel-vs-twin check at this shape.
+             and a per-lane kernel-vs-twin check at this shape. With
+             --parent-scan (another tree's parallel/scan.py) the scan's
+             reductions and the scan end to end are timed in turns with
+             that tree's reductions (parent, new, new, parent).
+  batched  — the whole-stream decode (kernel B-6) vs its twin on the card,
+             every field bit for bit (values_f32 with NaN in the same
+             places), in both int_optimized modes on 4,096 series tiling
+             the unique streams of every parity kind and of a
+             synthetic_mixed_streams set (unit changes, annotations: err
+             series). Then scan_aggregate over tiled_batch(1,048,576, 720)
+             (the 64 gauge streams of seed 3): per-series count, min, max,
+             last, sum and err == chunked_scan_aggregate (kernel R) of the
+             same streams bit for bit, B-6 timed (CUDA events) beside its
+             bytes bound (the words each stream's bits occupy, 23 bytes a
+             record), end to end beside [main]'s chunked scan, with the
+             peak device memory; then B-6 == its twin on the scan's own
+             inputs, every field bit for bit, and the twin's time there.
+  mesh     — an NCCL world of one (init_process_group with a FileStore
+             under build/, no TCP): resident_scan_totals(mesh=) ==
+             mesh=None at [resident]'s 1M series (checked inside
+             [resident], which holds the pool), make_sharded_scan ==
+             scan_aggregate and make_sharded_chunked_scan ==
+             chunked_scan_aggregate at 1,048,576 x 720, bit for bit; the
+             all-reduce's ms. The group is destroyed at the end.
+  stream   — stream_aggregate over 16 batches of 65,536 series x 720
+             (k=24, bench_stream.py's batch), each batch of other streams
+             (64 unique gauge streams of seed 3 + b, tiled), with two in
+             flight, pinned uploads on a side stream: count, min and max ==
+             the fold of each batch's own packed scan and sum within rtol
+             1e-6; wall seconds, points/s, the
+             steady-state drain interval, upload GB/s and B1 a batch. Then
+             the fileset route: one fileset of 100,000 series x 720
+             (series i holds unique stream i % 64 of seed 5, from the
+             native encoder; side rows computed once a unique stream) read
+             in batches straight off its side tables == the same batches
+             prescanned from the streams (count exact, sum within rtol
+             1e-6).
   records  — records decode (kernel R) vs its twin on the same five batch
              kinds, series-major: timestamps, value bits, point_is_float,
              mult, valid and err exactly equal.
@@ -275,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -334,6 +372,9 @@ BLOCK = 2 * 3600 * 10**9  # the Database's default block size
 # [ingest]: B-4 at BASELINE config 3's seal (100,000 series x 720 points), and
 # two storage nodes, device seal and host seal, over one write_batch
 INGEST_LANES, INGEST_E2E_SERIES, INGEST_SEED = 100_000, 1_000, 21
+# [stream]: bench_stream.py's batch of series, and the fileset route's series
+# (config 3's block)
+STREAM_BATCH, STREAM_FILESET_SERIES = 65_536, 100_000
 # [hostcodec]: the series on which the Python codec runs beside the library
 HOSTCODEC_CHECK = 200
 KINDS = [("gauge", "c", 32), ("counter", "c", 32), ("float", "c", 32), ("mixed", "sorted", 8),
@@ -533,7 +574,62 @@ def phase_parity_fields(dev) -> float:
     return worst
 
 
-def phase_main(dev, worst: float):
+def load_parent_scan(path: str):
+    """Another tree's ``m3_tpu_torch/parallel/scan.py`` (``--parent-scan``:
+    the parent commit's, unpacked beside this checkout in a directory
+    .gitignore lists) as a module of this package: its relative imports
+    resolve to this checkout's modules, so only its own code differs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("m3_tpu_torch.parallel._parent_scan",
+                                                  str(Path(path).resolve()))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def scan_turns(parent, packed, s: int, c: int) -> None:
+    """[main]'s scan with the parent's reductions and this one's in turns
+    (parent, new, new, parent) over the same lanes: the reductions alone
+    over one B1 output (CUDA events, median of 20) and the scan end to end
+    (B1, the reductions and the count to the host; host clock, median of
+    10). The two agree on every count, and on the sums to the order of
+    their adds."""
+    import torch
+
+    from m3_tpu_torch.ops import fused
+    from m3_tpu_torch.parallel import scan
+
+    mods = {"parent": parent, "new": scan}
+    kernel = lambda: fused.lane_aggregates(packed.windows, packed.lanes, packed.tile_flags,
+                                           n=packed.n, k=K)
+    reduce = lambda who, lane: mods[who]._aggregates_from_lanes(
+        lane, s, c, lane_order=packed.order, inv=packed.inv)
+    lane = kernel()
+    a, b = reduce("parent", lane), reduce("new", lane)
+    if not torch.equal(a.series_count, b.series_count) or int(a.total_count) != int(b.total_count):
+        raise AssertionError("[main] the parent's reductions and this one's count differently")
+    rel = ((a.series_sum.double() - b.series_sum.double()).abs()
+           / b.series_sum.double().abs().clamp(min=1e-30)).max()
+    same = int((a.series_sum.view(torch.int32) == b.series_sum.view(torch.int32)).sum())
+    turns = []
+    for who in ("parent", "new", "new", "parent"):
+        red_ms = statistics.median(cuda_ms(lambda: reduce(who, lane), 20))
+        e2e = lambda: int(reduce(who, kernel()).total_count)
+        e2e()
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            e2e()
+            host.append(time.perf_counter() - t0)
+        turns.append(f"{who} {red_ms:.4f} / {statistics.median(host) * 1e3:.3f}")
+    log(f"[main] in turns with the parent's parallel/scan.py, reductions ms (CUDA events) / "
+        f"scan end to end ms (host clock): {', '.join(turns)}; series sums equal bit for bit "
+        f"in {same} of {s}, largest relative difference {float(rel):.3e}; total_sum parent "
+        f"{float(a.total_sum)!r}, this {float(b.total_sum)!r}")
+
+
+def phase_main(dev, worst: float, parent_scan=None):
     import torch
 
     from m3_tpu_torch.codec.m3tsz import decode
@@ -600,6 +696,8 @@ def phase_main(dev, worst: float):
         e2e()
         e2e_s.append(time.perf_counter() - t0)
     e2e_med = statistics.median(e2e_s)
+    if parent_scan is not None:
+        scan_turns(parent_scan, packed, s, c)
 
     # twin on the same inputs: time and per-lane check
     got = run_kernel()
@@ -663,7 +761,7 @@ def compare_scans(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
-def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> dict:
+def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float, mesh=None) -> dict:
     import torch
 
     from m3_tpu_torch.cache.block_cache import BlockKey
@@ -750,6 +848,15 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> di
     del ref, main_out
     log(f"[resident] check 2: resident_scan_totals == chunked_scan_aggregate_packed bit for bit "
         f"(total_count {total_count}, total_sum {float(out.total_sum)!r})")
+    if mesh is not None:  # [mesh]'s NCCL world of one over the same pool
+        t0 = time.perf_counter()
+        sharded = resident_scan_totals(pool, keys, mesh=mesh, device_out=True)
+        torch.cuda.synchronize()
+        compare_scans(sharded, out, "resident_scan_totals(mesh=) vs mesh=None")
+        log(f"[mesh] resident_scan_totals(mesh=) over the NCCL world of one == mesh=None bit "
+            f"for bit at {s} series ({(time.perf_counter() - t0) * 1e3:.1f} ms with the "
+            f"all-gather)")
+        del sharded
 
     # check 3: warm scans move no upload bytes; end to end, to a host read
     def e2e():
@@ -838,6 +945,368 @@ def phase_resident(dev, kernels: list, b3_worst: float, main_e2e_s: float) -> di
         "library_ms": None,
     })
     return b2
+
+
+def b6_bound(num_bits, w: int, t: int) -> dict:
+    """Bytes kernel B-6 must move on these inputs, each once: every series'
+    stream words up to its valid bits (at most W), num_bits and
+    initial_unit (8 bytes a series), 23 bytes a record (ts, bits,
+    values_f32, point_is_float, mult, valid) and the err byte; and its f32
+    operations, the value conversion (<= 8) of every record."""
+    import torch
+
+    nb = torch.as_tensor(num_bits).to(torch.int64).clamp(min=0)
+    s = nb.numel()
+    parts = {"words": int(((nb + 31) // 32).clamp(max=w).sum()) * 4, "per_series": s * 9,
+             "records": s * t * 23}
+    parts["total"] = sum(parts.values())
+    bytes_ms = parts["total"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = s * t * 8 / F32_FLOP_PER_S * 1e3
+    return {"parts": parts, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def compare_decoded(got, want, what: str) -> None:
+    """B-6 vs its twin: every field exactly equal, values_f32 by its bits
+    with NaN in the same places (the twin on the card leaves the card's own
+    NaN bits, the kernel stores 0x7FC00000)."""
+    import torch
+
+    for f in ("ts", "bits", "point_is_float", "mult", "valid", "err"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            bad = torch.nonzero(getattr(got, f) != getattr(want, f))[:3].tolist()
+            raise AssertionError(f"{what}: {f} differs between kernel B-6 and its twin at {bad}")
+    if not same_bits(got.values_f32, want.values_f32):
+        raise AssertionError(f"{what}: values_f32 differs between kernel B-6 and its twin")
+
+
+def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
+    """Kernel B-6 == its twin on the parity sets in both modes, then
+    scan_aggregate at [main]'s 1M x 720 beside the chunked scan of the same
+    series, and B-6 == its twin on that scan's inputs. Returns the
+    single-device scans for [mesh]."""
+    import torch
+
+    from m3_tpu_torch.ops import chunked, decode, fused
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.segment.batched import BatchedSegments
+    from m3_tpu_torch.utils.synthetic import synthetic_mixed_streams, tiled_batch
+
+    t_phase = time.perf_counter()
+    t = N_POINTS
+    # 1. parity: one batch of 4,096 series tiling the unique streams of every
+    # parity kind and of a synthetic_mixed_streams set (floats, counters,
+    # unit changes, annotations), decoded in both modes (the twin on the
+    # card is bound by its launches, ~11 s a run whatever the rows)
+    uniq = [x for kind, _, _ in KINDS for x in phase_streams(kind)]
+    uniq += synthetic_mixed_streams(N_UNIQUE, t, seed=7, frac_tu_change=0.1,
+                                    frac_annotation=0.05)
+    seg = BatchedSegments.from_streams([uniq[i % len(uniq)] for i in range(PARITY_SERIES)])
+    args = decode.batched_device_args(seg, device=dev)
+    parity_twin_ms = None
+    for io in (True, False):
+        got = decode.decode_batched(*args, t, int_optimized=io)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decode.decode_batched_reference(*args, t, int_optimized=io)
+        torch.cuda.synchronize()
+        parity_twin_ms = parity_twin_ms or (time.perf_counter() - t0) * 1e3
+        compare_decoded(got, want, f"[batched] int_optimized={io}")
+        log(f"[batched] B-6 == twin, int_optimized={io!s:5s}: [{PARITY_SERIES}, {t}] tiling "
+            f"{len(uniq)} unique streams ({', '.join(k for k, _, _ in KINDS)}, mixed with unit "
+            f"changes and annotations) W={seg.num_words} valid={int(want.valid.sum())} "
+            f"err_series={int(want.err.sum())} float_points="
+            f"{int((want.point_is_float & want.valid).sum())}")
+        if io and not bool(want.err.any()):
+            raise AssertionError("[batched] no parity series made err")
+    del got, want
+
+    # 2. the whole-stream scan at [main]'s scale, counted
+    t0 = time.perf_counter()
+    seg = tiled_batch(MAIN_SERIES, t, n_unique=N_UNIQUE, seed=3)
+    host_s = time.perf_counter() - t0
+    args = decode.batched_device_args(seg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode.LAUNCHES = 0
+    t0 = time.perf_counter()
+    whole = scan.scan_aggregate(*args, t)
+    total_count = int(whole.total_count)
+    first_s = time.perf_counter() - t0
+    launches = decode.LAUNCHES
+    if launches < 1:
+        raise AssertionError("[batched] scan_aggregate did not launch kernel B-6")
+    peak = torch.cuda.max_memory_allocated()
+
+    # per-series == the chunked scan (kernel R) of the same streams
+    batch = chunked.build_chunked([seg.stream(i) for i in range(N_UNIQUE)], k=K)
+    packed = fused.pack_lanes(batch, order="s", device=dev, n_series=MAIN_SERIES)
+    chunked_out = scan.chunked_scan_aggregate(packed, MAIN_SERIES, batch.num_chunks, K)
+    for f in ("series_count", "series_min", "series_max", "series_last", "series_sum",
+              "series_err"):
+        if not same_bits(getattr(whole, f).float(), getattr(chunked_out, f).float()):
+            raise AssertionError(f"[batched] scan_aggregate {f} != chunked_scan_aggregate's")
+    if total_count != int(chunked_out.total_count) or total_count != MAIN_SERIES * t:
+        raise AssertionError(f"[batched] total_count {total_count} vs chunked "
+                             f"{int(chunked_out.total_count)}")
+    log(f"[batched] scan_aggregate {MAIN_SERIES} series x {t} pts (tiled_batch of "
+        f"{N_UNIQUE} gauge streams, seed 3; W={seg.num_words}): per-series count, min, max, "
+        f"last, sum and err == chunked_scan_aggregate (kernel R) bit for bit; total_count "
+        f"{total_count}, total_sum {float(whole.total_sum)!r} (chunked "
+        f"{float(chunked_out.total_sum)!r}); launches {launches}; host tiled_batch "
+        f"{host_s:.2f}s, first call {first_s:.3f}s")
+    del packed
+
+    run = lambda: decode.decode_batched(*args, t)
+    run()
+    b6_ms = statistics.median(cuda_ms(run, 5))
+
+    def e2e():
+        return int(scan.scan_aggregate(*args, t).total_count)
+
+    e2e()
+    e2e_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        e2e()
+        e2e_s.append(time.perf_counter() - t0)
+    e2e_med = statistics.median(e2e_s)
+
+    # B-6 against its twin at the main path's shape, every field
+    got = decode.decode_batched(*args, t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = decode.decode_batched_reference(*args, t)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    compare_decoded(got, want, f"[batched] [{MAIN_SERIES}, {t}]")
+    diff = (got.values_f32 - want.values_f32).abs()
+    max_err = float(torch.where(diff.isnan(), 0.0, diff).max())
+    log(f"[batched] B-6 == twin at [{MAIN_SERIES}, {t}] (the scan's inputs): ts, bits, "
+        f"point_is_float, mult, valid, err and values_f32 bit for bit; valid "
+        f"{int(want.valid.sum())}; twin {twin_ms:.1f} ms")
+    del got, want, diff
+    bd = b6_bound(args[1], seg.num_words, t)
+    log("[batched] B-6 bytes needed: " + ", ".join(
+        f"{k_} {v / 1e9:.4f} GB" for k_, v in bd["parts"].items()))
+    log(f"[batched] B-6 (decode_batched) [{MAIN_SERIES}, {t}] W={seg.num_words} warm median "
+        f"{b6_ms:.3f} ms (5 launches, CUDA events); bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}; {bd['bound_ms'] / b6_ms:.1%} of roofline; f32 ops "
+        f"{bd['ops_ms']:.4f} ms); twin {twin_ms:.1f} ms on the same inputs "
+        f"({parity_twin_ms:.1f} ms on the [{PARITY_SERIES}, {t}] parity set); "
+        f"scan_aggregate end to end {e2e_med * 1e3:.3f} ms, median of 3 = "
+        f"{total_count / e2e_med:.4e} datapoints/s; [main] chunked B1 scan end to end "
+        f"{main_e2e_s * 1e3:.3f} ms (B1 {b1_ms:.3f} ms): whole-stream / chunked = "
+        f"{main_e2e_s / e2e_med:.3f}x the chunked rate")
+    log(f"[batched] peak device memory of scan_aggregate {peak / 1e9:.2f} GB")
+    log("[batched] library_ms for B-6: no single PyTorch call computes an M3TSZ decode; null")
+    log(f"[batched] phase {time.perf_counter() - t_phase:.1f}s")
+    kernels.append({
+        "name": "decode_batched",
+        "route": "cuda",
+        "source": "m3_tpu_torch/ops/csrc/lane_aggregates.cu",
+        "replaces": "m3_tpu/ops/decode.py:542",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": b6_ms,
+        "plain_ms": twin_ms,
+        "bound_ms": bd["bound_ms"],
+        "bound_by": bd["bound_by"],
+        "library_ms": None,
+    })
+    return {"args": args, "whole": whole, "chunked": chunked_out, "batch": batch}
+
+
+def open_mesh():
+    """A world of one over NCCL, rendezvous through a FileStore under the
+    checkout's build/ (no TCP, no environment), and its series mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from m3_tpu_torch.parallel.mesh import series_mesh
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh-", dir=root)) / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    mesh = series_mesh()
+    log(f"[mesh] NCCL world of one: rank {mesh.rank} of {mesh.size} on {mesh.device}")
+    return mesh, store.parent
+
+
+def close_mesh(store_dir) -> None:
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def phase_mesh(dev, mesh, single: dict) -> None:
+    """The sharded scans over the NCCL world of one at [main]'s scale ==
+    the single-device scans bit for bit; the all-reduce's time."""
+    import torch
+
+    from m3_tpu_torch.ops import chunked, decode, fused
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.parallel.mesh import series_sharding
+
+    t_phase = time.perf_counter()
+    shard = series_sharding(mesh)
+    args, batch = single["args"], single["batch"]
+    local = [shard(x) for x in args]
+    decode.LAUNCHES = chunked.LAUNCHES = 0
+    got = scan.make_sharded_scan(mesh, N_POINTS)(*local)
+    compare_scans(got, single["whole"], "make_sharded_scan vs scan_aggregate")
+    packed = fused.pack_lanes(batch, order="s", device=dev, n_series=MAIN_SERIES)
+    got_c = scan.make_sharded_chunked_scan(mesh, MAIN_SERIES, batch.num_chunks, K)(packed)
+    compare_scans(got_c, single["chunked"], "make_sharded_chunked_scan vs chunked_scan_aggregate")
+    torch.cuda.synchronize()
+    if decode.LAUNCHES < 1 or chunked.LAUNCHES < 1:
+        raise AssertionError(f"[mesh] launches B-6 {decode.LAUNCHES}, R {chunked.LAUNCHES}")
+    del packed, got_c
+    log(f"[mesh] make_sharded_scan == scan_aggregate and make_sharded_chunked_scan == "
+        f"chunked_scan_aggregate bit for bit at {MAIN_SERIES} x {N_POINTS} (launches B-6 "
+        f"{decode.LAUNCHES}, R {chunked.LAUNCHES})")
+    x = torch.ones((), dtype=torch.float32, device=mesh.device)
+    one_ms = statistics.median(cuda_ms(lambda: mesh.all_reduce(x, "sum"), 20))
+    four_ms = statistics.median(cuda_ms(lambda: scan._mesh_totals(
+        mesh, got.total_sum, got.total_count, got.total_min, got.total_max), 20))
+    log(f"[mesh] NCCL all-reduce of one f32 {one_ms:.4f} ms (median of 20, CUDA events); the "
+        f"scan's four totals (sum, count, min, max and the NaN rule) {four_ms:.4f} ms")
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def phase_stream(dev) -> None:
+    """stream_aggregate over [main]'s series in 16 batches of 65,536, each of
+    other streams, with two in flight, == the sum of each batch's own
+    packed scan; then the fileset route
+    over one fileset of 100,000 series written with the native encoder."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from m3_tpu_torch.ops import chunked, fused
+    from m3_tpu_torch.ops.sideplane import pack_side_rows
+    from m3_tpu_torch.parallel import stream
+    from m3_tpu_torch.parallel.scan import chunked_scan_aggregate_packed
+    from m3_tpu_torch.storage import fs
+    from m3_tpu_torch.utils.synthetic import synthetic_streams
+
+    t_phase = time.perf_counter()
+    n_batches = MAIN_SERIES // STREAM_BATCH
+    # every batch holds other streams (64 unique ones of seed 3 + b, tiled):
+    # a kernel that read a buffer before its upload finished, or another
+    # batch's, would change the totals
+    t0 = time.perf_counter()
+    hosts = [next(stream.packed_batches([chunked.tile_chunked(chunked.build_chunked(
+        synthetic_streams(N_UNIQUE, N_POINTS, seed=3 + b), k=K), STREAM_BATCH)]))
+        for b in range(n_batches)]
+    pack_s = (time.perf_counter() - t0) / n_batches
+    batch_bytes = sum(x.numel() * x.element_size() for x in hosts[0][0][:3])
+
+    # the oracle: each batch's own packed scan on the card
+    on_card = lambda h: h[0]._replace(windows=h[0].windows.to(dev), lanes=h[0].lanes.to(dev),
+                                      tile_flags=h[0].tile_flags.to(dev))
+    refs = []
+    for h in hosts:
+        o = chunked_scan_aggregate_packed(on_card(h), *h[1:])
+        refs.append((float(o.total_sum), int(o.total_count), float(o.total_min),
+                     float(o.total_max)))
+    if len({r[0] for r in refs}) != n_batches:
+        raise AssertionError("[stream] the batches' packed scans do not all differ")
+    want_sum = sum(r[0] for r in refs)
+    want_count = sum(r[1] for r in refs)
+    want_min, want_max = min(r[2] for r in refs), max(r[3] for r in refs)
+    dev_lanes = on_card(hosts[0])
+    b1_ms = statistics.median(cuda_ms(lambda: fused.lane_aggregates(
+        dev_lanes.windows, dev_lanes.lanes, dev_lanes.tile_flags, n=dev_lanes.n, k=K), 10))
+    del dev_lanes
+
+    fused.LAUNCHES = 0
+    drains = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    totals = stream.stream_aggregate(hosts, prefetch=2, drain_times=drains, device=dev)
+    got = totals.finalize()
+    wall = time.perf_counter() - t0
+    if fused.LAUNCHES != n_batches:
+        raise AssertionError(f"[stream] {fused.LAUNCHES} B1 launches for {n_batches} batches")
+    if got[1] != want_count or not abs(got[0] - want_sum) <= 1e-6 * abs(want_sum) \
+            or (got[2], got[3]) != (want_min, want_max):
+        raise AssertionError(f"[stream] totals {got} vs the per-batch packed scans' "
+                             f"({want_sum!r}, {want_count}, {want_min!r}, {want_max!r})")
+    del hosts
+    steady = statistics.median(np.diff(drains)) if len(drains) > 2 else float("nan")
+    log(f"[stream] {n_batches} batches of {STREAM_BATCH} series x {N_POINTS} pts, each of other "
+        f"streams (64 unique gauge streams of seeds 3..{2 + n_batches}, tiled; k={K}, "
+        f"prefetch=2, pinned uploads on a side stream): count {got[1]} == the sum of each "
+        f"batch's own packed scan, sum {got[0]!r} (theirs {want_sum!r}), min {got[2]!r} and "
+        f"max {got[3]!r} == theirs")
+    log(f"[stream] wall {wall:.3f} s = {got[1] / wall:.4e} points/s; steady-state interval "
+        f"{steady * 1e3:.3f} ms a batch (median of the drain stamps' differences); upload "
+        f"{batch_bytes / 1e6:.1f} MB a batch = {batch_bytes / steady / 1e9:.2f} GB/s at the "
+        f"interval ({batch_bytes * n_batches / wall / 1e9:.2f} GB/s over the wall); B1 "
+        f"{b1_ms:.3f} ms a batch (CUDA events, median of 10); host packing "
+        f"{pack_s:.2f} s a batch (outside the wall)")
+
+    # the fileset route: one fileset of config 3's block, series i holding
+    # unique stream i % 64 (native encoder), side rows computed once a
+    # unique stream (as [database] writes its block)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    base_dir = tempfile.mkdtemp(prefix="chip_smoke_stream-", dir=root)
+    try:
+        b0 = T0 // BLOCK * BLOCK
+        uniq = synthetic_streams(N_UNIQUE, N_POINTS, seed=5, start_nanos=b0)
+        rows = [pack_side_rows(chunked.snapshot_stream(x, K), b0) for x in uniq]
+        if any(r is None for r in rows):
+            raise AssertionError("[stream] a unique stream's side rows overflow the packed layout")
+        ids = [b"stream-%06d" % i for i in range(STREAM_FILESET_SERIES)]
+        t0 = time.perf_counter()
+        fid = fs.FilesetID("m3", 0, b0, 0)
+        fs.write_fileset(base_dir, fid, {sid: uniq[i % N_UNIQUE] for i, sid in enumerate(ids)},
+                         BLOCK, K, side_rows={sid: rows[i % N_UNIQUE] for i, sid in enumerate(ids)})
+        write_s = time.perf_counter() - t0
+        reader = fs.FilesetReader(base_dir, fid)
+        fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ftotals = stream.stream_aggregate(
+            stream.fileset_packed_batches([reader], batch_series=STREAM_BATCH), device=dev)
+        fgot = ftotals.finalize()
+        fwall = time.perf_counter() - t0
+        f_launches = fused.LAUNCHES
+        if f_launches != ftotals.batches:
+            raise AssertionError(f"[stream] {f_launches} B1 launches for {ftotals.batches} "
+                                 f"fileset batches")
+        # the same batches from the streams, prescanned: the unique streams'
+        # lanes gathered in the reader's series order
+        base_u = chunked.build_chunked(uniq, k=K)
+        order = np.asarray([int(sid[len(b"stream-"):]) % N_UNIQUE for sid in reader.series_ids])
+        fsum, fcount = 0.0, 0
+        for i in range(0, len(order), STREAM_BATCH):
+            b = chunked.select_series(base_u, order[i:i + STREAM_BATCH])
+            out = chunked_scan_aggregate_packed(fused.pack_lanes(b, device=dev),
+                                                s=b.num_series, c=b.num_chunks, k=K)
+            fsum += float(out.total_sum)
+            fcount += int(out.total_count)
+        if fgot[1] != fcount or fcount != STREAM_FILESET_SERIES * N_POINTS \
+                or not abs(fgot[0] - fsum) <= 1e-6 * abs(fsum):
+            raise AssertionError(f"[stream] fileset totals {fgot[:2]} vs the streams' "
+                                 f"({fsum!r}, {fcount})")
+        log(f"[stream] fileset route: {STREAM_FILESET_SERIES} series x {N_POINTS} pts (64 "
+            f"unique gauge streams of seed 5 from the native encoder; write_fileset with "
+            f"their side rows {write_s:.2f} s) in {ftotals.batches} batches straight off the "
+            f"side tables ({f_launches} B1 launches): count {fgot[1]} == the same batches "
+            f"prescanned from the streams, sum {fgot[0]!r} (theirs {fsum!r}); {fwall:.3f} s "
+            f"with the reads and packing")
+    finally:
+        shutil.rmtree(base_dir, ignore_errors=True)
+    log(f"[stream] phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def compare_records(got, want, what: str) -> None:
@@ -1476,7 +1945,8 @@ def phase_query(dev, kernels: list, temporal_err: float, parent_b1=None) -> dict
     rec_s = chunked.decode_chunked(pk.windows, pk.lanes, s_q, c, K)
     # B-1 at the query's (and [database]'s) shape, and at a small ragged one
     b1 = b1_check(rec_s, lo, hi, grid, lookback, "query")
-    ragged = DecodeResult(*[x[:333, :517].contiguous() if x.dim() == 2 else x[:333]
+    ragged = DecodeResult(*[None if x is None else
+                            x[:333, :517].contiguous() if x.dim() == 2 else x[:333]
                             for x in rec_s])
     b1_ragged = b1_check(ragged, lo, hi, grid[:301], lookback, "query")
     del ragged
@@ -3756,6 +4226,10 @@ def main() -> int:
                     help="another tree's query/functions/csrc/temporal_window.cu (a parent "
                          "commit unpacked beside this checkout): [promql] times its B-7 in "
                          "turns with this one's")
+    ap.add_argument("--parent-scan", metavar="PY", default=None,
+                    help="another tree's m3_tpu_torch/parallel/scan.py (a parent commit "
+                         "unpacked beside this checkout): [main] times its scan's reductions "
+                         "in turns with this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3785,9 +4259,16 @@ def main() -> int:
 
     worst = phase_parity(dev)
     b3_worst = phase_parity_fields(dev)
-    main_e2e_s, b1 = phase_main(dev, worst)
+    parent_scan = load_parent_scan(args.parent_scan) if args.parent_scan else None
+    main_e2e_s, b1 = phase_main(dev, worst, parent_scan)
     kernels = [b1]
-    b2 = phase_resident(dev, kernels, b3_worst, main_e2e_s)
+    mesh, mesh_dir = open_mesh()
+    b2 = phase_resident(dev, kernels, b3_worst, main_e2e_s, mesh)
+    single = phase_batched(dev, kernels, main_e2e_s, b1["ms"])
+    phase_mesh(dev, mesh, single)
+    del single
+    close_mesh(mesh_dir)
+    phase_stream(dev)
     phase_records(dev)
     temporal_err = phase_temporal(dev)
     temporal_err = max(temporal_err, phase_temporal_sizes(dev))

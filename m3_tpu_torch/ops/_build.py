@@ -52,6 +52,10 @@ SOURCES = {
             # windows, lanes, npad, n, cw, mask, k,
             # out_ts, out_bits, out_pif, out_mult, out_valid, out_err, stream
             "m3_decode_records": [_P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+            # words, num_bits, initial_unit, s, w, t, int_optimized, out_ts,
+            # out_bits, out_pif, out_mult, out_valid, out_err, out_f32, stream
+            "m3_decode_batched": [_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P],
             # windows, fields (host array of 17 pointers), n, cw, mask, k,
             # out_f, out_cnt, out_err, stream
             "m3_lane_aggregates_fields": [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P],

@@ -1,7 +1,8 @@
 // M3TSZ chunk-lane decode: the CUDA port of the Pallas kernels
 // m3_tpu/ops/fused.py:lane_aggregates_packed (B1) and lane_aggregates_pallas
-// (B3), and of the XLA scan m3_tpu/ops/chunked.py:460 decode_chunked_lanes
-// (kernel R).
+// (B3), and of the XLA scans m3_tpu/ops/chunked.py:460 decode_chunked_lanes
+// (kernel R) and m3_tpu/ops/decode.py:542 decode_batched (kernel B-6, the
+// whole-stream decode; its note is at decode_batched_kernel below).
 //
 // What it computes. Each lane is one chunk of at most k M3TSZ records. It
 // starts from the decoder state of its side table (17 u32 planes), decodes
@@ -786,6 +787,106 @@ M3_HD void run_general(const Lane* L, int k, Acc* acc, bool* err, const Rcp& rcp
   });
 }
 
+// ---------------------------------------------------------------------------
+// Whole streams (kernel B-6): m3_tpu/ops/decode.py decode_batched
+// ---------------------------------------------------------------------------
+
+// A series of the whole-stream decode: its row of W stream words in device
+// memory. A fetch clips each of its four word indices to W - 1, as the
+// reference's _fetch4 does, so a fetch past the end repeats the last word
+// (BatchedSegments pads two zero words, so its rows end in zeros).
+struct StreamLane {
+  const uint32_t* row;
+  int64_t w;
+
+  M3_HD Window fetch(int pos) const {
+    const int64_t last = w - 1;
+    const int64_t i0 = (int64_t)(pos >> 5) < last ? (int64_t)(pos >> 5) : last;
+    const int64_t i1 = i0 + 1 < last ? i0 + 1 : last;
+    const int64_t i2 = i0 + 2 < last ? i0 + 2 : last;
+    const int64_t i3 = i0 + 3 < last ? i0 + 3 : last;
+    const uint32_t w0 = M3_LOAD(row + i0), w1 = M3_LOAD(row + i1);
+    const uint32_t w2 = M3_LOAD(row + i2), w3 = M3_LOAD(row + i3);
+    const unsigned r = (unsigned)pos & 31u;
+    const uint32_t s0 = __funnelshift_l(w1, w0, r);
+    const uint32_t s1 = __funnelshift_l(w2, w1, r);
+    const uint32_t s2 = __funnelshift_l(w3, w2, r);
+    const uint32_t s3 = w3 << r;
+    return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
+  }
+};
+
+// _decode_value with int_optimized=False (decode.py:431-444): the first
+// record is a 64-bit float, every later one an XOR record; every point is
+// float, whatever the lane's state.
+M3_HD void decode_value_float(const Window& ws, State& st, bool first) {
+  uint64_t x_bits, x_xor;
+  int x_consumed;
+  read_xor(ws, 0, st.prev_float_bits, st.prev_xor, x_bits, x_xor, x_consumed);
+  if (!st.done && !st.err) {
+    st.pos += first ? 64 : x_consumed;
+    st.prev_float_bits = first ? ws.a : x_bits;
+    st.prev_xor = first ? ws.a : x_xor;
+  }
+  st.is_float = true;
+}
+
+// decode_batched's step loop over one series: t records from bit 0, each
+// R's timestamp step (with the markers) and R's mode-agnostic value step
+// (kIntOpt) or the float-only one. emit(idx, valid, state) after each
+// record; returns the series' err flag.
+template <bool kIntOpt, class Emit>
+M3_HD bool walk_stream(const StreamLane& L, int num_bits, int unit, int t, Emit&& emit) {
+  State st;
+  st.pos = 0;
+  st.done = num_bits <= 0;
+  st.err = false;
+  st.is_float = false;
+  st.time_unit = unit;
+  st.mult = 0;
+  st.sig = 0;
+  st.prev_time = st.prev_delta = st.prev_float_bits = st.prev_xor = st.int_val = 0ull;
+  const uint64_t nt = L.fetch(0).a;  // the stream's first 64 bits
+  for (int idx = 0; idx < t; ++idx) {
+    const bool first = idx == 0;
+    const bool was = !st.done && !st.err;
+    const int pos = first ? st.pos + 64 : st.pos;
+    decode_timestamp<true, false>(L.fetch(pos), pos, num_bits, st, first, nt);
+    const bool ts_ok = !st.done && !st.err;
+    const Window ws = L.fetch(st.pos);
+    if (kIntOpt) decode_value<kAny>(ws, st, first, true, true);
+    else decode_value_float(ws, st, first);
+    emit(idx, was && ts_ok && !st.done && !st.err, st);
+  }
+  return st.err;
+}
+
+// B-6's outputs, row-major [S, T] (err [S] apart): a record's timestamp,
+// value bits (f64 bits of a float point, else the int value),
+// point_is_float, mult, valid and its f32 value.
+struct RecordRows {
+  int64_t* ts;
+  int64_t* bits;
+  uint8_t* pif;
+  uint8_t* mult;
+  uint8_t* valid;
+  float* f32;
+
+  // The record at o: values_f32 by the reference's formulas, NaN where
+  // invalid. Every NaN is stored as 0x7FC00000, the bits the reference's
+  // sign * NaN keeps on the CPU (the card's multiply returns its own NaN).
+  M3_HD void put(int64_t o, const State& st, bool ok) const {
+    const uint64_t b = st.is_float ? st.prev_float_bits : st.int_val;
+    ts[o] = (int64_t)st.prev_time;
+    bits[o] = (int64_t)b;
+    pif[o] = st.is_float ? 1 : 0;
+    mult[o] = (uint8_t)st.mult;
+    valid[o] = ok ? 1 : 0;
+    const float v = st.is_float ? f64_bits_to_f32(b) : to_f32(b) * mult_rcp(st.mult);
+    f32[o] = ok && v == v ? v : __int_as_float(0x7FC00000);
+  }
+};
+
 // _ts_consumed_fast: width of a marker-free {s, ms} timestamp record. The
 // leading ones of its 4-bit head (0..4) pick 1, 9, 12, 16 or 36 bits, here
 // a byte of one constant: no branch, so lanes whose widths differ do not
@@ -1110,6 +1211,35 @@ lane_aggregates_fields_slab_kernel(const uint32_t* __restrict__ windows, const F
   }
 }
 
+// Kernel B-6: the whole-stream decode, the port of the XLA program
+// m3_tpu/ops/decode.py:542 decode_batched (a max_points-step lax.scan over
+// every series' state, called by m3_tpu/parallel/scan.py:116
+// _local_scan_aggregate). One thread a series walks its stream from bit 0
+// for t records, with the state in registers, reading its four-word
+// fetches from device memory (a whole stream is hundreds to thousands of
+// words, far past what R's slab stage holds) and writing every record.
+// Bound: bytes. Each series' stream words are read once and 23 bytes a
+// record written (ts, bits, values_f32, three flags): at 1,048,576 series x
+// 720 gauge points that is ~1.8 GB read and ~17.4 GB written, some 5.7 ms
+// at 3.35 TB/s (chip_smoke.py prints the bound of its run). The design is
+// the simple one: one thread's row-major stores are strided by T across a
+// warp, so each store instruction touches 32 sectors; staging records
+// through shared memory as R does (or storing time-major) is the first
+// lever, left for later.
+template <bool kIntOpt>
+__global__ void __launch_bounds__(kSlab)
+decode_batched_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ num_bits,
+                      const int32_t* __restrict__ initial_unit, int64_t s, int64_t w, int t,
+                      RecordRows out, uint8_t* __restrict__ out_err) {
+  const int64_t row = (int64_t)blockIdx.x * kSlab + threadIdx.x;
+  if (row >= s) return;
+  const StreamLane L{words + row * w, w};
+  const int64_t base = row * t;
+  out_err[row] = walk_stream<kIntOpt>(
+      L, __ldg(num_bits + row), __ldg(initial_unit + row), t,
+      [&](int idx, bool ok, const State& st) { out.put(base + idx, st, ok); }) ? 1 : 0;
+}
+
 // Launch `kernel` on a persistent grid: at most as many blocks as the card
 // holds at once, and no more than there are slabs.
 template <class Kernel, class... Args>
@@ -1190,6 +1320,30 @@ extern "C" int m3_lane_aggregates_fields(const uint32_t* windows, const void* co
                       smem_bytes(kB3, cw, mask), stream, windows, make_field_planes(fields), n, cw,
                       mask, k, out_f, out_cnt, out_err);
 }
+// Kernel B-6. words u32[s, w] row-major (w >= 1), num_bits and
+// initial_unit i32[s]; int_optimized 0 or 1. Outputs, row-major [s, t]:
+// out_ts i64, out_bits i64, out_pif / out_mult / out_valid u8, out_f32 f32;
+// out_err u8[s]. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for w < 1 or t < 1).
+extern "C" int m3_decode_batched(const uint32_t* words, const int32_t* num_bits,
+                                 const int32_t* initial_unit, int64_t s, int64_t w, int t,
+                                 int int_optimized, int64_t* out_ts, int64_t* out_bits,
+                                 uint8_t* out_pif, uint8_t* out_mult, uint8_t* out_valid,
+                                 uint8_t* out_err, float* out_f32, void* stream) {
+  if (s < 0 || w < 1 || t < 1) return (int)cudaErrorInvalidValue;
+  if (s > 0) {
+    const RecordRows out{out_ts, out_bits, out_pif, out_mult, out_valid, out_f32};
+    const unsigned blocks = (unsigned)((s + kSlab - 1) / kSlab);
+    if (int_optimized)
+      decode_batched_kernel<true><<<blocks, kSlab, 0, (cudaStream_t)stream>>>(
+          words, num_bits, initial_unit, s, w, t, out, out_err);
+    else
+      decode_batched_kernel<false><<<blocks, kSlab, 0, (cudaStream_t)stream>>>(
+          words, num_bits, initial_unit, s, w, t, out, out_err);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Blocks of each kernel the card holds at once (SMs x blocks per SM) at
 // windows of cw words, and the registers a thread of the loaded kernel
 // uses: which = 0 B1, 1 R, 2 B3. Returns a CUDA error code.
@@ -1277,6 +1431,29 @@ extern "C" int m3_decode_records_host(const uint32_t* windows, const uint32_t* l
       for (int i = 0; i < kGroup && t0 + i < live; ++i) out_err[col + t0 + i] = err[i] ? 1 : 0;
     });
   }
+  return 0;
+}
+
+// Host build of kernel B-6: each series walked as a thread of the card
+// walks it, with subnormals flushed as -ftz=true flushes them.
+extern "C" int m3_decode_batched_host(const uint32_t* words, const int32_t* num_bits,
+                                      const int32_t* initial_unit, int64_t s, int64_t w, int t,
+                                      int int_optimized, int64_t* out_ts, int64_t* out_bits,
+                                      uint8_t* out_pif, uint8_t* out_mult, uint8_t* out_valid,
+                                      uint8_t* out_err, float* out_f32) {
+  if (s < 0 || w < 1 || t < 1) return 1;
+  const unsigned csr = _mm_getcsr();
+  _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
+  const RecordRows out{out_ts, out_bits, out_pif, out_mult, out_valid, out_f32};
+  for (int64_t row = 0; row < s; ++row) {
+    const StreamLane L{words + row * w, w};
+    const int64_t base = row * t;
+    const auto put = [&](int idx, bool ok, const State& st) { out.put(base + idx, st, ok); };
+    const bool err = int_optimized ? walk_stream<true>(L, num_bits[row], initial_unit[row], t, put)
+                                   : walk_stream<false>(L, num_bits[row], initial_unit[row], t, put);
+    out_err[row] = err ? 1 : 0;
+  }
+  _mm_setcsr(csr);
   return 0;
 }
 

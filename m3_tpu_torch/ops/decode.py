@@ -1,10 +1,12 @@
 """One M3TSZ record step in plain PyTorch: the twin of the CUDA kernel.
 
 Port of the per-record functions of ``m3_tpu/ops/decode.py`` and the f32
-conversions of ``m3_tpu/ops/u64.py``. The CUDA kernel
-(``ops/csrc/lane_aggregates.cu``) runs the same arithmetic with native
-64-bit integers; this module is its plain version, run by the CPU tests
-against the JAX package and by ``chip_smoke.py`` against the kernel.
+conversions of ``m3_tpu/ops/u64.py``. The CUDA kernels
+(``ops/csrc/lane_aggregates.cu``) run the same arithmetic with native
+64-bit integers; this module is their plain version, run by the CPU tests
+against the JAX package and by ``chip_smoke.py`` against the kernels. Its
+last section is the whole-stream decode, ``decode_batched``: kernel B-6's
+wrapper and its twin.
 
 Word convention: torch's uint32/uint64 lack shifts, compares and ``where``
 on the CPU, so a 32-bit word is carried as an int64 tensor holding a value
@@ -206,8 +208,23 @@ def fetch4(win_ext, mask: int, rel, pos):
     p = rel + pos
     widx = (p >> 5) & mask
     idx = widx[:, None] + torch.arange(4, device=p.device)[None, :]
-    w = torch.gather(win_ext, 1, idx)
-    r = p & 31
+    return _align(torch.gather(win_ext, 1, idx), p & 31)
+
+
+def fetch4_clamped(words, pos):
+    """Four words at bit ``pos`` of each series' whole stream, aligned to
+    that bit (m3_tpu/ops/decode.py:152 _fetch4): ``words`` is int64[S, W]
+    of u32 values, and each word index is clipped to W - 1, so a fetch past
+    the end repeats the last word."""
+    last = words.shape[1] - 1
+    widx = (pos >> 5).clamp(0, last)
+    idx = (widx[:, None] + torch.arange(4, device=pos.device)[None, :]).clamp(max=last)
+    return _align(torch.gather(words, 1, idx), pos & 31)
+
+
+def _align(w, r):
+    """Words [N, 4] shifted left by r bits (per lane), each refilled from
+    the next; the fourth is not refilled (the reference has no fifth)."""
     nz = r != 0
     inv = 32 - r
 
@@ -468,6 +485,24 @@ def _decode_value(fetch, state: DecodeState, first):
     )
 
 
+def _decode_value_float(fetch, state: DecodeState, first):
+    """One value record of the float-only scheme for every lane (decode.py
+    _decode_value with int_optimized=False, :431-444): the first record is
+    a 64-bit float, every later one an XOR record; every point is float."""
+    pos = state.pos
+    ws = fetch(pos)
+    full = _extract(ws, 0, 64)
+    x_bits, x_xor, x_consumed = _read_xor(ws, 0, state.prev_float_bits, state.prev_xor)
+    active = ~state.done & ~state.err
+    return state._replace(
+        pos=torch.where(active, pos + torch.where(first, 64, x_consumed), pos),
+        prev_float_bits=pair_select(active, pair_select(first, full, x_bits),
+                                    state.prev_float_bits),
+        prev_xor=pair_select(active, pair_select(first, full, x_xor), state.prev_xor),
+        is_float=torch.ones_like(state.is_float),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Record decode (fast bodies: host-classified chunks, see ops/chunked.py)
 # ---------------------------------------------------------------------------
@@ -600,10 +635,12 @@ def _int_val_to_f32(pair, mult):
 
 
 class DecodeResult(NamedTuple):
-    """Per-record outputs of the chunked decode, [S, T] (or [N, K] per
-    lane): ``m3_tpu/ops/decode.py`` DecodeResult with native 64-bit fields in
-    place of its (hi, lo) pairs. ``values_f32`` is not carried: no caller on
-    the port's query path reads it (finalize_decode gives exact values)."""
+    """Per-record outputs of a decode, [S, T] (or [N, K] per lane):
+    ``m3_tpu/ops/decode.py`` DecodeResult with native 64-bit fields in
+    place of its (hi, lo) pairs. ``values_f32`` (the records' approximate
+    f32 values, NaN where invalid) is filled by the whole-stream decode
+    (``decode_batched``), whose scan reads it; the chunked decode leaves it
+    None (its callers convert with ``record_values_f32`` or finalize_decode)."""
 
     ts: torch.Tensor  # int64: prev_time after each record (nanos)
     bits: torch.Tensor  # int64: float64 bits if point_is_float, else the int value
@@ -611,6 +648,28 @@ class DecodeResult(NamedTuple):
     mult: torch.Tensor  # uint8: decimal exponent of an int point (0..6)
     valid: torch.Tensor  # bool
     err: torch.Tensor  # bool[S] (or [N]): decode hit an unsupported feature
+    values_f32: torch.Tensor | None = None  # f32
+
+
+# records a block of record_values_f32: its int64 temporaries stay at a
+# few hundred MB (at 1M x 720 records whole ones would take tens of GB)
+_F32_BLOCK_RECORDS = 1 << 24
+
+
+def record_values_f32(bits, point_is_float, mult, valid):
+    """The records' approximate f32 values, NaN where invalid (the
+    reference's ``values_f32``: float points by u64.f64_bits_to_f32, int
+    points by _int_val_to_f32, its formulas), converted in blocks of rows."""
+    out = torch.empty(bits.shape, dtype=F32, device=bits.device)
+    rows = max(1, _F32_BLOCK_RECORDS // max(1, bits.shape[1:].numel()))
+    for start in range(0, bits.shape[0], rows):
+        r = slice(start, start + rows)
+        b = bits[r]
+        pair = ((b >> 32) & M32, b & M32)
+        vals = torch.where(point_is_float[r], f64_bits_to_f32(pair),
+                           _int_val_to_f32(pair, mult[r].to(torch.int64)))
+        out[r] = torch.where(valid[r], vals, torch.nan)
+    return out
 
 
 def pair_to_i64(a):
@@ -637,3 +696,150 @@ def finalize_decode(res: DecodeResult):
     """(timestamps int64, values float64, valid bool) on the records'
     device (m3_tpu/ops/decode.py:656 finalize_decode)."""
     return res.ts, finalize_values(res.bits, res.point_is_float, res.mult), res.valid
+
+
+# ---------------------------------------------------------------------------
+# Whole-stream decode: kernel B-6 and its twin
+# ---------------------------------------------------------------------------
+
+# Launches of kernel B-6, counted by decode_batched where it launches.
+LAUNCHES = 0
+
+
+def batched_device_args(seg, device="cuda"):
+    """A BatchedSegments -> ``decode_batched``'s (words int32 [S, W] of u32
+    bits, num_bits int32 [S], initial_unit int32 [S] for the default unit,
+    seconds) on ``device``."""
+    import numpy as np
+
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+    return (put(np.asarray(seg.words, np.uint32)), put(np.asarray(seg.num_bits, np.int32)),
+            put(seg.initial_units().astype(np.int32)))
+
+
+def _check_batched(words, num_bits, initial_unit, max_points):
+    if any(x.dtype != torch.int32 for x in (words, num_bits, initial_unit)):
+        raise TypeError("words, num_bits and initial_unit must be int32 tensors")
+    s = words.shape[0]
+    if words.dim() != 2 or words.shape[1] < 1 or num_bits.shape != (s,) \
+            or initial_unit.shape != (s,):
+        raise ValueError(f"want words [S, W >= 1] and num_bits, initial_unit [S]; got "
+                         f"{tuple(words.shape)}, {tuple(num_bits.shape)}, "
+                         f"{tuple(initial_unit.shape)}")
+    if num_bits.device != words.device or initial_unit.device != words.device:
+        raise ValueError("words, num_bits and initial_unit lie on different devices")
+    if max_points <= 0:
+        raise ValueError(f"max_points must be positive, got {max_points}")
+
+
+def decode_batched(words, num_bits, initial_unit, max_points: int,
+                   int_optimized: bool = True) -> DecodeResult:
+    """Decode up to ``max_points`` records of every series' whole stream,
+    from bit 0 (m3_tpu/ops/decode.py:542 decode_batched). ``words`` are the
+    u32 words of ``BatchedSegments.words`` as int32 [S, W], ``num_bits`` and
+    ``initial_unit`` int32 [S] (``batched_device_args``). Returns [S, T]
+    records with ``values_f32``; ``err`` is per series.
+
+    For CUDA tensors this launches kernel B-6 (``csrc/lane_aggregates.cu``
+    m3_decode_batched) and raises if the build or the launch fails; for CPU
+    tensors it runs the plain twin."""
+    _check_batched(words, num_bits, initial_unit, max_points)
+    if words.device.type == "cpu" or words.shape[0] == 0:
+        return decode_batched_reference(words, num_bits, initial_unit, max_points, int_optimized)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    return _launch_batched(words, num_bits, initial_unit, max_points, int_optimized)
+
+
+def _launch_batched(words, num_bits, initial_unit, t, int_optimized) -> DecodeResult:
+    global LAUNCHES
+    import ctypes
+
+    from .. import device_guard
+    from ._build import launch_error, load_library
+
+    lib = load_library("lane_aggregates")
+    words, num_bits, initial_unit = (x.contiguous() for x in (words, num_bits, initial_unit))
+    s, w = words.shape
+    dev = words.device
+    ts = torch.empty((s, t), dtype=torch.int64, device=dev)
+    bits = torch.empty((s, t), dtype=torch.int64, device=dev)
+    small = torch.empty((3, s, t), dtype=torch.uint8, device=dev)  # pif, mult, valid
+    err = torch.empty(s, dtype=torch.uint8, device=dev)
+    vals = torch.empty((s, t), dtype=F32, device=dev)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_decode_batched(
+            ptr(words), ptr(num_bits), ptr(initial_unit), s, w, t, int(int_optimized),
+            ptr(ts), ptr(bits), ptr(small[0]), ptr(small[1]), ptr(small[2]), ptr(err), ptr(vals),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise launch_error("decode_batched", rc, words=words, num_bits=num_bits,
+                           initial_unit=initial_unit, ts=ts, values_f32=vals)
+    LAUNCHES += 1
+    return DecodeResult(
+        ts=ts, bits=bits, point_is_float=small[0].view(torch.bool), mult=small[1],
+        valid=small[2].view(torch.bool), err=err.view(torch.bool), values_f32=vals,
+    )
+
+
+def decode_batched_cost(words, num_bits, initial_unit, max_points: int) -> dict:
+    """Kernel B-6's work on one launch, for ``KernelProfiler.capture_cost``:
+    the bytes it moves (each series' stream words up to its valid bits, at
+    most W, num_bits and initial_unit, 23 bytes a record and 1 a series
+    written) and no floating-point operations counted. Reads one sum back
+    from the device."""
+    s, w = words.shape
+    used = ((num_bits.to(torch.int64).clamp(min=0) + 31) // 32).clamp(max=w)
+    return {"flops": 0.0,
+            "bytes_accessed": float(int(used.sum()) * 4 + s * 8 + s * max_points * 23 + s)}
+
+
+def decode_batched_reference(words, num_bits, initial_unit, max_points: int,
+                             int_optimized: bool = True) -> DecodeResult:
+    """Plain PyTorch version of kernel B-6, on any device: a
+    ``max_points``-step loop over [S] decoder state, each step the
+    timestamp and value record steps above with the clamped whole-stream
+    fetch."""
+    _check_batched(words, num_bits, initial_unit, max_points)
+    s, t = words.shape[0], max_points
+    dev = words.device
+    words64 = words.to(torch.int64) & M32
+    nb = num_bits.to(torch.int64)
+    fetch = lambda pos: fetch4_clamped(words64, pos)
+    zero = torch.zeros(s, dtype=torch.int64, device=dev)
+    no = torch.zeros(s, dtype=torch.bool, device=dev)
+    state = DecodeState(
+        pos=zero, done=nb <= 0, err=no, prev_time=(zero, zero), prev_delta=(zero, zero),
+        time_unit=initial_unit.to(torch.int64), prev_float_bits=(zero, zero),
+        prev_xor=(zero, zero), int_val=(zero, zero), mult=zero, sig=zero, is_float=no,
+    )
+    nt = _extract(fetch(zero), 0, 64)
+    ts = torch.empty((s, t), dtype=torch.int64, device=dev)
+    bits = torch.empty((s, t), dtype=torch.int64, device=dev)
+    pif = torch.empty((s, t), dtype=torch.bool, device=dev)
+    mult = torch.empty((s, t), dtype=torch.uint8, device=dev)
+    valid = torch.empty((s, t), dtype=torch.bool, device=dev)
+    yes = ~no
+    for idx in range(t):
+        first = yes if idx == 0 else no
+        was_active = ~state.done & ~state.err
+        state = _decode_timestamp(fetch, nb, state, first, nt)
+        ts_active = ~state.done & ~state.err
+        if int_optimized:
+            state = _decode_value(fetch, state, first)
+        else:
+            state = _decode_value_float(fetch, state, first)
+        ts[:, idx] = pair_to_i64(state.prev_time)
+        bits[:, idx] = pair_to_i64(pair_select(state.is_float, state.prev_float_bits,
+                                               state.int_val))
+        pif[:, idx] = state.is_float
+        mult[:, idx] = state.mult.to(torch.uint8)
+        valid[:, idx] = was_active & ts_active & ~state.done & ~state.err
+    return DecodeResult(ts=ts, bits=bits, point_is_float=pif, mult=mult, valid=valid,
+                        err=state.err, values_f32=record_values_f32(bits, pif, mult, valid))

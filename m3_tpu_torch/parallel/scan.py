@@ -1,7 +1,6 @@
-"""Scan-and-aggregate over chunk-lanes: the port's main path.
+"""Scan-and-aggregate: the port's main path.
 
-Port of ``m3_tpu/parallel/scan.py``'s chunked paths, on one device (the
-sharded variants wait for ROADMAP §A8):
+Port of ``m3_tpu/parallel/scan.py``:
 
 - ``chunked_scan_aggregate_packed``: kernel B1 (``ops/fused.lane_aggregates``)
   folds each packed chunk-lane into six aggregates; plain torch reduces
@@ -15,6 +14,16 @@ sharded variants wait for ROADMAP §A8):
   rows of plan vectors already on the device). For a pool on the card they
   launch kernel B-2 (``csrc/resident_assembly.cu``); for a pool on the CPU
   they run its plain torch twin (``_resident_gather``).
+- ``scan_aggregate``: the whole-stream decode (kernel B-6,
+  ``ops/decode.decode_batched``) of every series from bit 0, then the same
+  reductions over its [S, T] f32 values.
+- the sharded scans (``make_sharded_chunked_scan``, ``make_sharded_scan``,
+  ``sharded_scan_aggregate``, ``make_sharded_resident_chunked_scan``): each
+  rank of a ``parallel/mesh.SeriesMesh`` scans its slice of the series on
+  its device, and the cross-series totals are all-reduced over the mesh
+  (SUM for sum and count, MIN / MAX for the extremes), the reference's
+  psum / pmin / pmax over its shard axis; the empty-total NaN rule follows
+  the reduce, as there.
 """
 
 from __future__ import annotations
@@ -30,6 +39,12 @@ from ..ops import decode as D
 from ..utils.instrument import KernelProfiler
 from ..ops import fused
 from ..ops import precise as pr
+from .mesh import series_mesh, series_sharding
+
+# dispatch observability for the whole-stream decode (kernel B-6), the
+# reference's seam and kernel name: dispatch counts and sampled dispatch
+# seconds in m3tpu_kernel_dispatch_seconds{kernel="m3tsz_decode"}
+_JIT_DECODE = KernelProfiler("m3tsz_decode")
 
 
 class ScanAggregates(NamedTuple):
@@ -48,15 +63,41 @@ class ScanAggregates(NamedTuple):
     #   (annotations etc.) — stitch_host_errors() recomputes those series
 
 
+def _mesh_totals(mesh, t_sum, t_count, t_min, t_max):
+    """The totals all-reduced over ``mesh`` (None: as they are), then the
+    empty-total NaN rule (m3_tpu/parallel/scan.py:84-90)."""
+    if mesh is not None:
+        t_sum = mesh.all_reduce(t_sum, "sum")
+        t_count = mesh.all_reduce(t_count, "sum")
+        t_min = mesh.all_reduce(t_min, "min")
+        t_max = mesh.all_reduce(t_max, "max")
+    return (t_sum, t_count, torch.where(t_count > 0, t_min, torch.nan),
+            torch.where(t_count > 0, t_max, torch.nan))
+
+
+def _chunk_order_sum(x: torch.Tensor, s: int, c: int, lane_order: str) -> torch.Tensor:
+    """Per-lane sums ``x`` [S*C] added per series in an order that does not
+    depend on the series count, so that a sharded scan's series equal the
+    whole scan's: a one-call sum over the chunk axis of chunk-major lanes
+    picks its order by the series count (on the CPU at any count). Series-
+    major rows are an inner reduction, ordered by C alone; chunk-major lanes
+    take the last row of one cumulative sum down the chunk axis, which adds
+    the chunks in order (the CPU accumulates it in f64, the card in f32)."""
+    if lane_order == "s":
+        return x.reshape(s, c).sum(dim=1)
+    return torch.cumsum(x.reshape(c, s), dim=0)[-1]
+
+
 def _aggregates_from_lanes(
     lane_agg: fused.LaneAggregates, s: int, c: int, lane_order: str = "s",
-    inv=None, precise: bool = False,
+    inv=None, precise: bool = False, mesh=None,
 ) -> ScanAggregates:
     """Reduce per-lane aggregates [S*C] to ScanAggregates.
 
     ``lane_order``: "s" series-major (lane = s*C + c), "c" chunk-major
     (lane = c*S + s), "sorted" chunk-major with the series axis permuted;
-    ``inv`` (int[S]) gathers per-series outputs back to series order."""
+    ``inv`` (int[S]) gathers per-series outputs back to series order.
+    ``mesh``: the totals are all-reduced over it."""
     if lane_order in ("c", "sorted"):
         rs = lambda x: x.reshape(c, s).T
     elif lane_order == "s":
@@ -75,7 +116,7 @@ def _aggregates_from_lanes(
         sp_hi, sp_lo = pr.compensated_sum(l_sum, dim=1)
         s_sum = sp_hi + sp_lo
     else:
-        s_sum = l_sum.sum(dim=1)
+        s_sum = _chunk_order_sum(lane_agg.sum, s, c, lane_order)
     s_count = l_cnt.sum(dim=1, dtype=torch.int32)
     s_min = l_min.amin(dim=1)
     s_max = l_max.amax(dim=1)
@@ -94,11 +135,9 @@ def _aggregates_from_lanes(
         t_sum = t_pair[0] + t_pair[1]
     else:
         t_sum = torch.where(has, s_sum, zero).sum()
-    t_count = s_count.sum(dtype=torch.int64)
-    t_min = torch.where(has, s_min, torch.inf).amin()
-    t_max = torch.where(has, s_max, -torch.inf).amax()
-    t_min = torch.where(t_count > 0, t_min, torch.nan)
-    t_max = torch.where(t_count > 0, t_max, torch.nan)
+    t_sum, t_count, t_min, t_max = _mesh_totals(
+        mesh, t_sum, s_count.sum(dtype=torch.int64), torch.where(has, s_min, torch.inf).amin(),
+        torch.where(has, s_max, -torch.inf).amax())
     return ScanAggregates(
         series_sum=unperm(s_sum),
         series_count=unperm(s_count),
@@ -113,9 +152,10 @@ def _aggregates_from_lanes(
     )
 
 
-def _aggregate_decoded(vals: torch.Tensor, valid: torch.Tensor) -> ScanAggregates:
+def _aggregate_decoded(vals: torch.Tensor, valid: torch.Tensor, mesh=None) -> ScanAggregates:
     """Per-series + cross-series reductions over decoded [S, T] f32 values
-    (m3_tpu/parallel/scan.py _aggregate_decoded)."""
+    (m3_tpu/parallel/scan.py _aggregate_decoded); ``mesh``: the totals are
+    all-reduced over it."""
     zero = torch.where(valid, vals, 0.0)
     s_sum = zero.sum(dim=1)
     s_count = valid.sum(dim=1, dtype=torch.int32)
@@ -126,19 +166,19 @@ def _aggregate_decoded(vals: torch.Tensor, valid: torch.Tensor) -> ScanAggregate
     s_last = torch.gather(zero, 1, last_idx.clamp(min=0)[:, None])[:, 0]
     s_last = torch.where(last_idx >= 0, s_last, torch.nan)
     has = s_count > 0
-    t_count = s_count.sum(dtype=torch.int64)
-    t_min = torch.where(has, s_min, torch.inf).amin()
-    t_max = torch.where(has, s_max, -torch.inf).amax()
+    t_sum, t_count, t_min, t_max = _mesh_totals(
+        mesh, torch.where(has, s_sum, 0.0).sum(), s_count.sum(dtype=torch.int64),
+        torch.where(has, s_min, torch.inf).amin(), torch.where(has, s_max, -torch.inf).amax())
     return ScanAggregates(
         series_sum=s_sum,
         series_count=s_count,
         series_min=torch.where(has, s_min, torch.nan),
         series_max=torch.where(has, s_max, torch.nan),
         series_last=s_last,
-        total_sum=torch.where(has, s_sum, 0.0).sum(),
+        total_sum=t_sum,
         total_count=t_count,
-        total_min=torch.where(t_count > 0, t_min, torch.nan),
-        total_max=torch.where(t_count > 0, t_max, torch.nan),
+        total_min=t_min,
+        total_max=t_max,
     )
 
 
@@ -146,18 +186,16 @@ def records_f32(res: D.DecodeResult) -> torch.Tensor:
     """The decoded records' approximate f32 values, NaN where invalid (the
     reference's ``values_f32``: float points by u64.f64_bits_to_f32, int
     points by _int_val_to_f32, its formulas)."""
-    pair = ((res.bits >> 32) & 0xFFFFFFFF, res.bits & 0xFFFFFFFF)
-    vals = torch.where(res.point_is_float, D.f64_bits_to_f32(pair),
-                       D._int_val_to_f32(pair, res.mult.to(torch.int64)))
-    return torch.where(res.valid, vals, torch.nan)
+    return D.record_values_f32(res.bits, res.point_is_float, res.mult, res.valid)
 
 
-def chunked_scan_aggregate(packed: fused.PackedLanes, s: int, c: int, k: int) -> ScanAggregates:
+def chunked_scan_aggregate(packed: fused.PackedLanes, s: int, c: int, k: int,
+                           mesh=None) -> ScanAggregates:
     """Records decode (kernel R) of series-major packed lanes
     (``fused.pack_lanes(order="s")``) + per-series and cross-series
     reductions of their f32 values (m3_tpu/parallel/scan.py
     chunked_scan_aggregate). ``series_err`` flags series a lane of which
-    bailed."""
+    bailed. ``mesh``: the totals are all-reduced over it."""
     from ..ops import chunked
 
     if packed.order != "s" or packed.n != s * c:
@@ -167,8 +205,58 @@ def chunked_scan_aggregate(packed: fused.PackedLanes, s: int, c: int, k: int) ->
                                    cost=(chunked.decode_records_cost, args, {})) as d:
         res = d.done(chunked.decode_chunked_lanes(*args))
     vals = records_f32(res).reshape(s, c * k)
-    aggs = _aggregate_decoded(vals, res.valid.reshape(s, c * k))
+    aggs = _aggregate_decoded(vals, res.valid.reshape(s, c * k), mesh)
     return aggs._replace(series_err=res.err.reshape(s, c).any(dim=1))
+
+
+def _local_scan_aggregate(words, num_bits, initial_unit, max_points: int,
+                          mesh=None) -> ScanAggregates:
+    """The whole-stream decode (kernel B-6) of every series, one
+    ``m3tsz_decode`` dispatch, then the reductions of its f32 values;
+    ``series_err`` flags the series whose decode bailed."""
+    args = (words, num_bits, initial_unit, max_points)
+    with _JIT_DECODE.dispatch((tuple(words.shape), int(max_points)),
+                              cost=(D.decode_batched_cost, args, {})) as d:
+        res = d.done(D.decode_batched(*args))
+    return _aggregate_decoded(res.values_f32, res.valid, mesh)._replace(series_err=res.err)
+
+
+def scan_aggregate(words, num_bits, initial_unit, max_points: int) -> ScanAggregates:
+    """Single-device whole-stream decode + aggregate (m3_tpu/parallel/
+    scan.py:136 scan_aggregate) over ``ops/decode.batched_device_args``'
+    tensors."""
+    return _local_scan_aggregate(words, num_bits, initial_unit, max_points)
+
+
+def make_sharded_chunked_scan(mesh, s: int, c: int, k: int):
+    """The chunked scan over ``mesh``: returns ``fn(packed)`` that takes
+    this rank's series-major packed lanes (``fused.pack_lanes(order="s")``
+    of its s / size series, the rows ``series_sharding(mesh)`` gives) and
+    returns its per-series arrays and the totals all-reduced over the mesh
+    (m3_tpu/parallel/scan.py:370)."""
+    if s % mesh.size != 0:
+        raise ValueError(f"series count {s} not divisible by mesh size {mesh.size}")
+    s_local = s // mesh.size
+    return lambda packed: chunked_scan_aggregate(packed, s_local, c, k, mesh=mesh)
+
+
+def make_sharded_scan(mesh, max_points: int):
+    """The whole-stream scan over ``mesh``: returns ``fn(words, num_bits,
+    initial_unit)`` over this rank's series (pad with num_bits == 0 series
+    to a multiple of the mesh size: they decode no record and drop out of
+    every reduction) that returns its per-series arrays and the totals
+    all-reduced over the mesh (m3_tpu/parallel/scan.py:404)."""
+    return lambda words, num_bits, initial_unit: _local_scan_aggregate(
+        words, num_bits, initial_unit, max_points, mesh=mesh)
+
+
+def sharded_scan_aggregate(words, num_bits, initial_unit, max_points: int,
+                           mesh=None) -> ScanAggregates:
+    """``make_sharded_scan(mesh, max_points)`` over this rank's series;
+    ``mesh`` defaults to ``series_mesh()`` of the initialised process
+    group (it raises when there is none)."""
+    mesh = series_mesh() if mesh is None else mesh
+    return make_sharded_scan(mesh, max_points)(words, num_bits, initial_unit)
 
 
 def chunked_scan_aggregate_packed(
@@ -185,7 +273,7 @@ def chunked_scan_aggregate_packed(
 
 
 def _scan_packed(packed: fused.PackedLanes, s: int, c: int, k: int,
-                 precise: bool = False) -> ScanAggregates:
+                 precise: bool = False, mesh=None) -> ScanAggregates:
     """``chunked_scan_aggregate_packed``'s body, unprofiled (the resident
     scan runs it inside its own dispatch)."""
     if packed.n != s * c:
@@ -195,7 +283,7 @@ def _scan_packed(packed: fused.PackedLanes, s: int, c: int, k: int,
     )
     return _aggregates_from_lanes(
         lane_agg, s, c, lane_order=packed.order, inv=packed.inv,
-        precise=precise,
+        precise=precise, mesh=mesh,
     )
 
 
@@ -407,9 +495,14 @@ def plan_vectors(plan, s_pad: int) -> list:
     """The padded plan's six vectors as int32 tensors on the pool's device,
     B-2's inputs beside the two buffers: page_rows [S, LP], side_rows
     [S, SL], n_chunks, total_bits, block_hi, block_lo [S]."""
-    put = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(plan.words.device)
-    pr_, sr, nc, tb, bh, bl = pad_chunked_plan(plan, s_pad)
-    return [put(x) for x in (pr_, sr, nc, tb.astype(np.int32), bh, bl)]
+    return _vectors_on(plan.words.device, pad_chunked_plan(plan, s_pad))
+
+
+def _vectors_on(device, vecs) -> list:
+    """``pad_chunked_plan``'s six host vectors as int32 tensors on ``device``."""
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(device)
+    pr_, sr, nc, tb, bh, bl = vecs
+    return [put(x) for x in (pr_, sr, nc, np.asarray(tb).astype(np.int32), bh, bl)]
 
 
 def assembly_slot(plan, cap: int) -> tuple[int, int]:
@@ -508,16 +601,18 @@ class LaneRows(NamedTuple):
     side_page_chunks: int
 
 
-def assemble_lane_rows(words, side, table: LaneRows, rows: torch.Tensor,
-                       tile_rows: int = fused.ROWS_DEFAULT) -> fused.PackedLanes:
-    """The series-major packed lanes (kernel R's input) of ``table``'s rows
-    ``rows`` (an int64 tensor on the pool's device, one series a row) over
-    the pool buffers ``words`` and ``side``, with no host read: a pool on
-    the card launches B-2 over the gathered rows, one on the CPU runs its
-    twin. The slot is the table's longest span (at most what a block
-    holds), and the direct-route count counts the table's rows past it, an
-    upper bound of the gathered rows'."""
-    vecs = [v.index_select(0, rows) for v in table.vecs]
+def assemble_lane_rows(words, side, table: LaneRows, rows: torch.Tensor | None = None,
+                       tile_rows: int = fused.ROWS_DEFAULT, order: str = "s"
+                       ) -> fused.PackedLanes:
+    """The packed lanes of ``table``'s rows ``rows`` (an int64 tensor on the
+    pool's device, one series a row; None: every row) over the pool buffers
+    ``words`` and ``side``, in series-major ("s": kernel R's input) or
+    chunk-major ("c": B1's) lane order, with no host read: a pool on the
+    card launches B-2 over the gathered rows, one on the CPU runs its twin.
+    The slot is the table's longest span (at most what a block holds), and
+    the direct-route count counts the table's rows past it, an upper bound
+    of the gathered rows'."""
+    vecs = table.vecs if rows is None else [v.index_select(0, rows) for v in table.vecs]
     c, cw, w, spc = (table.num_chunks, table.window_words, table.page_words,
                      table.side_page_chunks)
     if words.device.type == "cuda":
@@ -525,11 +620,11 @@ def assemble_lane_rows(words, side, table: LaneRows, rows: torch.Tensor,
 
         cap = load_library("resident_assembly").m3_resident_assembly_slot_words(c, cw)
         slot_direct = _slot(table.total_bits, table.n_chunks, vecs[0].shape[1] * w, cw, cap)
-        windows, planes, tile_flags, n = _launch_vecs(words, side, vecs, c, cw, w, spc, "s",
+        windows, planes, tile_flags, n = _launch_vecs(words, side, vecs, c, cw, w, spc, order,
                                                       False, tile_rows * 128, *slot_direct)
         return fused.PackedLanes(windows=windows, lanes=planes, tile_flags=tile_flags, n=n,
-                                 order="s")
-    return _packed_reference(_PlanOnDevice(words, side, vecs, c, cw, w, spc), "s", tile_rows)
+                                 order=order)
+    return _packed_reference(_PlanOnDevice(words, side, vecs, c, cw, w, spc), order, tile_rows)
 
 
 def _lane_fields(windows, planes) -> dict:
@@ -683,12 +778,27 @@ def _packed_reference(pd: _PlanOnDevice, order: str, rows: int) -> fused.PackedL
                              order=order)
 
 
-def resident_chunked_scan(plan, s_pad: int) -> ScanAggregates:
-    """The assemble-from-residency + packed-decode body: device gathers over
-    the pool build the chunk-major PackedLanes, kernel B1 folds them, the
-    reductions follow (m3_tpu/parallel/scan.py resident_chunked_local_fn;
-    the sharded variant waits for ROADMAP §A8). Unprofiled: the resident
-    scan (resident/scan.py) dispatches it as one ``resident_chunked_assemble``
-    dispatch, as the reference's one program."""
-    packed = _assemble_packed(plan, s_pad, "c", fused.ROWS_DEFAULT)
-    return _scan_packed(packed, s=s_pad, c=plan.num_chunks, k=plan.chunk_k)
+def make_sharded_resident_chunked_scan(mesh, c: int, k: int, cw: int, w: int, spc: int):
+    """The decode-from-residency scan (m3_tpu/parallel/scan.py:700 and
+    resident_chunked_local_fn): returns ``fn(pool_words, side_words,
+    page_rows, side_rows, n_chunks, total_bits, block_hi, block_lo)`` over
+    the pool buffers and the whole padded plan vectors
+    (``pad_chunked_plan``, numpy). ``mesh`` None: the whole series range on
+    one device. Else every rank holds the same pool buffers (the reference
+    replicates them), takes its slice of the vectors' series, and the totals
+    are all-reduced over the mesh. The rows' chunk-major lanes are assembled
+    from the pool (``assemble_lane_rows``: B-2 on the card, the twin on the
+    CPU) and folded by B1; it returns this rank's per-series arrays.
+    Unprofiled: the resident scan (resident/scan.py) dispatches it as one
+    ``resident_chunked_assemble`` dispatch, as the reference's one program."""
+
+    def local(pool_words, side_words, *vecs):
+        rows = slice(None) if mesh is None else series_sharding(mesh).rows(len(vecs[0]))
+        vecs = [np.asarray(v)[rows] for v in vecs]
+        table = LaneRows(vecs=_vectors_on(pool_words.device, vecs), total_bits=vecs[3],
+                         n_chunks=vecs[2], num_chunks=c, window_words=cw, page_words=w,
+                         side_page_chunks=spc)
+        packed = assemble_lane_rows(pool_words, side_words, table, order="c")
+        return _scan_packed(packed, s=vecs[2].shape[0], c=c, k=k, mesh=mesh)
+
+    return local

@@ -14,6 +14,8 @@ f32 results match bit for bit.
 
 from __future__ import annotations
 
+import torch
+
 from ..ops import fused
 from ..utils.instrument import DEFAULT as METRICS
 from .pool import CHUNK_K
@@ -39,25 +41,34 @@ def resident_scan_totals(pool, keys: list, mesh=None, device_out: bool = False):
     ``len(keys)`` and copied to the host, or None when a key is not
     resident or has no side planes (the caller streams instead).
     ``device_out``: return the padded aggregates on the device instead.
-    ``mesh`` (a sharded scan) waits for ROADMAP §A8 "Streaming and mesh"."""
-    from ..parallel.scan import RESIDENT_CHUNKED_PROF, resident_chunked_scan
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded resident scan waits for the port's mesh (ROADMAP §A8, Streaming and mesh)"
-        )
+    ``mesh`` (a ``parallel/mesh.SeriesMesh``): every rank holds the same
+    pool and keys; each scans its slice of the padded series
+    (``parallel/scan.make_sharded_resident_chunked_scan``), the totals are
+    all-reduced and the per-series arrays gathered, so every rank returns
+    the whole result. The series pad to the reference's power of two of at
+    least the mesh size, rounded up to a multiple of a size that does not
+    divide it (the reference's shard_map refuses such a mesh)."""
+    from ..parallel.scan import (RESIDENT_CHUNKED_PROF, make_sharded_resident_chunked_scan,
+                                 pad_chunked_plan)
+
     with pool.read_lease():
         plan = pool.plan_chunked(keys)
         if plan is None:
             return None
         s = len(keys)
         s_pad = _pow2(s, _MIN_LANES)
+        if mesh is not None:
+            s_pad = _pow2(max(s_pad, mesh.size), _MIN_LANES)
+            s_pad = -(-s_pad // mesh.size) * mesh.size
         shape_key = (plan.num_chunks, plan.chunk_k, plan.window_words,
                      plan.page_words, plan.side_page_chunks)
         # the assembly (B-2) and the lane kernel (B1) as ONE dispatch, the
         # reference's one jitted program
-        with RESIDENT_CHUNKED_PROF.dispatch(("scan", s_pad, *shape_key, False)) as d:
-            aggs = d.done(resident_chunked_scan(plan, s_pad))
+        with RESIDENT_CHUNKED_PROF.dispatch(("scan", s_pad, *shape_key, mesh is not None)) as d:
+            fn = make_sharded_resident_chunked_scan(mesh, *shape_key)
+            aggs = fn(plan.words, plan.side, *pad_chunked_plan(plan, s_pad))
+            aggs = d.done(aggs if mesh is None else _gather_series(mesh, aggs))
     return aggs if device_out else _slice_series(aggs, s)
 
 
@@ -83,6 +94,14 @@ def streamed_scan_totals(segments: list, k: int = CHUNK_K, device="cuda"):
 _SERIES_FIELDS = (
     "series_sum", "series_count", "series_min", "series_max", "series_last", "series_err",
 )
+
+
+def _gather_series(mesh, aggs):
+    """A rank's sharded aggregates with every rank's per-series arrays
+    gathered in rank order (the totals are already the mesh's)."""
+    out = {name: mesh.all_gather(getattr(aggs, name)) for name in _SERIES_FIELDS[:-1]}
+    out["series_err"] = mesh.all_gather(aggs.series_err.to(torch.uint8)).to(torch.bool)
+    return aggs._replace(**out)
 
 
 def _slice_series(aggs, s: int):

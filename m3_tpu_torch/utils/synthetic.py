@@ -13,6 +13,7 @@ import numpy as np
 
 from .. import native
 from ..codec.m3tsz import Encoder, encode_series
+from ..segment.batched import BatchedSegments
 from .xtime import Unit
 
 NANOS = 1_000_000_000
@@ -56,6 +57,24 @@ def synthetic_streams(
         all_t.ravel(), all_v.ravel(), np.full(n_unique, n_points, np.int32),
         default_unit=int(unit),
     )
+
+
+def tiled_batch(
+    n_series: int,
+    n_points: int,
+    n_unique: int = 64,
+    seed: int = 0,
+    kind: str = "gauge",
+) -> BatchedSegments:
+    """A BatchedSegments of ``n_series`` rows tiling ``n_unique`` encoded
+    streams (row i is unique stream i % n_unique): million-series batches
+    for the whole-stream decode without encoding every series."""
+    streams = synthetic_streams(n_unique, n_points, seed=seed, kind=kind)
+    base = BatchedSegments.from_streams(streams)
+    reps = (n_series + n_unique - 1) // n_unique
+    words = np.tile(base.words, (reps, 1))[:n_series]
+    num_bits = np.tile(base.num_bits, reps)[:n_series]
+    return BatchedSegments(words=words, num_bits=num_bits)
 
 
 def synthetic_mixed_streams(

@@ -101,7 +101,10 @@ def test_port_imports_neither_jax_nor_m3_tpu():
     files = sorted(root.rglob("*.py")) + [repo / "chip_smoke.py"]
     covered = {p.relative_to(root).parts[0] for p in files if p.is_relative_to(root)}
     assert {"aggregator", "block", "codec", "ingest", "metrics", "ops", "parallel", "query",
-            "rules", "utils"} <= covered
+            "rules", "segment", "utils"} <= covered
+    for name in ("mesh.py", "stream.py", "scan.py"):
+        assert root / "parallel" / name in files
+    assert root / "segment" / "batched.py" in files
     assert root / "ops" / "encode.py" in files and root / "ingest" / "buffer.py" in files
     assert root / "query" / "functions" / "temporal_fused.py" in files
     for name in ("binary.py", "linear.py", "temporal_window.py"):

@@ -7,7 +7,8 @@ reductions K3, the step-grid consolidation B-1 with the query plan
 over a Database on the card, and the aggregator tier's rollup reductions
 B-5a and B-5b with an Aggregator flush on the card, and the write path's
 encode B-4 with a device-ingest Database on the card; B1 and R on lanes
-that the host codec library prescanned.
+that the host codec library prescanned; the whole-stream decode B-6 with
+the whole-stream scan and the host-to-device stream.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode) and
 skips without one. The file imports torch and the port only, so it runs on
@@ -950,7 +951,7 @@ def test_cuda_consolidate_grid_matches_twin(s, p):
     rec, grid, lo, hi, lookback = consolidation_records(s, p, seed=p)
     host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in rec.items()}
     res = D.DecodeResult(err=torch.zeros(s, dtype=torch.bool), **host)
-    cuda = D.DecodeResult(*[x.cuda() for x in res])
+    cuda = D.DecodeResult(*[None if x is None else x.cuda() for x in res])
     before = qplan.LAUNCHES
     got, got_counts = qplan.consolidate_grid(cuda, lo, hi, grid, lookback)
     assert qplan.LAUNCHES == before + 1
@@ -1729,3 +1730,96 @@ def test_collect_device_memory_on_the_card(tmp_path):
     assert out["total_live_jax_bytes"] == torch.cuda.memory_allocated(db.resident_pool.device)
     assert out["other"] == out["total_live_jax_bytes"] - out["resident_pool"] - out["index"]
     db.close()
+
+
+def _b6_inputs(name):
+    """BatchedSegments of one B-6 case: the parity kinds, the warp mixes,
+    and rows cut to 9 words (every fetch past the cut repeats word 8)."""
+    from m3_tpu_torch.segment.batched import BatchedSegments
+
+    streams = group_streams() if name in ("groups", "cut") else _streams(name)
+    seg = BatchedSegments.from_streams(streams)
+    if name == "cut":
+        seg = BatchedSegments(words=np.ascontiguousarray(seg.words[:, :9]),
+                              num_bits=seg.num_bits)
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_optimized", [True, False])
+@pytest.mark.parametrize("name", ["gauge", "mixed", "specials", "groups", "cut"])
+def test_cuda_b6_matches_twin(name, int_optimized):
+    """Kernel B-6 == its twin on a CPU copy of the inputs, every field bit
+    for bit (values_f32 by its bits: the kernel stores every NaN as the
+    CPU's 0x7FC00000), and == the twin run on the card but for NaN bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.ops import decode
+
+    seg = _b6_inputs(name)
+    args = decode.batched_device_args(seg, device="cuda")
+    t = 120
+    before = decode.LAUNCHES
+    got = decode.decode_batched(*args, t, int_optimized=int_optimized)
+    assert decode.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want = decode.decode_batched(*(x.cpu() for x in args), t, int_optimized=int_optimized)
+    for f in ("ts", "bits", "point_is_float", "mult", "valid", "err"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert torch.equal(got.values_f32.cpu().view(torch.int32), want.values_f32.view(torch.int32))
+    on_card = decode.decode_batched_reference(*args, t, int_optimized=int_optimized)
+    x, y = got.values_f32, on_card.values_f32
+    assert bool(((x.view(torch.int32) == y.view(torch.int32)) | (x.isnan() & y.isnan())).all())
+    if name == "groups" and int_optimized:
+        assert bool(got.err.any()) and bool(got.valid.any())
+
+
+@pytest.mark.cuda
+def test_cuda_scan_aggregate_matches_chunked_scan():
+    """The whole-stream scan (B-6) and the chunked scan (R) of the same
+    720-point streams: the same f32 values in the same row positions, so
+    equal per-series counts, extremes and last values, and sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.ops import decode
+    from m3_tpu_torch.parallel import scan
+    from m3_tpu_torch.segment.batched import BatchedSegments
+
+    streams = synthetic_streams(64, 720, seed=3)
+    n = 4096
+    seg = BatchedSegments.from_streams([streams[i % 64] for i in range(n)])
+    got = scan.scan_aggregate(*decode.batched_device_args(seg, device="cuda"), 720)
+    batch = chunked.build_chunked(streams, k=24)
+    packed = fused.pack_lanes(batch, order="s", device="cuda", n_series=n)
+    want = scan.chunked_scan_aggregate(packed, n, batch.num_chunks, 24)
+    for f in ("series_count", "series_min", "series_max", "series_last", "series_sum"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.total_count) == int(want.total_count) == n * 720
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_cuda_stream_aggregate_matches_batches(prefetch):
+    """The stream on the card (pinned uploads on a side stream) == the fold
+    of each batch's packed scan, bit for bit. Every batch holds other
+    streams (a seed each), so a kernel that read a buffer before its upload
+    finished, or another batch's, would change the totals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from m3_tpu_torch.parallel import scan, stream
+
+    batches = [chunked.tile_chunked(chunked.build_chunked(
+        synthetic_mixed_streams(64, 97, seed=5 + i, frac_float=0.3), k=16), 2048)
+        for i in range(5)]
+    drains = []
+    got = stream.stream_aggregate(stream.packed_batches(batches), prefetch=prefetch,
+                                  drain_times=drains, device="cuda")
+    totals = stream.StreamTotals()
+    sums = set()
+    for b in batches:
+        out = scan.chunked_scan_aggregate_packed(
+            fused.pack_lanes(b, device="cuda"), s=b.num_series, c=b.num_chunks, k=16)
+        sums.add(float(out.total_sum))
+        totals.fold(out)
+    assert len(sums) == len(batches), "the batches must differ"
+    assert got.finalize() == totals.finalize() and len(drains) == 5

@@ -615,7 +615,31 @@ def test_shard_heat_cap_and_counters():
     assert values["m3tpu_resident_shard_overflow_total"] == [({}, 1.0)]
 
 
+_HEAT_FAMILIES = {"hits": "resident_shard_hits_total",
+                  "misses": "resident_shard_misses_total",
+                  "streamedBytes": "resident_shard_streamed_bytes_total"}
+
+
+def _heat_since(kind, before, dump):
+    """``dump`` less the registry's counts ``before`` the run: the heat
+    counters live in the process registry, so files that ran earlier in
+    the same process must not shift the comparison."""
+    return {s: {f: v - before.get(s, {}).get(f, 0.0) for f, v in d.items()}
+            for s, d in dump.items()}
+
+
+def _heat_registry(kind):
+    reg = (jinstrument if kind == "m3_tpu" else tinstrument).DEFAULT
+    fams = reg.collect()
+    out = {}
+    for field, name in _HEAT_FAMILIES.items():
+        for c in fams.get(reg.prefix + name, {"children": []})["children"]:
+            out.setdefault(c["labels"]["shard"], {})[field] = c["value"]
+    return out
+
+
 def _heat_routing(kind, path):
+    before = _heat_registry(kind)
     db = _heat_db(kind, path, "h")
     m3s = tm3s if kind == "port" else jm3s
     try:
@@ -638,7 +662,7 @@ def _heat_routing(kind, path):
                         T0 + 33 * 10 * NANOS, 5.0)
         out.append(storage.scan_totals([matcher], *span))
         heats.append(db.resident_stats()["shard_heat"])
-        return [(o["path"], o["count"]) for o in out], heats
+        return [(o["path"], o["count"]) for o in out], [_heat_since(kind, before, h) for h in heats]
     finally:
         db.close()
 

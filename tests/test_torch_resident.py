@@ -305,9 +305,25 @@ def test_left_out_entry_points_raise():
     e = pool.get(BlockKey("ns", 0, b"d", T0, 0))
     got = pool._words[list(e.pages)].numpy().view(">u4").astype(np.uint32).tobytes()
     assert got.startswith(res.streams()[0])
-    keys = _admit_each(pool, [_stream([1.0])])
-    with pytest.raises(NotImplementedError, match="§A8"):
-        resident_scan_totals(pool, keys, mesh=object())
+    # the sharded resident scan (ROADMAP §A8) is ported: over a gloo world
+    # of one it equals the single-device scan bit for bit
+    keys = _admit_each(pool, [_stream([1.0]), _stream(range(40))])
+    import tempfile
+
+    import torch.distributed as dist
+    from m3_tpu_torch.parallel.mesh import series_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            got = resident_scan_totals(pool, keys, mesh=series_mesh())
+        finally:
+            dist.destroy_process_group()
+    want = resident_scan_totals(pool, keys)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.total_count) == 41
 
 
 def test_side_planes_live_and_die_with_pages():
