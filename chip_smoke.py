@@ -4,6 +4,7 @@
         [--parent-b7 TREE/m3_tpu_torch/query/functions/csrc/temporal_window.cu]
         [--parent-b5 TREE/m3_tpu_torch/aggregator/csrc/rollup.cu]
         [--parent-b4 TREE/m3_tpu_torch/ops/csrc/encode.cu]
+        [--parent-b6 TREE/m3_tpu_torch/ops/csrc/lane_aggregates.cu]
         [--parent-scan TREE/m3_tpu_torch/parallel/scan.py]
 
 Phases (any failure exits non-zero):
@@ -37,7 +38,12 @@ Phases (any failure exits non-zero):
              bytes bound (the words each stream's bits occupy, 23 bytes a
              record), end to end beside [main]'s chunked scan, with the
              peak device memory; then B-6 == its twin on the scan's own
-             inputs, every field bit for bit, and the twin's time there.
+             inputs, every field bit for bit, and the twin's time there;
+             B-6's launch shape (warps, blocks, shared memory, registers,
+             ptxas) and the launch floor. With --parent-b6 (another tree's
+             ops/csrc/lane_aggregates.cu) that tree's B-6 is built beside
+             this one and timed in turns with it (parent, new, new, parent)
+             on the scan's inputs, outputs equal bit for bit.
   mesh     — an NCCL world of one (init_process_group with a FileStore
              under build/, no TCP): resident_scan_totals(mesh=) ==
              mesh=None at [resident]'s 1M series (checked inside
@@ -981,13 +987,70 @@ def compare_decoded(got, want, what: str) -> None:
         raise AssertionError(f"{what}: values_f32 differs between kernel B-6 and its twin")
 
 
-def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
-    """Kernel B-6 == its twin on the parity sets in both modes, then
-    scan_aggregate at [main]'s 1M x 720 beside the chunked scan of the same
-    series, and B-6 == its twin on that scan's inputs. Returns the
-    single-device scans for [mesh]."""
+def load_parent_b6(proc, out):
+    """The parent's ``m3_decode_batched`` once its build is done (this
+    one's arguments: words, num_bits, initial_unit, s, w, t, int_optimized,
+    out_ts, out_bits, out_pif, out_mult, out_valid, out_err, out_f32,
+    stream)."""
+    import ctypes
+
+    from m3_tpu_torch.ops import _build
+
+    fn = ctypes.CDLL(str(built(proc, out, "B-6"))).m3_decode_batched
+    fn.argtypes = _build.SOURCES["lane_aggregates"][2]["m3_decode_batched"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def b6_turns(parent, args, t: int) -> list:
+    """The parent commit's B-6 and this one's in turns (parent, new, new,
+    parent) on the same inputs (int_optimized), each through its C entry
+    into outputs allocated once (this one's filled with -1 first, so that
+    equal outputs show it wrote every byte): a median of 5 single launches
+    and a back-to-back run of 5 (CUDA events). All seven outputs must be
+    equal bit for bit."""
     import torch
 
+    from m3_tpu_torch.ops._build import load_library
+
+    words, nb, iu = args
+    s, w = words.shape
+    new = load_library("lane_aggregates").m3_decode_batched
+
+    def outputs(fill):
+        return (torch.full((s, t), fill, dtype=torch.int64, device=words.device),
+                torch.full((s, t), fill, dtype=torch.int64, device=words.device),
+                torch.full((3, s, t), fill % 256, dtype=torch.uint8, device=words.device),
+                torch.full((s,), fill % 256, dtype=torch.uint8, device=words.device),
+                torch.full((s, t), fill, dtype=torch.int32, device=words.device))
+
+    outs = {"parent": outputs(0), "new": outputs(-1)}
+
+    def call(who):
+        ts, bits, small, err, vals = outs[who]
+        rc = (parent if who == "parent" else new)(
+            words.data_ptr(), nb.data_ptr(), iu.data_ptr(), s, w, t, 1, ts.data_ptr(),
+            bits.data_ptr(), small[0].data_ptr(), small[1].data_ptr(), small[2].data_ptr(),
+            err.data_ptr(), vals.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the {who} B-6 launch failed: CUDA error {rc}")
+
+    same = lambda: all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["new"]))
+    turns = in_turns(call, same, "B-6", iters=5, b2b=5)
+    del outs
+    torch.cuda.empty_cache()
+    return turns
+
+
+def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float, parent_b6=None) -> dict:
+    """Kernel B-6 == its twin on the parity sets in both modes, then
+    scan_aggregate at [main]'s 1M x 720 beside the chunked scan of the same
+    series, and B-6 == its twin on that scan's inputs; its launch shape, the
+    launch floor and (given ``parent_b6``) the parent's B-6 in turns.
+    Returns the single-device scans for [mesh]."""
+    import torch
+
+    from m3_tpu_torch.index.device import kernels as IK
     from m3_tpu_torch.ops import chunked, decode, fused
     from m3_tpu_torch.parallel import scan
     from m3_tpu_torch.segment.batched import BatchedSegments
@@ -1061,6 +1124,7 @@ def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
     run = lambda: decode.decode_batched(*args, t)
     run()
     b6_ms = statistics.median(cuda_ms(run, 5))
+    b6_b2b = per_launch_ms(run, 5)
 
     def e2e():
         return int(scan.scan_aggregate(*args, t).total_count)
@@ -1087,11 +1151,16 @@ def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
         f"point_is_float, mult, valid, err and values_f32 bit for bit; valid "
         f"{int(want.valid.sum())}; twin {twin_ms:.1f} ms")
     del got, want, diff
+    torch.cuda.empty_cache()
+    floor_ms = statistics.median(cuda_ms(lambda: IK.launch_floor(dev), 20))
+    shape = decode.launch_shape(MAIN_SERIES)
+    turns = b6_turns(parent_b6, args, t) if parent_b6 is not None else None
     bd = b6_bound(args[1], seg.num_words, t)
     log("[batched] B-6 bytes needed: " + ", ".join(
         f"{k_} {v / 1e9:.4f} GB" for k_, v in bd["parts"].items()))
     log(f"[batched] B-6 (decode_batched) [{MAIN_SERIES}, {t}] W={seg.num_words} warm median "
-        f"{b6_ms:.3f} ms (5 launches, CUDA events); bound {bd['bound_ms']:.3f} ms "
+        f"{b6_ms:.3f} ms [{b6_b2b:.3f} back to back] (5 launches, CUDA events); launch floor "
+        f"{floor_ms:.4f} ms; bound {bd['bound_ms']:.3f} ms "
         f"({bd['bound_by']}; {bd['bound_ms'] / b6_ms:.1%} of roofline; f32 ops "
         f"{bd['ops_ms']:.4f} ms); twin {twin_ms:.1f} ms on the same inputs "
         f"({parity_twin_ms:.1f} ms on the [{PARITY_SERIES}, {t}] parity set); "
@@ -1099,6 +1168,16 @@ def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
         f"{total_count / e2e_med:.4e} datapoints/s; [main] chunked B1 scan end to end "
         f"{main_e2e_s * 1e3:.3f} ms (B1 {b1_ms:.3f} ms): whole-stream / chunked = "
         f"{main_e2e_s / e2e_med:.3f}x the chunked rate")
+    log(f"[batched] B-6 launch: {shape['warps']} warps a block (a series a lane), "
+        f"{shape['blocks']:,} blocks ({shape['resident_blocks']:,} resident at once), "
+        f"{shape['smem_bytes']:,} B of shared memory a block, {shape['registers']} registers and "
+        f"{shape['local_bytes']} B of local memory a thread; flushes every {shape['group']} "
+        f"records (u8 planes every {shape['flag_group']}), rings of {shape['ring_words']} words; "
+        f"ptxas: {ptxas_report('lane_aggregates', 'decode_batched_kernel')}")
+    if turns is not None:
+        log(f"[batched] B-6 in turns with the parent's (C entries, outputs equal bit for bit, ms "
+            f"single [back to back]): {fmt_turns(turns)}; bound {bd['bound_ms']:.3f} ms, launch "
+            f"floor {floor_ms:.4f} ms")
     log(f"[batched] peak device memory of scan_aggregate {peak / 1e9:.2f} GB")
     log("[batched] library_ms for B-6: no single PyTorch call computes an M3TSZ decode; null")
     log(f"[batched] phase {time.perf_counter() - t_phase:.1f}s")
@@ -1114,6 +1193,10 @@ def phase_batched(dev, kernels: list, main_e2e_s: float, b1_ms: float) -> dict:
         "bound_ms": bd["bound_ms"],
         "bound_by": bd["bound_by"],
         "library_ms": None,
+        "b2b_ms": b6_b2b,
+        "launch_floor_ms": floor_ms,
+        "launch_shape": shape,
+        **({"parent_turns": turns} if turns is not None else {}),
     })
     return {"args": args, "whole": whole, "chunked": chunked_out, "batch": batch}
 
@@ -1455,7 +1538,7 @@ def ptxas_report(lib: str, kernel: str) -> str:
 
 def build_parent(source: str, lib: str):
     """Starts nvcc on another tree's source of library ``lib``
-    (``--parent-b1`` / ``--parent-b4`` / ``--parent-b5`` / ``--parent-b7``: the parent
+    (``--parent-b1`` / ``--parent-b4`` / ``--parent-b5`` / ``--parent-b6`` / ``--parent-b7``: the parent
     commit's source,
     unpacked beside this checkout in a directory .gitignore lists), with
     this checkout's flags, into build/kernels. Returns (process, library
@@ -4222,6 +4305,9 @@ def main() -> int:
     ap.add_argument("--parent-b4", metavar="CU", default=None,
                     help="another tree's ops/csrc/encode.cu (a parent commit unpacked beside "
                          "this checkout): [ingest] times its B-4 in turns with this one's")
+    ap.add_argument("--parent-b6", metavar="CU", default=None,
+                    help="another tree's ops/csrc/lane_aggregates.cu (a parent commit unpacked "
+                         "beside this checkout): [batched] times its B-6 in turns with this one's")
     ap.add_argument("--parent-b7", metavar="CU", default=None,
                     help="another tree's query/functions/csrc/temporal_window.cu (a parent "
                          "commit unpacked beside this checkout): [promql] times its B-7 in "
@@ -4247,11 +4333,14 @@ def main() -> int:
     parent_b7_build = build_parent(args.parent_b7, "temporal_window") if args.parent_b7 else None
     parent_b5_build = build_parent(args.parent_b5, "rollup") if args.parent_b5 else None
     parent_b4_build = build_parent(args.parent_b4, "encode") if args.parent_b4 else None
+    parent_b6_build = (build_parent(args.parent_b6, "lane_aggregates") if args.parent_b6
+                       else None)
     _build.build_all()
     parent_b1 = load_parent_b1(*parent_build) if parent_build else None
     parent_b7 = load_parent_b7(*parent_b7_build) if parent_b7_build else None
     parent_b5 = load_parent_b5(*parent_b5_build) if parent_b5_build else None
     parent_b4 = load_parent_b4(*parent_b4_build) if parent_b4_build else None
+    parent_b6 = load_parent_b6(*parent_b6_build) if parent_b6_build else None
     log(f"[build] {', '.join([*_build.SOURCES, *_build.HOST_SOURCES])} built in parallel in "
         f"{time.perf_counter() - t0:.2f}s")
     for lib, text in _build.BUILD_LOG.items():
@@ -4264,7 +4353,7 @@ def main() -> int:
     kernels = [b1]
     mesh, mesh_dir = open_mesh()
     b2 = phase_resident(dev, kernels, b3_worst, main_e2e_s, mesh)
-    single = phase_batched(dev, kernels, main_e2e_s, b1["ms"])
+    single = phase_batched(dev, kernels, main_e2e_s, b1["ms"], parent_b6)
     phase_mesh(dev, mesh, single)
     del single
     close_mesh(mesh_dir)

@@ -56,6 +56,9 @@ SOURCES = {
             # out_bits, out_pif, out_mult, out_valid, out_err, out_f32, stream
             "m3_decode_batched": [_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _P],
+            # s, out int64[9]: warps a block, blocks, resident blocks, shared
+            # memory a block, registers, local memory, group, flag group, ring words
+            "m3_decode_batched_shape": [_I64, _P],
             # windows, fields (host array of 17 pointers), n, cw, mask, k,
             # out_f, out_cnt, out_err, stream
             "m3_lane_aggregates_fields": [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P],

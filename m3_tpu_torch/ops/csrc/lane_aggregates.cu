@@ -2,7 +2,9 @@
 // m3_tpu/ops/fused.py:lane_aggregates_packed (B1) and lane_aggregates_pallas
 // (B3), and of the XLA scans m3_tpu/ops/chunked.py:460 decode_chunked_lanes
 // (kernel R) and m3_tpu/ops/decode.py:542 decode_batched (kernel B-6, the
-// whole-stream decode; its note is at decode_batched_kernel below).
+// whole-stream decode: a warp's 32 series walked with R's votes, their
+// records staged and stored as whole sectors, their words read through a
+// ring in shared memory; its note is at decode_batched_kernel below).
 //
 // What it computes. Each lane is one chunk of at most k M3TSZ records. It
 // starts from the decoder state of its side table (17 u32 planes), decodes
@@ -791,22 +793,87 @@ M3_HD void run_general(const Lane* L, int k, Acc* acc, bool* err, const Rcp& rcp
 // Whole streams (kernel B-6): m3_tpu/ops/decode.py decode_batched
 // ---------------------------------------------------------------------------
 
+// B-6's geometry (its note is at decode_batched_kernel). A warp walks 32
+// series, a lane each. Every kB6Group records the warp stores its lanes'
+// runs of ts, bits and values_f32 from its record stage, every
+// kB6FlagGroup records the runs of the three u8 planes; each lane reads its
+// stream through a ring of its next kB6Ring words.
+constexpr int kB6Group = 16;
+constexpr int kB6FlagGroup = 32;  // a multiple of kB6Group
+constexpr int kB6Ring = 32;       // a power of two
+constexpr int kB6Warps = 4;
+constexpr int kB6Threads = kB6Warps * kGroup;
+// A lane's row of the ts and bits stages, in records: odd, so that a warp's
+// 64-bit stores of one record fall in distinct banks.
+constexpr int kB6Stride = kB6Group + 1;
+// Bytes of a lane's row of the flag stage: whole words, an odd number of them.
+constexpr int kB6FlagStride = kB6FlagGroup + 4;
+// Bytes of a warp's part of the block's shared memory: the ring, the ts and
+// bits stages, the flag stage.
+constexpr size_t kB6WarpBytes =
+    (size_t)kGroup * (kB6Ring * 4 + kB6Stride * 16 + kB6FlagStride);
+static_assert((kB6Ring & (kB6Ring - 1)) == 0, "the ring wraps by a mask");
+static_assert(kB6FlagGroup % kB6Group == 0 && kB6FlagGroup % 16 == 0, "flag runs");
+static_assert(kB6WarpBytes % 16 == 0, "each warp's part stays 16-byte aligned");
+
+// A warp's part of the block's shared memory.
+struct B6Stage {
+  uint32_t* ring;  // word k of lane l's ring at ring[(k % kB6Ring) * kGroup + l]
+  uint64_t* ts;    // record r of lane l at ts[l * kB6Stride + r % kB6Group]
+  uint64_t* bits;  // likewise
+  uint8_t* flags;  // record r of lane l at flags[l * kB6FlagStride + r % kB6FlagGroup]:
+                   // point_is_float | valid << 1 | mult << 2
+};
+
+M3_HD B6Stage b6_stage(uint8_t* base) {
+  B6Stage sg;
+  sg.ring = reinterpret_cast<uint32_t*>(base);
+  sg.ts = reinterpret_cast<uint64_t*>(base + kGroup * kB6Ring * 4);
+  sg.bits = sg.ts + kGroup * kB6Stride;
+  sg.flags = reinterpret_cast<uint8_t*>(sg.bits + kGroup * kB6Stride);
+  return sg;
+}
+
+#ifndef __CUDACC__
+// Fetches the host build served from the row, past the ring (the tests read
+// it through m3_decode_batched_host_far_fetches).
+int64_t b6_far_fetches = 0;
+#endif
+
 // A series of the whole-stream decode: its row of W stream words in device
-// memory. A fetch clips each of its four word indices to W - 1, as the
-// reference's _fetch4 does, so a fetch past the end repeats the last word
-// (BatchedSegments pads two zero words, so its rows end in zeros).
+// memory, and its ring, which holds the row's words [lo, lo + kB6Ring)
+// (those below W) in shared memory. A fetch clips each of its four word
+// indices to W - 1, as the reference's _fetch4 does, so a fetch past the
+// end repeats the last word (BatchedSegments pads two zero words, so its
+// rows end in zeros). It reads the ring when the four words are in it, and
+// the row otherwise (a record wider than what the ring holds ahead of the
+// cursor): the same words either way.
 struct StreamLane {
   const uint32_t* row;
   int64_t w;
+  int last;        // the last word index a fetch reads: W - 1
+  int lo;          // the ring's first word
+  uint32_t* ring;  // this lane's word 0 of its warp's ring
 
   M3_HD Window fetch(int pos) const {
-    const int64_t last = w - 1;
-    const int64_t i0 = (int64_t)(pos >> 5) < last ? (int64_t)(pos >> 5) : last;
-    const int64_t i1 = i0 + 1 < last ? i0 + 1 : last;
-    const int64_t i2 = i0 + 2 < last ? i0 + 2 : last;
-    const int64_t i3 = i0 + 3 < last ? i0 + 3 : last;
-    const uint32_t w0 = M3_LOAD(row + i0), w1 = M3_LOAD(row + i1);
-    const uint32_t w2 = M3_LOAD(row + i2), w3 = M3_LOAD(row + i3);
+    const int i0 = min_i(pos >> 5, last), i1 = min_i(i0 + 1, last);
+    const int i2 = min_i(i0 + 2, last), i3 = min_i(i0 + 3, last);
+    uint32_t w0, w1, w2, w3;
+    // i0 >= lo: a fetch never reads below the cursor of the last refill
+    if (i3 < lo + kB6Ring) {
+      w0 = ring[(i0 & (kB6Ring - 1)) * kGroup];
+      w1 = ring[(i1 & (kB6Ring - 1)) * kGroup];
+      w2 = ring[(i2 & (kB6Ring - 1)) * kGroup];
+      w3 = ring[(i3 & (kB6Ring - 1)) * kGroup];
+    } else {
+#ifndef __CUDACC__
+      ++b6_far_fetches;
+#endif
+      w0 = M3_LOAD(row + i0);
+      w1 = M3_LOAD(row + i1);
+      w2 = M3_LOAD(row + i2);
+      w3 = M3_LOAD(row + i3);
+    }
     const unsigned r = (unsigned)pos & 31u;
     const uint32_t s0 = __funnelshift_l(w1, w0, r);
     const uint32_t s1 = __funnelshift_l(w2, w1, r);
@@ -814,7 +881,42 @@ struct StreamLane {
     const uint32_t s3 = w3 << r;
     return {((uint64_t)s0 << 32) | s1, ((uint64_t)s2 << 32) | s3};
   }
+
+  // Moves the ring to start at the word of bit `pos` (clipped to W - 1),
+  // the lowest a later fetch reads: the words it held from there on stay in
+  // their slots, the rest up to kB6Ring words are copied from the row (on
+  // the card by cp.async, waited for here; the lane's own slots only).
+  M3_HD void refill(int pos) {
+    const int nlo = min_i(pos >> 5, last);
+    const int from = nlo > lo + kB6Ring ? nlo : lo + kB6Ring;
+    const int to = (int64_t)nlo + kB6Ring < w ? nlo + kB6Ring : (int)w;
+    for (int k = from; k < to; ++k) {
+#ifdef __CUDA_ARCH__
+      m3::cp_async4(ring + (k & (kB6Ring - 1)) * kGroup, row + k);
+#else
+      ring[(k & (kB6Ring - 1)) * kGroup] = row[k];
+#endif
+    }
+#ifdef __CUDA_ARCH__
+    m3::cp_async_commit();
+    m3::cp_async_wait<0>();
+#endif
+    lo = nlo;
+  }
 };
+
+// Series `row` of the [S, W] words (row 0 for a lane past the last series:
+// it walks as a done lane) with its ring filled from word 0.
+M3_HD StreamLane stream_lane(const uint32_t* words, int64_t w, int64_t row, uint32_t* ring) {
+  StreamLane L;
+  L.row = words + row * w;
+  L.w = w;
+  L.last = w - 1 < 0x7FFFFFFF ? (int)(w - 1) : 0x7FFFFFFF;
+  L.lo = -kB6Ring;
+  L.ring = ring;
+  L.refill(0);
+  return L;
+}
 
 // _decode_value with int_optimized=False (decode.py:431-444): the first
 // record is a 64-bit float, every later one an XOR record; every point is
@@ -831,39 +933,85 @@ M3_HD void decode_value_float(const Window& ws, State& st, bool first) {
   st.is_float = true;
 }
 
-// decode_batched's step loop over one series: t records from bit 0, each
-// R's timestamp step (with the markers) and R's mode-agnostic value step
-// (kIntOpt) or the float-only one. emit(idx, valid, state) after each
-// record; returns the series' err flag.
-template <bool kIntOpt, class Emit>
-M3_HD bool walk_stream(const StreamLane& L, int num_bits, int unit, int t, Emit&& emit) {
-  State st;
-  st.pos = 0;
-  st.done = num_bits <= 0;
-  st.err = false;
-  st.is_float = false;
-  st.time_unit = unit;
-  st.mult = 0;
-  st.sig = 0;
-  st.prev_time = st.prev_delta = st.prev_float_bits = st.prev_xor = st.int_val = 0ull;
-  const uint64_t nt = L.fetch(0).a;  // the stream's first 64 bits
+// decode_batched's step loop over a group of G series walked in step (G = 1
+// on the card, where the warp is the group; kGroup on the host): t records
+// from bit 0, each R's timestamp step (with the markers) and R's value step
+// (kIntOpt) or the float-only one, with walk_general's votes: the timestamp
+// drops the marker logic when no active lane is at a marker or has an
+// unsupported unit; the value step is specialised to int or float mode when
+// every active lane is past record 0 and in that mode, and skips the int
+// header and diff or read_xor when no lane takes them. The votes are taken
+// anew at every record (a warp whose lanes are in both modes now is not
+// taken to stay so for the rest of a long stream). What is computed is
+// selected exactly as before, so the records cannot change. emit(idx,
+// valid[G], state[G]) after each record; err[G] at the end.
+template <bool kIntOpt, int G, class Emit>
+M3_HD void walk_streams(const StreamLane* L, const int* num_bits, const int* unit, int t,
+                        bool* err, Emit&& emit) {
+  State st[G];
+  uint64_t nt[G];
+  for (int i = 0; i < G; ++i) {
+    State& s = st[i];
+    s.pos = 0;
+    s.done = num_bits[i] <= 0;
+    s.err = false;
+    s.is_float = false;
+    s.time_unit = unit[i];
+    s.mult = 0;
+    s.sig = 0;
+    s.prev_time = s.prev_delta = s.prev_float_bits = s.prev_xor = s.int_val = 0ull;
+    nt[i] = L[i].fetch(0).a;  // the stream's first 64 bits
+  }
   for (int idx = 0; idx < t; ++idx) {
     const bool first = idx == 0;
-    const bool was = !st.done && !st.err;
-    const int pos = first ? st.pos + 64 : st.pos;
-    decode_timestamp<true, false>(L.fetch(pos), pos, num_bits, st, first, nt);
-    const bool ts_ok = !st.done && !st.err;
-    const Window ws = L.fetch(st.pos);
-    if (kIntOpt) decode_value<kAny>(ws, st, first, true, true);
-    else decode_value_float(ws, st, first);
-    emit(idx, was && ts_ok && !st.done && !st.err, st);
+    Window ws[G];
+    int pos[G];
+    bool was[G], plain[G], ts_ok[G], need_int[G], need_xor[G], in_int[G], in_float[G];
+    bool valid[G];
+    for (int i = 0; i < G; ++i) {
+      was[i] = !st[i].done && !st[i].err;
+      pos[i] = first ? st[i].pos + 64 : st[i].pos;
+      ws[i] = L[i].fetch(pos[i]);
+      plain[i] = !was[i] || (!ts_marker(ws[i], pos[i], num_bits[i]) && st[i].time_unit >= 1 &&
+                             st[i].time_unit <= 4);
+    }
+    const bool all_plain = group_all<G>(plain);
+    for (int i = 0; i < G; ++i) {
+      if (all_plain) decode_timestamp<true, true>(ws[i], pos[i], num_bits[i], st[i], first, nt[i]);
+      else decode_timestamp<true, false>(ws[i], pos[i], num_bits[i], st[i], first, nt[i]);
+      ts_ok[i] = !st[i].done && !st[i].err;
+      // an inactive lane's value decode is inactive too: its window is unused
+      ws[i] = L[i].fetch(st[i].pos);
+      in_int[i] = !ts_ok[i] || (!first && !st[i].is_float);
+      in_float[i] = !ts_ok[i] || (!first && st[i].is_float);
+    }
+    if (!kIntOpt) {
+      for (int i = 0; i < G; ++i) decode_value_float(ws[i], st[i], first);
+    } else if (group_all<G>(in_int)) {
+      for (int i = 0; i < G; ++i) value_needs<kInt>(ws[i], st[i], false, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int);
+      for (int i = 0; i < G; ++i) decode_value<kInt>(ws[i], st[i], false, do_int, false);
+    } else if (group_all<G>(in_float)) {
+      for (int i = 0; i < G; ++i)
+        value_needs<kFloat>(ws[i], st[i], false, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int), do_xor = group_any<G>(need_xor);
+      for (int i = 0; i < G; ++i) decode_value<kFloat>(ws[i], st[i], false, do_int, do_xor);
+    } else {
+      for (int i = 0; i < G; ++i) value_needs<kAny>(ws[i], st[i], first, need_int[i], need_xor[i]);
+      const bool do_int = group_any<G>(need_int), do_xor = group_any<G>(need_xor);
+      for (int i = 0; i < G; ++i) decode_value<kAny>(ws[i], st[i], first, do_int, do_xor);
+    }
+    for (int i = 0; i < G; ++i) valid[i] = was[i] && ts_ok[i] && !st[i].done && !st[i].err;
+    emit(idx, valid, st);
   }
-  return st.err;
+  for (int i = 0; i < G; ++i) err[i] = st[i].err;
 }
 
 // B-6's outputs, row-major [S, T] (err [S] apart): a record's timestamp,
 // value bits (f64 bits of a float point, else the int value),
-// point_is_float, mult, valid and its f32 value.
+// point_is_float, mult, valid and its f32 value. vec16 / vec8 / vec4: the
+// u8 planes / ts and bits / values_f32 take 16-byte stores (T a multiple of
+// 16 / 2 / 4 and the plane 16-byte aligned).
 struct RecordRows {
   int64_t* ts;
   int64_t* bits;
@@ -871,19 +1019,186 @@ struct RecordRows {
   uint8_t* mult;
   uint8_t* valid;
   float* f32;
+  bool vec16, vec8, vec4;
+};
 
-  // The record at o: values_f32 by the reference's formulas, NaN where
-  // invalid. Every NaN is stored as 0x7FC00000, the bits the reference's
-  // sign * NaN keeps on the CPU (the card's multiply returns its own NaN).
-  M3_HD void put(int64_t o, const State& st, bool ok) const {
-    const uint64_t b = st.is_float ? st.prev_float_bits : st.int_val;
-    ts[o] = (int64_t)st.prev_time;
-    bits[o] = (int64_t)b;
-    pif[o] = st.is_float ? 1 : 0;
-    mult[o] = (uint8_t)st.mult;
-    valid[o] = ok ? 1 : 0;
-    const float v = st.is_float ? f64_bits_to_f32(b) : to_f32(b) * mult_rcp(st.mult);
-    f32[o] = ok && v == v ? v : __int_as_float(0x7FC00000);
+// The outputs' pointers, with the 16-byte store flags for this T.
+inline RecordRows record_rows(int64_t t, int64_t* ts, int64_t* bits, uint8_t* pif, uint8_t* mult,
+                              uint8_t* valid, float* f32) {
+  const auto al = [](const void* p) { return ((uintptr_t)p & 15u) == 0; };
+  return {ts, bits, pif, mult, valid, f32,
+          t % 16 == 0 && al(pif) && al(mult) && al(valid), t % 2 == 0 && al(ts) && al(bits),
+          t % 4 == 0 && al(f32)};
+}
+
+// 16 bytes at p (16-byte aligned): one vector store on the card.
+M3_HD void store16(void* p, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+#ifdef __CUDACC__
+  *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
+#else
+  const uint32_t v[4] = {a, b, c, d};
+  std::memcpy(p, v, 16);
+#endif
+}
+
+// The 4 bytes at p (4-byte aligned) as one word: one load on the card.
+M3_HD uint32_t load_u32(const uint8_t* p) {
+#ifdef __CUDACC__
+  return *reinterpret_cast<const uint32_t*>(p);
+#else
+  uint32_t x;
+  std::memcpy(&x, p, 4);
+  return x;
+#endif
+}
+
+// A record's values_f32 from its staged bits and flag byte, by the
+// reference's formulas, NaN where invalid; each conversion only if some
+// valid record of the warp's flush needs it (do_f, do_i). Every NaN is
+// stored as 0x7FC00000, the bits the reference's sign * NaN keeps on the
+// CPU (the card's multiply returns its own NaN).
+M3_HD uint32_t record_f32(uint64_t b, uint32_t flag, bool do_f, bool do_i) {
+  const bool pif = (flag & 1u) != 0, ok = (flag & 2u) != 0;
+  const float vf = do_f ? f64_bits_to_f32(b) : 0.0f;
+  const float vi = do_i ? to_f32(b) * mult_rcp((int)(flag >> 2)) : 0.0f;
+  const float v = pif ? vf : vi;
+  return ok && v == v ? (uint32_t)__float_as_int(v) : 0x7FC00000u;
+}
+
+// Thread j's share (items j, j + kGroup, ...) of a warp's flush of the
+// records idx0 .. idx0 + cnt - 1 of its 32 series (rows row0 ..): each
+// series' run of ts and bits (16 bytes = 2 records a store) and of
+// values_f32 (4 records a store), or a record a store where the runs are
+// not aligned so. Each series' run is contiguous, so a warp's store covers
+// whole sectors.
+M3_HD void b6_flush_records(const B6Stage& sg, int j, int cnt, int idx0, int64_t row0, int64_t s,
+                            int t, const RecordRows& out, bool do_f, bool do_i) {
+  const int f0 = idx0 % kB6FlagGroup;  // the run's first flag slot
+  if (out.vec8 && cnt % 2 == 0) {
+    const int per = cnt / 2;
+    for (int k = j; k < kGroup * per; k += kGroup) {
+      const int ln = k / per, r = 2 * (k - ln * per);
+      if (row0 + ln >= s) continue;
+      const int64_t o = (row0 + ln) * t + idx0 + r;
+      const uint64_t* a = sg.ts + ln * kB6Stride + r;
+      const uint64_t* b = sg.bits + ln * kB6Stride + r;
+      store16(out.ts + o, (uint32_t)a[0], (uint32_t)(a[0] >> 32), (uint32_t)a[1],
+              (uint32_t)(a[1] >> 32));
+      store16(out.bits + o, (uint32_t)b[0], (uint32_t)(b[0] >> 32), (uint32_t)b[1],
+              (uint32_t)(b[1] >> 32));
+    }
+  } else {
+    for (int k = j; k < kGroup * cnt; k += kGroup) {
+      const int ln = k / cnt, r = k - ln * cnt;
+      if (row0 + ln >= s) continue;
+      const int64_t o = (row0 + ln) * t + idx0 + r;
+      out.ts[o] = (int64_t)sg.ts[ln * kB6Stride + r];
+      out.bits[o] = (int64_t)sg.bits[ln * kB6Stride + r];
+    }
+  }
+  if (out.vec4 && cnt % 4 == 0) {
+    const int per = cnt / 4;
+    for (int k = j; k < kGroup * per; k += kGroup) {
+      const int ln = k / per, r = 4 * (k - ln * per);
+      if (row0 + ln >= s) continue;
+      const uint64_t* b = sg.bits + ln * kB6Stride + r;
+      const uint8_t* f = sg.flags + ln * kB6FlagStride + f0 + r;
+      store16(out.f32 + (row0 + ln) * t + idx0 + r, record_f32(b[0], f[0], do_f, do_i),
+              record_f32(b[1], f[1], do_f, do_i), record_f32(b[2], f[2], do_f, do_i),
+              record_f32(b[3], f[3], do_f, do_i));
+    }
+  } else {
+    for (int k = j; k < kGroup * cnt; k += kGroup) {
+      const int ln = k / cnt, r = k - ln * cnt;
+      if (row0 + ln >= s) continue;
+      const uint32_t v = record_f32(sg.bits[ln * kB6Stride + r],
+                                    sg.flags[ln * kB6FlagStride + f0 + r], do_f, do_i);
+      out.f32[(row0 + ln) * t + idx0 + r] = __int_as_float((int)v);
+    }
+  }
+}
+
+// Thread j's share of a warp's flush of the three u8 planes of the records
+// idx0 .. idx0 + cnt - 1 (idx0 a multiple of kB6FlagGroup): 16 records of a
+// series a store where the runs are aligned so, else a record a store.
+M3_HD void b6_flush_flags(const B6Stage& sg, int j, int cnt, int idx0, int64_t row0, int64_t s,
+                          int t, const RecordRows& out) {
+  if (out.vec16 && cnt % 16 == 0) {
+    const int per = cnt / 16;
+    for (int k = j; k < kGroup * per; k += kGroup) {
+      const int ln = k / per, r = 16 * (k - ln * per);
+      if (row0 + ln >= s) continue;
+      const uint8_t* f = sg.flags + ln * kB6FlagStride + r;
+      uint32_t pif[4], valid[4], mult[4];
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t x = load_u32(f + 4 * q);
+        pif[q] = x & 0x01010101u;
+        valid[q] = (x >> 1) & 0x01010101u;
+        mult[q] = (x >> 2) & 0x3F3F3F3Fu;
+      }
+      const int64_t o = (row0 + ln) * t + idx0 + r;
+      store16(out.pif + o, pif[0], pif[1], pif[2], pif[3]);
+      store16(out.mult + o, mult[0], mult[1], mult[2], mult[3]);
+      store16(out.valid + o, valid[0], valid[1], valid[2], valid[3]);
+    }
+  } else {
+    for (int k = j; k < kGroup * cnt; k += kGroup) {
+      const int ln = k / cnt, r = k - ln * cnt;
+      if (row0 + ln >= s) continue;
+      const uint32_t x = sg.flags[ln * kB6FlagStride + r];
+      const int64_t o = (row0 + ln) * t + idx0 + r;
+      out.pif[o] = (uint8_t)(x & 1u);
+      out.mult[o] = (uint8_t)(x >> 2);
+      out.valid[o] = (uint8_t)((x >> 1) & 1u);
+    }
+  }
+}
+
+// What walk_streams emits into, for a group of G lanes of one warp (lanes
+// lane0 .. lane0 + G - 1 of the warp's 32): each record into the stage;
+// after every kB6Group records (and the last) the warp's flush of ts, bits
+// and values_f32, after every kB6FlagGroup the u8 planes', then each lane's
+// ring moved to its cursor. On the card G = 1 and the 32 threads of the
+// warp each flush their share; the host runs the 32 shares in turn.
+template <int G>
+struct B6Sink {
+  B6Stage sg;
+  StreamLane* L;
+  int lane0;
+  int64_t row0, s;
+  int t;
+  RecordRows out;
+  bool any_f[G], any_i[G];  // a valid float / int record since the last flush
+
+  M3_HD void operator()(int idx, const bool* valid, const State* st) {
+    const int g = idx % kB6Group;
+    for (int i = 0; i < G; ++i) {
+      const int l = lane0 + i;
+      const bool f = st[i].is_float;
+      sg.ts[l * kB6Stride + g] = st[i].prev_time;
+      sg.bits[l * kB6Stride + g] = f ? st[i].prev_float_bits : st[i].int_val;
+      sg.flags[l * kB6FlagStride + idx % kB6FlagGroup] =
+          (uint8_t)((f ? 1u : 0u) | (valid[i] ? 2u : 0u) | ((uint32_t)st[i].mult << 2));
+      any_f[i] = (g != 0 && any_f[i]) || (valid[i] && f);
+      any_i[i] = (g != 0 && any_i[i]) || (valid[i] && !f);
+    }
+    if (g != kB6Group - 1 && idx != t - 1) return;  // the same for the whole warp
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+    const bool do_f = group_any<G>(any_f), do_i = group_any<G>(any_i);
+    const int fg = idx % kB6FlagGroup;
+    for (int j = lane0; j < lane0 + (G == 1 ? 1 : kGroup); ++j) {
+      if (g == kB6Group - 1) b6_flush_records(sg, j, kB6Group, idx - g, row0, s, t, out, do_f, do_i);
+      else b6_flush_records(sg, j, g + 1, idx - g, row0, s, t, out, do_f, do_i);
+      if (fg == kB6FlagGroup - 1) b6_flush_flags(sg, j, kB6FlagGroup, idx - fg, row0, s, t, out);
+      else if (idx == t - 1) b6_flush_flags(sg, j, fg + 1, idx - fg, row0, s, t, out);
+    }
+#ifdef __CUDA_ARCH__
+    __syncwarp();  // the stages are read before the next records land
+#endif
+    if (idx != t - 1)
+      for (int i = 0; i < G; ++i) L[i].refill(st[i].pos);
   }
 };
 
@@ -1214,30 +1529,59 @@ lane_aggregates_fields_slab_kernel(const uint32_t* __restrict__ windows, const F
 // Kernel B-6: the whole-stream decode, the port of the XLA program
 // m3_tpu/ops/decode.py:542 decode_batched (a max_points-step lax.scan over
 // every series' state, called by m3_tpu/parallel/scan.py:116
-// _local_scan_aggregate). One thread a series walks its stream from bit 0
-// for t records, with the state in registers, reading its four-word
-// fetches from device memory (a whole stream is hundreds to thousands of
-// words, far past what R's slab stage holds) and writing every record.
+// _local_scan_aggregate). Each thread walks one series from bit 0 for t
+// records with the state in registers; its warp's 32 series are 32
+// consecutive rows.
+//
 // Bound: bytes. Each series' stream words are read once and 23 bytes a
 // record written (ts, bits, values_f32, three flags): at 1,048,576 series x
 // 720 gauge points that is ~1.8 GB read and ~17.4 GB written, some 5.7 ms
-// at 3.35 TB/s (chip_smoke.py prints the bound of its run). The design is
-// the simple one: one thread's row-major stores are strided by T across a
-// warp, so each store instruction touches 32 sectors; staging records
-// through shared memory as R does (or storing time-major) is the first
-// lever, left for later.
+// at 3.35 TB/s (chip_smoke.py prints the bound of its run). A thread's own
+// row-major stores would be strided by T across its warp: each store
+// instruction touching 32 sectors for 1 to 8 bytes of each, six of them a
+// record, which took 95% of the first version's 360 ms on the H100
+// (PERF.md). So:
+// - Records go to the warp's stage in shared memory (B6Stage: ts and bits
+//   at an odd row stride, one flag byte), and every kB6Group (16) records
+//   the warp stores each series' run of ts and bits (128 bytes, a whole
+//   line) and values_f32 (64 bytes, converted there from the staged bits
+//   and flags, each conversion only if a valid record of the flush needs
+//   it) with 16-byte stores; every kB6FlagGroup (32) records the three u8
+//   planes (32 bytes a series each). Each byte of the outputs is written
+//   once. Runs of 8 records took 1.5x as long, runs of 32 cost occupancy.
+// - With the stage in shared memory the rows' lines no longer stay in L1,
+//   so each lane reads its stream through a ring of its next kB6Ring (32)
+//   words in shared memory (lane-interleaved: a warp's reads at any word
+//   indices fall in distinct banks), moved to the lane's cursor after each
+//   flush by cp.async of the words it lacks. A marker-free record is at most
+//   148 bits (a 68-bit timestamp, an 80-bit to-int value), a first one 210,
+//   so a run of 16 wide records goes past the ring, and those fetches read
+//   the row (StreamLane::fetch); the scan's gauges take ~20 bits a record
+//   and never do. Without the ring the same kernel took 1.9x as long.
+// - The record steps take walk_general's warp votes (walk_streams): 10%
+//   of the time on the scan's int gauges. Every lane of a warp stays in the
+//   loop (rows past S walk as done lanes); a warp with no series returns.
+// What remains is the walk's instructions: with its stores suppressed the
+// kernel takes 87% of its time (PERF.md).
 template <bool kIntOpt>
-__global__ void __launch_bounds__(kSlab)
+__global__ void __launch_bounds__(kB6Threads)
 decode_batched_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ num_bits,
                       const int32_t* __restrict__ initial_unit, int64_t s, int64_t w, int t,
                       RecordRows out, uint8_t* __restrict__ out_err) {
-  const int64_t row = (int64_t)blockIdx.x * kSlab + threadIdx.x;
-  if (row >= s) return;
-  const StreamLane L{words + row * w, w};
-  const int64_t base = row * t;
-  out_err[row] = walk_stream<kIntOpt>(
-      L, __ldg(num_bits + row), __ldg(initial_unit + row), t,
-      [&](int idx, bool ok, const State& st) { out.put(base + idx, st, ok); }) ? 1 : 0;
+  extern __shared__ __align__(16) uint8_t s_b6[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row0 = ((int64_t)blockIdx.x * kB6Warps + warp) * kGroup;
+  if (row0 >= s) return;  // the whole warp: no series of its own
+  const int64_t row = row0 + lane;
+  const bool live = row < s;  // a lane past the last series walks as a done lane
+  const B6Stage sg = b6_stage(s_b6 + warp * kB6WarpBytes);
+  StreamLane L = stream_lane(words, w, live ? row : 0, sg.ring + lane);
+  const int nb = live ? __ldg(num_bits + row) : 0;
+  const int unit = live ? __ldg(initial_unit + row) : 0;
+  B6Sink<1> sink{sg, &L, lane, row0, s, t, out, {}, {}};
+  bool err;
+  walk_streams<kIntOpt, 1>(&L, &nb, &unit, t, &err, sink);
+  if (live) out_err[row] = err ? 1 : 0;
 }
 
 // Launch `kernel` on a persistent grid: at most as many blocks as the card
@@ -1332,16 +1676,36 @@ extern "C" int m3_decode_batched(const uint32_t* words, const int32_t* num_bits,
                                  uint8_t* out_err, float* out_f32, void* stream) {
   if (s < 0 || w < 1 || t < 1) return (int)cudaErrorInvalidValue;
   if (s > 0) {
-    const RecordRows out{out_ts, out_bits, out_pif, out_mult, out_valid, out_f32};
-    const unsigned blocks = (unsigned)((s + kSlab - 1) / kSlab);
-    if (int_optimized)
-      decode_batched_kernel<true><<<blocks, kSlab, 0, (cudaStream_t)stream>>>(
-          words, num_bits, initial_unit, s, w, t, out, out_err);
-    else
-      decode_batched_kernel<false><<<blocks, kSlab, 0, (cudaStream_t)stream>>>(
-          words, num_bits, initial_unit, s, w, t, out, out_err);
+    const RecordRows out = record_rows(t, out_ts, out_bits, out_pif, out_mult, out_valid, out_f32);
+    const int64_t blocks = (s + kB6Threads - 1) / kB6Threads;
+    const size_t smem = kB6Warps * kB6WarpBytes;
+    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    const auto kernel = int_optimized ? decode_batched_kernel<true> : decode_batched_kernel<false>;
+    int64_t cap = 0;  // raises the kernel's shared memory limit to smem
+    const cudaError_t e = m3::resident_blocks(kernel, kB6Threads, smem, &cap);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned)blocks, kB6Threads, smem, (cudaStream_t)stream>>>(
+        words, num_bits, initial_unit, s, w, t, out, out_err);
   }
   return (int)cudaGetLastError();
+}
+
+// B-6's launch at s series (int_optimized's kernel): out[9] = warps a
+// block, blocks, blocks the card holds at once, shared memory a block,
+// registers a thread, local memory a thread, kB6Group, kB6FlagGroup,
+// kB6Ring. Returns a CUDA error code.
+extern "C" int m3_decode_batched_shape(int64_t s, int64_t* out) {
+  cudaFuncAttributes attr;
+  const size_t smem = kB6Warps * kB6WarpBytes;
+  cudaError_t e = cudaFuncGetAttributes(&attr, decode_batched_kernel<true>);
+  int64_t cap = 0;
+  if (e == cudaSuccess) e = m3::resident_blocks(decode_batched_kernel<true>, kB6Threads, smem, &cap);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t v[9] = {kB6Warps, (s + kB6Threads - 1) / kB6Threads, cap, (int64_t)smem,
+                        attr.numRegs, (int64_t)attr.localSizeBytes, kB6Group, kB6FlagGroup,
+                        kB6Ring};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 // Blocks of each kernel the card holds at once (SMs x blocks per SM) at
@@ -1434,8 +1798,9 @@ extern "C" int m3_decode_records_host(const uint32_t* windows, const uint32_t* l
   return 0;
 }
 
-// Host build of kernel B-6: each series walked as a thread of the card
-// walks it, with subnormals flushed as -ftz=true flushes them.
+// Host build of kernel B-6: each warp's 32 series walked in step as the
+// card walks them (the same votes, rings, stages and flushes), with
+// subnormals flushed as -ftz=true flushes them.
 extern "C" int m3_decode_batched_host(const uint32_t* words, const int32_t* num_bits,
                                       const int32_t* initial_unit, int64_t s, int64_t w, int t,
                                       int int_optimized, int64_t* out_ts, int64_t* out_bits,
@@ -1444,16 +1809,39 @@ extern "C" int m3_decode_batched_host(const uint32_t* words, const int32_t* num_
   if (s < 0 || w < 1 || t < 1) return 1;
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040u);  // FTZ | DAZ
-  const RecordRows out{out_ts, out_bits, out_pif, out_mult, out_valid, out_f32};
-  for (int64_t row = 0; row < s; ++row) {
-    const StreamLane L{words + row * w, w};
-    const int64_t base = row * t;
-    const auto put = [&](int idx, bool ok, const State& st) { out.put(base + idx, st, ok); };
-    const bool err = int_optimized ? walk_stream<true>(L, num_bits[row], initial_unit[row], t, put)
-                                   : walk_stream<false>(L, num_bits[row], initial_unit[row], t, put);
-    out_err[row] = err ? 1 : 0;
+  b6_far_fetches = 0;
+  const RecordRows out = record_rows(t, out_ts, out_bits, out_pif, out_mult, out_valid, out_f32);
+  std::vector<uint64_t> stage(kB6WarpBytes / 8);
+  const B6Stage sg = b6_stage(reinterpret_cast<uint8_t*>(stage.data()));
+  for (int64_t row0 = 0; row0 < s; row0 += kGroup) {
+    StreamLane L[kGroup];
+    int nb[kGroup], unit[kGroup];
+    for (int i = 0; i < kGroup; ++i) {
+      const bool live = row0 + i < s;
+      L[i] = stream_lane(words, w, live ? row0 + i : 0, sg.ring + i);
+      nb[i] = live ? num_bits[row0 + i] : 0;
+      unit[i] = live ? initial_unit[row0 + i] : 0;
+    }
+    B6Sink<kGroup> sink{sg, L, 0, row0, s, t, out, {}, {}};
+    bool err[kGroup];
+    if (int_optimized) walk_streams<true, kGroup>(L, nb, unit, t, err, sink);
+    else walk_streams<false, kGroup>(L, nb, unit, t, err, sink);
+    for (int i = 0; i < kGroup && row0 + i < s; ++i) out_err[row0 + i] = err[i] ? 1 : 0;
   }
   _mm_setcsr(csr);
+  return 0;
+}
+
+// Fetches the last m3_decode_batched_host call served from the series'
+// rows rather than their rings (records wider than a ring holds ahead).
+extern "C" int64_t m3_decode_batched_host_far_fetches() { return b6_far_fetches; }
+
+// B-6's geometry as the card's m3_decode_batched_shape reports it; the
+// card's fields (blocks, registers, ...) 0.
+extern "C" int m3_decode_batched_shape(int64_t s, int64_t* out) {
+  const int64_t v[9] = {kB6Warps, (s + kB6Threads - 1) / kB6Threads, 0, (int64_t)(kB6Warps * kB6WarpBytes),
+                        0, 0, kB6Group, kB6FlagGroup, kB6Ring};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }
 

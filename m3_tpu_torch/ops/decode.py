@@ -788,6 +788,27 @@ def _launch_batched(words, num_bits, initial_unit, t, int_optimized) -> DecodeRe
     )
 
 
+def launch_shape(s: int, device="cuda") -> dict:
+    """How kernel B-6 runs s series: warps a block (a series a lane), the
+    blocks the launch starts and those the card holds at once, shared
+    memory a block, registers and local (spilled) bytes a thread, and its
+    geometry: records between flushes of ts/bits/values_f32 (group) and of
+    the u8 planes (flag_group), words of a series' ring."""
+    import ctypes
+
+    from .. import device_guard
+    from ._build import load_library
+
+    out = (ctypes.c_int64 * 9)()
+    with device_guard(torch.device(device)):
+        rc = load_library("lane_aggregates").m3_decode_batched_shape(s, out)
+    if rc != 0:
+        raise RuntimeError(f"decode_batched launch_shape({s}): CUDA error {rc}")
+    keys = ("warps", "blocks", "resident_blocks", "smem_bytes", "registers", "local_bytes",
+            "group", "flag_group", "ring_words")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
 def decode_batched_cost(words, num_bits, initial_unit, max_points: int) -> dict:
     """Kernel B-6's work on one launch, for ``KernelProfiler.capture_cost``:
     the bytes it moves (each series' stream words up to its valid bits, at

@@ -134,6 +134,47 @@ def _synthetic_mixed():
                                         frac_annotation=0.1)
 
 
+def _long_annotation():
+    # a 300-byte annotation (2,400 bits: longer than a ring of 32 words)
+    # after 5 points ends that series with err, as the reference's decode
+    # does; the other series of its warp decode on
+    enc = jm.Encoder(START)
+    for i in range(40):
+        note = bytes(range(256)) + b"x" * 44 if i == 5 else None
+        enc.encode(START + (i + 1) * 10**9, float(i % 9), annotation=note)
+    return [enc.stream()] + _mixed_random()[:7]
+
+
+def _wide_records(int_optimized=True):
+    # nanosecond streams whose deltas jump by up to 2**40 ns (64-bit dods)
+    # carrying random floats, ~130 bits a record: a run of records goes past
+    # what a series' ring holds ahead of its cursor, so fetches read the row
+    rng = np.random.default_rng(12)
+    out = []
+    for _ in range(6):
+        enc = jm.Encoder(START, int_optimized=int_optimized, default_unit=JUnit.NANOSECOND)
+        t = START
+        for v in rng.normal(0, 1e6, 60):
+            t += int(rng.integers(1, 2**40))
+            enc.encode(t, float(v), unit=JUnit.NANOSECOND)
+        out.append(enc.stream())
+    return out
+
+
+def _tu_change_at_flush():
+    # time-unit markers on the records either side of each flush of 8, 16
+    # and 32 records (7, 8, 15, 16, 31, 32, 63, 64): a marker's record is the
+    # last of one flush or the first of the next
+    enc = jm.Encoder(START)
+    changes = {7, 8, 15, 16, 31, 32, 63, 64}
+    unit = JUnit.SECOND
+    for i in range(80):
+        if i in changes:
+            unit = JUnit.MILLISECOND if unit == JUnit.SECOND else JUnit.SECOND
+        enc.encode(START + (i + 1) * 10**9, float(i % 11), unit=unit)
+    return [enc.stream()] + _mixed_random()[:3]
+
+
 # name -> (streams, max_points or None (the most records), int_optimized
 # modes, default unit, words kept a row or None (all), host-codec parity)
 CASES = {
@@ -158,6 +199,13 @@ CASES = {
     # rows cut below the streams: every fetch past W - 1 repeats word W - 1
     "truncated_words": (_synthetic_mixed, 70, (True, False), JUnit.SECOND, 9, False),
     "one_word": (_sine, 25, (True, False), JUnit.SECOND, 1, False),
+    # a last flush of one record (121 = 15 x 8 + 1 = 7 x 16 + 9)
+    "partial_flush": (_mixed_random, 121, (True, False), JUnit.SECOND, None, True),
+    "long_annotation": (_long_annotation, None, (True,), JUnit.SECOND, None, False),
+    "wide_records": (_wide_records, None, (True,), JUnit.NANOSECOND, None, True),
+    "wide_records_float": (lambda: _wide_records(False), None, (False,), JUnit.NANOSECOND, None,
+                           True),
+    "tu_change_at_flush": (_tu_change_at_flush, None, (True,), JUnit.SECOND, None, True),
 }
 
 _cache = {}
@@ -262,7 +310,11 @@ def host_batched(tmp_path_factory):
          "-o", out, str(_build.SOURCES["lane_aggregates"][0])],
         check=True, capture_output=True, text=True,
     )
-    fn = ctypes.CDLL(out).m3_decode_batched_host
+    lib = ctypes.CDLL(out)
+    lib.m3_decode_batched_host_far_fetches.restype = ctypes.c_int64
+    lib.m3_decode_batched_shape.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    fn = lib.m3_decode_batched_host
+    fn.lib = lib
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
@@ -295,6 +347,56 @@ def test_kernel_b6_source_host_build_matches_twin(host_batched, name, int_optimi
     for f in ("ts", "bits", "point_is_float", "mult", "valid", "err"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert torch.equal(got.values_f32.view(torch.int32), want.values_f32.view(torch.int32))
+
+
+# runs of records around B-6's flushes (every 8, 16 or 32 records, the u8
+# planes every 32, 64 or 128): a last flush of 1 record, of a group less
+# one, a whole group
+FLUSH_EDGES = [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.parametrize("t", FLUSH_EDGES)
+def test_kernel_b6_host_build_flush_edges(host_batched, t):
+    """The host build == the twin at every run length around a flush, on 64
+    mixed streams (two warps: floats, counters, unit changes, annotations),
+    in both modes."""
+    _, words, nb, iu, _ = _inputs("synthetic_mixed")
+    args = _tensors(words, nb, iu)
+    for io in (True, False):
+        got = host_decode(host_batched, *args, t, io)
+        want = tdecode.decode_batched(*args, t, int_optimized=io)
+        for f in ("ts", "bits", "point_is_float", "mult", "valid", "err"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (f, io)
+        assert torch.equal(got.values_f32.view(torch.int32), want.values_f32.view(torch.int32))
+
+
+def test_kernel_b6_host_build_reads_past_the_ring(host_batched):
+    """Records wider than a ring holds ahead are read from the row (the
+    host build counts those fetches), and still equal the twin; the gauge
+    streams of the scan never leave the ring."""
+    lib = host_batched.lib
+    for name in ("wide_records", "wide_records_float"):
+        _, words, nb, iu, maxp = _inputs(name)
+        io = CASES[name][2][0]
+        args = _tensors(words, nb, iu)
+        got = host_decode(host_batched, *args, maxp, io)
+        assert lib.m3_decode_batched_host_far_fetches() > 0, name
+        want = tdecode.decode_batched(*args, maxp, int_optimized=io)
+        assert torch.equal(got.bits, want.bits) and torch.equal(got.ts, want.ts)
+    seg = tsyn.tiled_batch(40, 720, n_unique=8, seed=3)
+    host_decode(host_batched, *_tensors(seg.words, seg.num_bits, seg.initial_units()), 720, True)
+    assert lib.m3_decode_batched_host_far_fetches() == 0
+
+
+def test_kernel_b6_host_build_shape(host_batched):
+    """The geometry B-6's card build reports (the host build reports the
+    same constants, and 0 for what only the card knows)."""
+    out = (ctypes.c_int64 * 9)()
+    assert host_batched.lib.m3_decode_batched_shape(1000, out) == 0
+    warps, blocks, _, smem, _, _, group, flag_group, ring = list(out)
+    assert blocks == -(-1000 // (32 * warps))
+    assert flag_group % group == 0 and flag_group % 16 == 0 and ring & (ring - 1) == 0
+    assert smem == warps * 32 * (ring * 4 + (group + 1) * 16 + flag_group + 4)
 
 
 def test_segment_roundtrip_container():

@@ -1732,22 +1732,101 @@ def test_collect_device_memory_on_the_card(tmp_path):
     db.close()
 
 
-def _b6_inputs(name):
-    """BatchedSegments of one B-6 case: the parity kinds, the warp mixes,
-    and rows cut to 9 words (every fetch past the cut repeats word 8)."""
-    from m3_tpu_torch.segment.batched import BatchedSegments
+def _b6_streams(name):
+    """The streams of one of B-6's edge cases (see B6_CASES) and the unit
+    their decode starts from."""
+    from m3_tpu_torch.codec.m3tsz import Encoder
+    from m3_tpu_torch.utils.xtime import Unit
 
-    streams = group_streams() if name in ("groups", "cut") else _streams(name)
+    rng = np.random.default_rng(23)
+    t = [T0 + (j + 1) * 10**9 for j in range(97)]
+    ints = lambda i: [float(v) for v in rng.integers(-5000, 5000, 97) / 10 ** (i % 7)]
+    floats = lambda: [float(v) for v in rng.normal(0, 1e3, 97)]
+    if name == "ends_early":
+        # a warp's series end at records 1 .. 97 (EOS), int and float ones
+        return [encode_series(t[:n], (ints(i) if i % 2 else floats())[:n])
+                for i, n in enumerate(1 + (np.arange(64) * 37) % 97)], Unit.SECOND
+    if name == "all_int":
+        return [encode_series(t, ints(i)) for i in range(64)], Unit.SECOND
+    if name == "all_float":
+        return [encode_series(t, floats()) for _ in range(64)], Unit.SECOND
+    if name == "mixed_warps":
+        return [encode_series(t, ints(i) if i % 2 else floats()) for i in range(64)], Unit.SECOND
+    if name == "long_annotation":
+        # a 300-byte annotation after 5 points: longer than a series' ring;
+        # the reference ends that series there with err
+        enc = Encoder(T0)
+        for j in range(97):
+            enc.encode(t[j], float(j % 9), annotation=bytes(range(256)) + b"x" * 44 if j == 5
+                       else None)
+        return [enc.stream()] + group_streams()[:40], Unit.SECOND
+    if name == "wide_records":
+        # 64-bit nanosecond dods and random floats, ~130 bits a record: runs
+        # of records past what a ring holds ahead, read from the row
+        out = []
+        for _ in range(40):
+            enc = Encoder(T0, default_unit=Unit.NANOSECOND)
+            ts = T0
+            for v in rng.normal(0, 1e6, 97):
+                ts += int(rng.integers(1, 2**40))
+                enc.encode(ts, float(v), unit=Unit.NANOSECOND)
+            out.append(enc.stream())
+        return out, Unit.NANOSECOND
+    if name == "tu_at_flush":
+        # time-unit markers either side of each flush of 16 records and of
+        # the u8 planes' 32 (15, 16, 31, 32, 63, 64, 95, 96)
+        out = []
+        for k in range(33):
+            enc = Encoder(T0)
+            unit = Unit.SECOND
+            for j in range(97):
+                if j in (15, 16, 31, 32, 63, 64, 95, 96) or j == k + 40:
+                    unit = Unit.MILLISECOND if unit == Unit.SECOND else Unit.SECOND
+                enc.encode(t[j], float(j % 11), unit=unit)
+            out.append(enc.stream())
+        return out, Unit.SECOND
+    raise KeyError(name)
+
+
+def _b6_inputs(name):
+    """(BatchedSegments, T, initial unit) of one B-6 case: the parity kinds,
+    the warp mixes, rows cut to 9 words (every fetch past the cut repeats
+    word 8), run lengths around the flushes (every 16 records; the u8
+    planes every 32), series counts that leave a partial warp or block, and
+    the edge cases of _b6_streams."""
+    from m3_tpu_torch.segment.batched import BatchedSegments
+    from m3_tpu_torch.utils.xtime import Unit
+
+    t = B6_CASES[name]
+    unit = Unit.SECOND
+    if name in ("gauge", "mixed", "specials"):
+        streams = _streams(name)
+    elif name in ("groups", "cut") or name.startswith("len"):
+        streams = group_streams()
+    elif name.startswith("series"):
+        base = group_streams()
+        streams = [base[i % len(base)] for i in range(int(name[6:]))]
+    else:
+        streams, unit = _b6_streams(name)
     seg = BatchedSegments.from_streams(streams)
     if name == "cut":
         seg = BatchedSegments(words=np.ascontiguousarray(seg.words[:, :9]),
                               num_bits=seg.num_bits)
-    return seg
+    return seg, t, unit
+
+
+# name -> T (records decoded a series)
+B6_CASES = {"gauge": 120, "mixed": 120, "specials": 120, "groups": 120, "cut": 120,
+            "len1": 1, "len15": 15, "len16": 16, "len17": 17, "len31": 31, "len32": 32,
+            "len33": 33, "len121": 121, "series1": 120, "series33": 120, "series161": 120,
+            "ends_early": 120,
+            "long_annotation": 120, "wide_records": 120, "tu_at_flush": 120, "all_int": 120,
+            "all_float": 120, "mixed_warps": 120}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int_optimized", [True, False])
-@pytest.mark.parametrize("name", ["gauge", "mixed", "specials", "groups", "cut"])
+@pytest.mark.parametrize("name", list(B6_CASES))
 def test_cuda_b6_matches_twin(name, int_optimized):
     """Kernel B-6 == its twin on a CPU copy of the inputs, every field bit
     for bit (values_f32 by its bits: the kernel stores every NaN as the
@@ -1756,9 +1835,10 @@ def test_cuda_b6_matches_twin(name, int_optimized):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from m3_tpu_torch.ops import decode
 
-    seg = _b6_inputs(name)
-    args = decode.batched_device_args(seg, device="cuda")
-    t = 120
+    seg, t, unit = _b6_inputs(name)
+    words, nb, _ = decode.batched_device_args(seg, device="cuda")
+    iu = torch.from_numpy(seg.initial_units(unit).astype(np.int32)).cuda()
+    args = (words, nb, iu)
     before = decode.LAUNCHES
     got = decode.decode_batched(*args, t, int_optimized=int_optimized)
     assert decode.LAUNCHES == before + 1
@@ -1772,6 +1852,11 @@ def test_cuda_b6_matches_twin(name, int_optimized):
     assert bool(((x.view(torch.int32) == y.view(torch.int32)) | (x.isnan() & y.isnan())).all())
     if name == "groups" and int_optimized:
         assert bool(got.err.any()) and bool(got.valid.any())
+    if name == "long_annotation" and int_optimized:
+        assert bool(got.err[0]) and int(got.valid[0].sum()) == 5
+    if name == "ends_early" and int_optimized:
+        counts = got.valid.sum(1).cpu()
+        assert int(counts.min()) == 1 and int(counts.max()) == 96
 
 
 @pytest.mark.cuda
